@@ -23,6 +23,11 @@ repeat its float32 arithmetic operation for operation:
   * ``lax.cond`` becomes ``torch.where``, so nothing is read back to
     the host inside the loop.
 
+The exact order matters: with ``torch.sum``, a float32 ``torch.sqrt``
+and unfused steps the trajectory drifts across segments and the decided
+sizes change.  The price is one launch per tenant in every sum; ROADMAP
+queues removing it before monitoring reaches 256 tenants.
+
 Every operation is an elementwise IEEE op on one device, so the card and
 the CPU produce the same bits.  The greedy breakpoint partitioner
 (``greedy_allocate``) and the ETICA second level are not ported yet.

@@ -15,12 +15,15 @@
 // not n^2, and the int32 count is exact at any length (the TPU's fp32
 // accumulator is exact only below 2^24).
 //
-// What bounds it on the card. Reading each input once and writing the
-// output once is 16 n bytes (prev, nxt, occ, out: four int32 arrays); the
-// compare count is sum_i (i - prev[i] - 1) over hot rows. On window tapes
-// the compares dominate by far: rows whose intervals overlap re-read the
-// same nxt/occ words, which L1 and L2 absorb. A later version can stage
-// nxt/occ tiles in shared memory for a block of neighbouring rows.
+// What bounds it on the card. The function's floor is its bytes: reading
+// each input once and writing the output once is 16 n bytes (prev, nxt,
+// occ, out: four int32 arrays). Its operations do not bound it, since a
+// Fenwick-tree count needs only n * ceil(log2 n) of them. This design does
+// sum_i (i - prev[i] - 1) compares over hot rows, far more than either:
+// rows whose intervals overlap re-read the same nxt/occ words, which L1
+// and L2 absorb. That work, not the floor, sets its time. A later version
+// can stage nxt/occ tiles in shared memory for a block of neighbouring
+// rows, or count with a tree.
 //
 // Contract. Cold rows (prev[i] < 0) write -1 (a prefix count there would
 // cost O(i) and no caller uses it). The grid masks its own ragged edge, so
