@@ -44,9 +44,12 @@ from repro_torch.core.write_policy import WritePolicy
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cache_sim.ops import stack_distances
 
-__all__ = ["segment_links", "simulate_many"]
+__all__ = ["padded_segment_layout", "padded_tape_links", "segment_links",
+           "simulate_many"]
 
 _POLICY_CODE = {WritePolicy.WB: 0, WritePolicy.WT: 1, WritePolicy.RO: 2}
+# every padded segment width is a power of two and at least this wide
+_PAD_MIN = 64
 
 
 def segment_links(addrs: torch.Tensor, tid: torch.Tensor,
@@ -75,6 +78,83 @@ def segment_links(addrs: torch.Tensor, tid: torch.Tensor,
     nxt = torch.full((m,), m, dtype=torch.int64, device=dev)
     nxt[order[:-1]] = torch.where(same[1:], order[1:], m)
     return prev, torch.minimum(nxt, end_of), order, same
+
+
+def padded_segment_layout(bounds, device: str | torch.device | None = None):
+    """Segment-aligned power-of-two padding for a multi-segment tape.
+
+    Each non-empty segment of ``bounds`` is padded to the next power of
+    two (at least ``_PAD_MIN``) and the padded segments are laid out in
+    descending width order (stable among equal widths).  Prefix sums of
+    descending powers of two are multiples of every following width, so
+    every segment starts at a multiple of its own padded width.
+
+    Returns ``(src, tpos, base_src, base_pad, widths, total, starts)`` as
+    the reference's ``padded_segment_layout`` does, with int64 tensors on
+    ``device`` (default: the device of ``bounds``): ``src`` the original
+    tape positions of the real entries in layout order (``None`` when
+    that is ``arange``: tape order kept and no empty segment), ``tpos``
+    their padded positions, ``base_src``/``base_pad`` each entry's
+    original and padded segment start, ``widths`` the padded widths
+    (descending), ``total`` the padded length and ``starts`` each laid
+    out segment's original start.  The arithmetic is on the host: one
+    integer per segment.
+    """
+    bt = torch.as_tensor(bounds)
+    dev = torch.device(device) if device is not None else bt.device
+    b = [int(x) for x in bt.tolist()]
+    i64 = dict(dtype=torch.int64, device=dev)
+    lens = [b[k + 1] - b[k] for k in range(len(b) - 1)]
+    act = [k for k, ln in enumerate(lens) if ln > 0]
+    if not act:
+        z = torch.zeros(0, **i64)
+        return z, z, z, z, z, 0, z
+    W = [max(1 << (lens[k] - 1).bit_length(), _PAD_MIN) for k in act]
+    order = sorted(range(len(act)), key=lambda q: -W[q])   # stable
+    Ws = [W[q] for q in order]
+    Ls = [lens[act[q]] for q in order]
+    seg_starts = [b[act[q]] for q in order]
+    row_base, csl = [0], [0]
+    for wd, ln in zip(Ws[:-1], Ls[:-1]):
+        row_base.append(row_base[-1] + wd)
+        csl.append(csl[-1] + ln)
+    Ls_t = torch.tensor(Ls, **i64)
+    k = sum(Ls)
+    loc = torch.arange(k, **i64) - torch.repeat_interleave(
+        torch.tensor(csl, **i64), Ls_t)
+    base_src = torch.repeat_interleave(torch.tensor(seg_starts, **i64), Ls_t)
+    base_pad = torch.repeat_interleave(torch.tensor(row_base, **i64), Ls_t)
+    identity = (len(act) == len(lens) and b[0] == 0
+                and all(x >= y for x, y in zip(W[:-1], W[1:])))
+    src = None if identity else base_src + loc
+    return (src, base_pad + loc, base_src, base_pad, torch.tensor(Ws, **i64),
+            sum(Ws), torch.tensor(seg_starts, **i64))
+
+
+def padded_tape_links(prev: torch.Tensor, nxt: torch.Tensor, layout
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scatter severed/clamped occurrence links onto the padded tape.
+
+    ``prev``/``nxt`` live on the original multi-segment tape (links
+    severed at segment boundaries, ``nxt`` clamped to the segment end);
+    ``layout`` is its ``padded_segment_layout``.  Returns ``(gprev, gnxt,
+    gocc)`` on the padded tape: real entries carry their links shifted
+    into padded coordinates, pad rows the cold, non-occupying sentinels
+    (``gprev = -1``, self-``gnxt``, ``gocc = 0``), which add nothing to
+    any in-segment count.
+    """
+    src, tpos, base_src, base_pad, _, total, _ = layout
+    dev = prev.device
+    if src is None:                              # layout kept tape order
+        src = torch.arange(prev.shape[0], dtype=torch.int64, device=dev)
+    ps = prev[src]
+    gprev = torch.full((total,), -1, dtype=torch.int64, device=dev)
+    gprev[tpos] = torch.where(ps >= 0, tpos - src + ps, -1)
+    gnxt = torch.arange(total, dtype=torch.int64, device=dev)
+    gnxt[tpos] = base_pad + (nxt[src] - base_src)
+    gocc = torch.zeros(total, dtype=torch.int32, device=dev)
+    gocc[tpos] = 1
+    return gprev, gnxt, gocc
 
 
 def _ro_token_replay(is_read_blk: torch.Tensor, prev_blk: torch.Tensor,

@@ -12,17 +12,18 @@
     LRU-first on shrink) and switches write policies.
 
 Port of ``repro.core.manager`` for the fixed-Δt, single-level,
-fault-free deployment with exact monitoring (fewer than 256 tenants):
-each ``run_window`` replays every tenant's window in one
-``batch_sim.simulate_many`` pass, reuses that pass's reuse distances in
+fault-free deployment: each ``run_window`` replays every tenant's window
+in one ``batch_sim.simulate_many`` pass, analyzes it with
 ``monitor.analyze_windows``, solves Eq. 2 with ``pgd_solve``, checks the
-decision with ``guard.validate_decision`` and actuates it.  Everything
-runs on the manager's ``device`` — the CUDA card unless the caller asks
-for the CPU.  The reference's other paths (event-driven
-reconfiguration, fault injection and the degradation ladder, the device
-and sharded pipelines, the two-level hierarchy, the per-access
-interpreter, SHARDS sampling) raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+decision with ``guard.validate_decision`` and actuates it.  The monitor
+is exact below ``auto_sample_tenants`` (256) tenants, reusing the replay
+pass's reuse distances, and SHARDS-sampled from there on (or whenever
+``sample_rate`` is set; see ``effective_sample_rate``).  Everything runs
+on the manager's ``device`` — the CUDA card unless the caller asks for
+the CPU.  The reference's other paths (event-driven reconfiguration,
+fault injection and the degradation ladder, the device and sharded
+pipelines, the two-level hierarchy, the per-access interpreter) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -97,6 +98,8 @@ class AnalyzerDecision:
     trigger: tuple[ReconfigEvent, ...] = ()
     # guard violations detected (non-empty = an actuated violation)
     guard: tuple[str, ...] = ()
+    # the monitor's SHARDS rate per analyzed tenant (1.0 = exact)
+    sample_rates: torch.Tensor | None = None
 
 
 class ECICacheManager:
@@ -107,6 +110,12 @@ class ECICacheManager:
     Alg. 3, ``t_fast``/``t_slow`` the fast/slow tier service times.
     ``rd_kind='trd'`` + ``adaptive_policy=False`` turns this manager into
     the **Centaur** baseline (TRD sizing, WB everywhere).
+
+    ``sample_rate`` selects the Monitor's SHARDS spatial sampling:
+    ``None`` (exact below ``auto_sample_tenants`` tenants, ``"auto"``
+    from there on), a fixed rate in (0, 1], or ``"auto"`` (aim for
+    ``sample_target`` kept accesses per tenant window, exact below
+    ``sample_floor``).
 
     ``device`` is where the replay, the monitor and the partitioner run:
     ``None`` means the CUDA card (an error names ``device="cpu"`` when
@@ -127,6 +136,7 @@ class ECICacheManager:
                  # the goldens in test_torch_control_loop.
                  adaptive_policy: bool = True,  # repro-lint: disable=RL003
                  sample_rate: float | str | None = None,
+                 sample_target: int = 4096, sample_floor: int = 256,
                  initial_blocks: int | None = None,
                  percentile: float = 100.0,
                  partition_fn: Callable = pgd_solve,
@@ -153,9 +163,6 @@ class ECICacheManager:
         if faults is not None or fault_tolerant:
             raise _not_ported("fault injection and the degradation ladder",
                               "modules queue, characterize/faults/scenarios")
-        if sample_rate is not None:
-            raise _not_ported("SHARDS-sampled monitoring (sample_rate)",
-                              "modules queue, SHARDS")
         self.device = resolve_device(device)
         self.profile = profile
         self.capacity = int(capacity)
@@ -167,6 +174,9 @@ class ECICacheManager:
         self.flush_cost = float(flush_cost)
         self.rd_kind = rd_kind
         self.adaptive_policy = adaptive_policy
+        self.sample_rate = sample_rate
+        self.sample_target = int(sample_target)
+        self.sample_floor = int(sample_floor)
         self.auto_sample_tenants = int(auto_sample_tenants)
         self.percentile = percentile
         self.partition_fn = partition_fn
@@ -203,6 +213,13 @@ class ECICacheManager:
         t.cache.resize(0)
 
     # ------------------------------------------------------------ Analyzer
+    def effective_sample_rate(self) -> float | str | None:
+        """Resolve the Monitor's sampling mode for the current deployment."""
+        if self.sample_rate is None \
+                and len(self.tenants) >= self.auto_sample_tenants:
+            return "auto"
+        return self.sample_rate
+
     def _build_decision(self, mon, act: list[int],
                         trigger: tuple[ReconfigEvent, ...]
                         ) -> tuple[AnalyzerDecision, torch.Tensor]:
@@ -237,7 +254,8 @@ class ECICacheManager:
         decision = AnalyzerDecision(sizes_full,
                                     [t.policy for t in self.tenants],
                                     part.feasible, part,
-                                    trigger=tuple(trigger))
+                                    trigger=tuple(trigger),
+                                    sample_rates=mon.sample_rates.cpu())
         return decision, floors
 
     def analyze(self, window_trd: dict[int, torch.Tensor] | None = None,
@@ -246,25 +264,26 @@ class ECICacheManager:
         """Alg. 1 / Alg. 4: run at every Δt window boundary.
 
         All active tenants are analyzed in one fused pass
-        (``analyze_windows``); ``window_trd`` carries the per-tenant TRD
-        sample tensors the batch engine already counted, which the exact
-        path reuses instead of re-counting.  The decision is checked by
-        the guard; a violation is recorded on the decision (and counted
-        when actuated).
+        (``analyze_windows``), SHARDS-sampled when
+        ``effective_sample_rate()`` says so; ``window_trd`` carries the
+        per-tenant TRD sample tensors the batch engine already counted,
+        which the exact path reuses instead of re-counting.  The decision
+        is checked by the guard; a violation is recorded on the decision
+        (and counted when actuated).
         """
         window_trd = window_trd or {}
-        if len(self.tenants) >= self.auto_sample_tenants:
-            raise _not_ported(
-                f"monitoring {len(self.tenants)} tenants (the reference "
-                f"samples with SHARDS from {self.auto_sample_tenants} on)",
-                "modules queue, SHARDS")
+        rate = self.effective_sample_rate()
         act = [i for i, t in enumerate(self.tenants) if t.active]
         with pstage(self.profile, "monitor"):
             mon = analyze_windows(
                 [self.tenants[i].window_trace() for i in act],
                 kind=self.rd_kind, percentile=self.percentile,
-                precomputed_trd=[window_trd.get(i) for i in act],
-                device=self.device)
+                sample_rate=rate, window_seed=self.windows_analyzed,
+                sample_target=self.sample_target,
+                sample_floor=self.sample_floor,
+                precomputed_trd=(None if rate is not None
+                                 else [window_trd.get(i) for i in act]),
+                tenant_ids=act, device=self.device)
         self.windows_analyzed += 1
         decision, floors = self._build_decision(mon, act, trigger)
         report = validate_decision(decision, self.capacity, floors=floors,

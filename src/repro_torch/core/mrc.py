@@ -176,6 +176,7 @@ class BatchedHitRatioFunctions:
 
 def build_hit_ratio_functions(dist: torch.Tensor, tid: torch.Tensor,
                               n_tenants: int, n_accesses: torch.Tensor,
+                              rates: torch.Tensor | None = None,
                               mask: torch.Tensor | None = None
                               ) -> BatchedHitRatioFunctions:
     """Batched ``build_hit_ratio_function``: every tenant in one sort.
@@ -185,7 +186,9 @@ def build_hit_ratio_functions(dist: torch.Tensor, tid: torch.Tensor,
     counts come from one sort of composite keys and segmented reductions;
     plateau heights are the same integer cumsums over the same
     denominators as the per-tenant constructor.  ``mask`` selects the
-    samples (default: ``dist >= 0``).
+    samples (default: ``dist >= 0``).  ``rates`` (per-tenant SHARDS rates)
+    switches the heights to the scaled-and-clipped sampled estimator
+    ``min(cum / (n_acc * r), 1)``, in the reference's operation order.
     """
     dev = dist.device
     n_acc = torch.clamp(torch.as_tensor(n_accesses, dtype=torch.int64,
@@ -231,6 +234,11 @@ def build_hit_ratio_functions(dist: torch.Tensor, tid: torch.Tensor,
                 - torch.repeat_interleave(starts, seg_lens))
         dst = off[t_u] + 1 + rank
         edges[dst] = sizes_u
-        heights[dst] = (cum_in.to(torch.float64)
-                        / n_acc[t_u].to(torch.float64))
+        cum = cum_in.to(torch.float64)
+        den = n_acc[t_u].to(torch.float64)
+        if rates is None:
+            heights[dst] = cum / den
+        else:
+            r = torch.as_tensor(rates, dtype=torch.float64, device=dev)
+            heights[dst] = torch.clamp(cum / (den * r[t_u]), max=1.0)
     return BatchedHitRatioFunctions(edges, heights, off, n_acc)

@@ -8,29 +8,43 @@
 ``fmincon`` analog): projected-gradient descent in float32 on the
 piecewise-linear relaxation of each H_i, with a bisection projection onto
 { sum c <= C } ∩ box, then a snap down to breakpoints and a greedy
-repair.  It is a port of the reference's jitted JAX loop, written to
-repeat its float32 arithmetic operation for operation:
+repair.  It is a port of the reference's jitted JAX loop:
 
   * the relaxation tables are resampled in float64 exactly as
     ``np.linspace`` + ``np.interp`` do, then rounded to float32;
   * the gradient of ``jnp.interp`` is the active segment's slope,
     ``(ct * df) / dx`` with ``ct = w * t_fast - w * t_slow``;
-  * sums over tenants run left to right (XLA's CPU order for up to 32
-    elements); the squared norm and the step are fused multiply-adds
-    (XLA contracts them), emulated in float64: the product is exact
-    there and the sum rounds twice, which can differ from one rounding
-    only on an exact float32 halfway case;
+  * square roots are correctly rounded float32 roots (``_sqrt32``), as
+    XLA's are;
   * ``lax.cond`` becomes ``torch.where``, so nothing is read back to
     the host inside the loop.
 
-The exact order matters: with ``torch.sum``, a float32 ``torch.sqrt``
-and unfused steps the trajectory drifts across segments and the decided
-sizes change.  The price is one launch per tenant in every sum; ROADMAP
-queues removing it before monitoring reaches 256 tenants.
+Sums over tenants take one of two routes, split at 32 tenants:
 
-Every operation is an elementwise IEEE op on one device, so the card and
-the CPU produce the same bits.  The greedy breakpoint partitioner
-(``greedy_allocate``) and the ETICA second level are not ported yet.
+  * **Up to 32 tenants** they repeat XLA's CPU float32 order: left to
+    right, with the squared norm and the step as fused multiply-adds
+    (XLA contracts them), emulated in float64 — the product is exact
+    there and the sum rounds twice, which can differ from one rounding
+    only on an exact float32 halfway case.  The relaxed optimum is then
+    bit-identical to the reference's (with ``torch.sum``, a float32
+    ``torch.sqrt`` and unfused steps the trajectory drifts across
+    segments and the decided sizes change).  The price is one launch
+    per tenant in every sum.
+  * **Past 32 tenants** XLA vectorises its sums, and no order the port
+    can pick repeats it (none of left to right, or 4, 8, 16 or 32 lanes
+    closed left to right or as a tree, matches its 256-element float32
+    sum on most inputs).  So these sums are a pairwise tree instead:
+    zero-padded to a power of two and halved, ⌈log2 n⌉ elementwise adds
+    with no loop over tenants, and squares rounded to float32 before
+    they are summed.  The relaxed optimum then differs from the
+    reference's in the last bits (``tests/test_torch_core.py`` states
+    the tolerance), and a decided size can differ only where the
+    optimum lies at a breakpoint.
+
+Every operation is an elementwise IEEE op or an exact reduction on one
+device, so the card and the CPU produce the same bits on both routes.
+The greedy breakpoint partitioner (``greedy_allocate``) and the ETICA
+second level are not ported yet.
 """
 from __future__ import annotations
 
@@ -89,6 +103,10 @@ def two_level_solve(hs, capacity: int, capacity2: int, t_fast: float,
     return fn(hs, capacity, t_fast, t_slow, c_min=c_min, **kw), None
 
 
+# XLA's CPU float32 sums run left to right up to this many elements
+_SEQ_MAX = 32
+
+
 def _seq_sum(x: torch.Tensor) -> torch.Tensor:
     """float32 sum over the last axis, left to right."""
     s = x[..., 0]
@@ -97,9 +115,30 @@ def _seq_sum(x: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def _seq_sum_squares(x: torch.Tensor) -> torch.Tensor:
-    """Left-to-right float32 sum of squares with each step a fused
-    multiply-add (the product is exact in float64)."""
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the last axis as a pairwise tree: zero-padded to
+    a power of two, then halved (element k added to element k + h)."""
+    n = x.shape[-1]
+    p = 1 << (n - 1).bit_length()
+    if p != n:
+        x = torch.nn.functional.pad(x, (0, p - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over tenants: XLA's order up to 32, the tree past it."""
+    return _seq_sum(x) if x.shape[-1] <= _SEQ_MAX else _tree_sum(x)
+
+
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """Sum of squares over tenants.  Up to 32: left to right, each step a
+    fused multiply-add (the product is exact in float64); past 32: the
+    float32 squares summed by the tree."""
+    if x.shape[-1] > _SEQ_MAX:
+        return _tree_sum(x * x)
     x64 = x.to(torch.float64)
     s = torch.zeros((), dtype=torch.float32, device=x.device)
     for k in range(x.shape[-1]):
@@ -108,9 +147,22 @@ def _seq_sum_squares(x: torch.Tensor) -> torch.Tensor:
 
 
 def _sqrt32(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root (torch's CPU float32 kernel
-    is not; the float64 root rounds correctly to float32)."""
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    """Correctly rounded float32 square root of a float32 tensor.
+
+    Neither torch's float32 nor its CPU float64 root is always correctly
+    rounded, so the float64 root, rounded to float32, is corrected by one
+    exact test: a float32 neighbour's midpoint has 25 significant bits,
+    so its square is exact in float64 and compares exactly with ``x``
+    (and never ties with it).  The result is the same on every device.
+    """
+    f = torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    x64, f64 = x.to(torch.float64), f.to(torch.float64)
+    up = torch.nextafter(f, torch.full_like(f, float("inf")))
+    dn = torch.nextafter(f, torch.zeros_like(f))
+    mid_up = (f64 + up.to(torch.float64)) * 0.5
+    mid_dn = (f64 + dn.to(torch.float64)) * 0.5
+    return torch.where(mid_up * mid_up < x64, up,
+                       torch.where(mid_dn * mid_dn > x64, dn, f))
 
 
 def _project_capacity_box(c: torch.Tensor, lo: torch.Tensor,
@@ -124,10 +176,10 @@ def _project_capacity_box(c: torch.Tensor, lo: torch.Tensor,
     thi = torch.max(c - lo) + 1.0
     for _ in range(iters):
         mid = 0.5 * (tlo + thi)
-        over = _seq_sum(torch.clamp(c - mid, lo, hi)) > capacity
+        over = _sum(torch.clamp(c - mid, lo, hi)) > capacity
         tlo, thi = torch.where(over, mid, tlo), torch.where(over, thi, mid)
     bis = torch.clamp(c - 0.5 * (tlo + thi), lo, hi)
-    return torch.where(_seq_sum(c0) > capacity, bis, c0)
+    return torch.where(_sum(c0) > capacity, bis, c0)
 
 
 def _interp_grad(c: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
@@ -156,10 +208,10 @@ def _pgd_core(xs: torch.Tensor, ys: torch.Tensor, lo: torch.Tensor,
     sqrt_n = _sqrt32(torch.tensor(float(n), dtype=torch.float32,
                                   device=xs.device)).to(torch.float64)
     ct = w * t_fast + -(w * t_slow)              # d objective / d h_i
-    c = _project_capacity_box(hi * cap / (_seq_sum(hi) + 1e-9), lo, hi, cap)
+    c = _project_capacity_box(hi * cap / (_sum(hi) + 1e-9), lo, hi, cap)
     for _ in range(steps):
         g = _interp_grad(c, xs, ys, ct)
-        step = lr * g / (_sqrt32(_seq_sum_squares(g)) + 1e-9)
+        step = lr * g / (_sqrt32(_sum_squares(g)) + 1e-9)
         c = (c.to(torch.float64) - step.to(torch.float64) * sqrt_n) \
             .to(torch.float32)                   # fused multiply-add
         c = _project_capacity_box(c, lo, hi, cap)
