@@ -7,36 +7,50 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases:
   1. print the card (``nvidia-smi`` name and power limit, torch's name);
-  2. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc``, one
-     ``nvcc`` per source, all started together;
+  2. build the four CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
+     one ``nvcc`` per source, all started together;
   3. hold each kernel against its plain PyTorch version on the card,
      exactly: ``cache_sim_scan`` vs the dense ``cache_sim_ref`` at tape
      lengths 1 .. 32768 (multi-tenant severed links, cold rows,
-     ``occ = 1`` and ``occ = is_read``), and ``cache_sim_segments_scan``
-     vs the dense ``cache_sim_segments_ref`` on padded multi-tenant
-     tapes of widths 64 .. 8192 and 16384 (wider than one shared-memory
-     stage), with ragged segments and an empty tenant;
+     ``occ = 1`` and ``occ = is_read``); ``cache_sim_segments_scan`` vs
+     the dense ``cache_sim_segments_ref`` on padded multi-tenant tapes of
+     widths 64 .. 8192 and 16384 (wider than one shared-memory stage);
+     ``cache_sim_levels_scan`` vs ``cache_sim_levels_ref`` and
+     ``live_count_scan`` vs ``live_counts_ref`` and ``live_counts_delta``
+     at n = 1 .. 65,536 (ragged tenant blocks; cap1 = 0, cap1 = captot
+     and varying rows; rows with nxt = -1, j and n);
   4. drive slice 1's path — ``make_manager("eci", 6000, ...)`` over 16
      tenants, three Δt windows of 65,536 accesses each — on the card with
-     every kernel launch counter set to 0 just before and read just
-     after; then run the same windows through the port on the CPU and
-     require equal sizes, policies, feasibility, per-tenant counts,
-     final LRU states, and latencies to rel 1e-12;
+     every kernel launch counter set to 0 just before each window and
+     read just after; then run the same windows through the port on the
+     CPU and require equal sizes, policies, feasibility, per-tenant
+     counts, final LRU states, summaries, and latencies to rel 1e-12;
   5. drive the SHARDS path — ``make_manager("eci", 96000, ...)`` over 256
      tenants (the 16 MSR profiles x 16), two windows of 65,536 accesses
      per tenant, which the manager monitors sampled by itself (rate
-     1/16) — the same way, counters zeroed just before and read just
-     after, every window launching ``cache_sim_segments_scan``; then the
-     same windows on the CPU (window 1 only while the run is inside its
-     time budget; a cut is printed), compared as in phase 4, sample
-     rates included;
-  6. hold each kernel against its merge-tree route at the full tape of
-     its path's window 0 (``cache_sim_scan``: the 16-tenant replay tape;
-     ``cache_sim_segments_scan``: the 256-tenant sampled tape, one launch
-     per padded width) and time both (CUDA events), beside the bound of
-     the function it computes (the larger of its bytes at the memory
-     rate and a tree count's operations at the 32-bit rate);
-  7. print the kernels line, the card line and, last, the result line.
+     1/16) — the same way, every window launching
+     ``cache_sim_segments_scan``; then the same windows on the CPU
+     (window 1 only while the run is inside its time budget; a cut is
+     printed), compared as in phase 4, sample rates included;
+  6. drive the ETICA path — ``make_manager("etica", 6000, ..., capacity2=
+     24000, t_fast2=4.0)``, slice 1's windows — the same way, compared
+     with the CPU level by level (sizes2, policies2, L2 counts, both
+     levels' states, ``ro_fallback_windows``); before each window the
+     tenants' two levels are cloned and the window replayed on the
+     clones through ``simulate_many(return_window_rd=False)`` on the card
+     (the ``cache_sim_levels_scan`` route, its launches counted there),
+     with ``return_window_rd=True`` (``cache_sim_scan``) and on the CPU,
+     all three equal; window 0 is also run through ``engine="lru"`` on
+     the host;
+  7. drive the pressure path — the same deployment at capacity 1200 /
+     3600 with ``w_threshold=0`` (every tenant RO after window 0), two
+     windows — compared with the CPU; at least one tenant-window must
+     take the two-level token replay and none the interpreter;
+  8. time each kernel at a full tape of its path (CUDA events) beside its
+     plain version and the bound of the function it computes (the larger
+     of its bytes at the memory rate and a tree count's operations at
+     the 32-bit rate), holding it against the plain version there too;
+  9. print the kernels line, the card line and, last, the result line.
 
 Exits non-zero, printing no result, when no card is visible or any
 phase fails.
@@ -71,6 +85,11 @@ MSR_16 = ["wdev_0", "web_1", "stg_1", "ts_0", "hm_1", "mds_0", "proj_0",
 # the SHARDS path: 256 tenants, the manager's own sampling threshold
 SHARDS_NAMES = [f"{p}#{k}" for k in range(16) for p in MSR_16]
 SHARDS_WINDOWS, SHARDS_CAPACITY = 2, 96000
+# the ETICA path (benchmarks/bench_etica_two_level.py:31-33: L2 four times
+# L1, t_fast2 = 4.0) and its all-RO pressure mix (PRESSURE_CAP1 / CAP1 =
+# 0.2, PRESSURE_CAP2 / PRESSURE_CAP1 = 3)
+ETICA_CAP1, ETICA_CAP2, T_FAST2 = 6000, 24000, 4.0
+PRESSURE_CAP1, PRESSURE_CAP2, PRESSURE_WINDOWS = 1200, 3600, 3
 # the CPU comparison of the SHARDS path runs window 1 only while the
 # whole run stays inside this many seconds (10 of its 20 minutes)
 CPU_BUDGET_S = 600.0
@@ -190,39 +209,80 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+KERNEL_NAMES = ("cache_sim_scan", "cache_sim_segments_scan",
+                "cache_sim_levels_scan", "live_count_scan")
+STAGES = ("tape", "ro_replay", "count", "replay", "monitor", "pgd")
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels.cache_sim import kernel
+    for name in KERNEL_NAMES:
+        getattr(kernel, name).launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    from repro_torch.kernels.cache_sim import kernel
+    return {name: getattr(kernel, name).launches for name in KERNEL_NAMES}
+
+
+def states_of(mgr) -> list:
+    """Both levels' LRU states (addrs, dirty) of every tenant, on the
+    host."""
+    return [tuple(x.cpu() for x in t.cache.state_arrays())
+            + tuple(x.cpu() for x in t.cache2.state_arrays())
+            for t in mgr.tenants]
+
+
 def run_windows(device, windows, names, capacity, profile=None,
-                deadline=None):
-    """Run the windows through the ECI manager; returns the manager, the
-    per-window wall times, each window's curves, each window's
-    cumulative per-tenant counts and each window's launches of the
-    segments kernel.  With ``deadline`` (a ``time.perf_counter`` value),
-    a window starts only if the last one would still end before it."""
+                deadline=None, scheme="eci", before_window=None,
+                engine="batch", **kw):
+    """Run the windows through ``make_manager(scheme, ...)``; returns the
+    manager and per-window records: wall time, curves, cumulative
+    per-tenant counts, kernel launches, stage times and peak device
+    memory, and both levels' LRU states after the window.  The launch
+    counters are set to 0 just before each ``run_window`` and read just
+    after.  ``before_window(mgr, w, traces)`` runs first in each window
+    (its own launches are not counted).  With ``deadline`` (a
+    ``time.perf_counter`` value), a window starts only if the last one
+    would still end before it."""
     from repro_torch.core import make_manager
-    from repro_torch.kernels.cache_sim.kernel import cache_sim_segments_scan
-    mgr = make_manager("eci", capacity, names, c_min=50, initial_blocks=100,
-                       engine="batch", t_fast=1.0, t_slow=20.0,
-                       flush_cost=10.0, device=device, profile=profile)
-    walls, curves, counts, seg = [], [], [], []
-    for traces in windows:
-        if deadline is not None and walls \
-                and time.perf_counter() + walls[-1] > deadline:
+    mgr = make_manager(scheme, capacity, names, c_min=50, initial_blocks=100,
+                       engine=engine, t_fast=1.0, t_slow=20.0,
+                       flush_cost=10.0, device=device, profile=profile, **kw)
+    rec = collections.defaultdict(list)
+    cuda = mgr.device.type == "cuda"
+    for w, traces in enumerate(windows):
+        if deadline is not None and rec["walls"] \
+                and time.perf_counter() + rec["walls"][-1] > deadline:
             break
-        before = cache_sim_segments_scan.launches
+        if before_window is not None:
+            before_window(mgr, w, traces)
+        st0 = dict(profile.times) if profile is not None else {}
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
         t0 = time.perf_counter()
         mgr.run_window(traces)
-        if mgr.device.type == "cuda":
+        if cuda:
             torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        seg.append(cache_sim_segments_scan.launches - before)
-        curves.append([t.h_fn for t in mgr.tenants])
-        counts.append([dataclasses.asdict(t.result) for t in mgr.tenants])
-    return mgr, walls, curves, counts, seg
+        rec["walls"].append(time.perf_counter() - t0)
+        rec["launches"].append(read_counts())
+        rec["peak"].append(torch.cuda.max_memory_allocated() if cuda else 0)
+        rec["stages"].append({k: profile.times.get(k, 0.0) - st0.get(k, 0.0)
+                              for k in STAGES} if profile is not None
+                             else {})
+        rec["curves"].append([t.h_fn for t in mgr.tenants])
+        rec["counts"].append([dataclasses.asdict(t.result)
+                              for t in mgr.tenants])
+        rec["states"].append(states_of(mgr))
+    return mgr, rec
 
 
 def near_breakpoint(part, curves, tol: float = 1e-3) -> bool:
     """True when some tenant's relaxed optimum lies within ``tol`` blocks
     of one of its breakpoints (a float32 tie of the snap)."""
-    if part.relaxed is None:
+    if part is None or part.relaxed is None:
         return False
     for c, h in zip(part.relaxed.tolist(), curves):
         e = h.edges.to(torch.float64).cpu()
@@ -231,62 +291,93 @@ def near_breakpoint(part, curves, tol: float = 1e-3) -> bool:
     return False
 
 
-def compare_counts(w: int, got, want) -> None:
-    """Per-tenant counts after window ``w`` (latency to rel 1e-12)."""
+def compare_counts(w: int, got, want, rel: float = 1e-12) -> None:
+    """Per-tenant counts after window ``w`` (latency to ``rel``)."""
     for i, (rg, rc) in enumerate(zip(got, want)):
+        rg, rc = dict(rg), dict(rc)
         lat_g, lat_c = rg.pop("total_latency"), rc.pop("total_latency")
         assert rg == rc, f"window {w}, tenant {i}: {rg} vs {rc}"
-        assert abs(lat_g - lat_c) <= 1e-12 * abs(lat_c), \
+        assert abs(lat_g - lat_c) <= rel * abs(lat_c), \
             f"window {w}, tenant {i}: latency {lat_g} vs {lat_c}"
 
 
-def compare_runs(gpu, gpu_curves, gpu_counts, cpu, cpu_curves,
-                 cpu_counts) -> None:
+def compare_states(what: str, got, want) -> None:
+    for i, (sg, sc) in enumerate(zip(got, want)):
+        assert all(torch.equal(a, b) for a, b in zip(sg, sc)), \
+            f"{what}, tenant {i}: final LRU state differs"
+
+
+def pgd_tie(dg, dc, curves) -> str | None:
+    """Which stage's sizes differ at a PGD tie ("L1" or "L2"), or None
+    when they are equal.  Raises unless the stage is infeasible on both
+    devices and both relaxed optima lie within 1e-3 of a breakpoint (of
+    the residual curves, for L2)."""
+    if dg.sizes.tolist() != dc.sizes.tolist():
+        stage, pg, pc, cg = "L1", dg.partition, dc.partition, curves
+    elif dg.sizes2 is not None and \
+            dg.sizes2.tolist() != dc.sizes2.tolist():
+        stage, pg, pc = "L2", dg.partition2, dc.partition2
+        cg = [h.shifted(int(s)) for h, s in zip(curves, dg.sizes.tolist())]
+    else:
+        return None
+    if not (not pg.feasible and not pc.feasible
+            and near_breakpoint(pg, cg) and near_breakpoint(pc, cg)):
+        raise AssertionError(f"{stage} sizes differ: card "
+                             f"{(dg.sizes if stage == 'L1' else dg.sizes2).tolist()}"
+                             f" vs CPU "
+                             f"{(dc.sizes if stage == 'L1' else dc.sizes2).tolist()}")
+    return stage
+
+
+def compare_runs(gpu, grec, cpu, crec) -> None:
     """Decisions and per-tenant results of the card run equal the CPU run
     (latency floats to rel 1e-12), window by window.
 
-    A PGD tie (sizes differ, both runs infeasible, both relaxed optima
-    within 1e-3 of a breakpoint) is reported, not hidden. Its window's
-    policies, feasibility and replay counts are still compared, since
-    they do not depend on the snap; the later windows replay different
-    sizes and are not."""
+    A PGD tie (in either stage: sizes differ, both runs infeasible there,
+    both relaxed optima within 1e-3 of a breakpoint) is reported, not
+    hidden. Its window's policies, feasibility and replay counts are
+    still compared, since they do not depend on the snap; the later
+    windows replay different sizes and are not."""
     tie_at = None
     for w, (dg, dc) in enumerate(zip(gpu.history, cpu.history)):
         assert [p.value for p in dg.policies] == \
             [p.value for p in dc.policies], f"window {w}: policies differ"
+        assert [p.value for p in dg.policies2] == \
+            [p.value for p in dc.policies2], f"window {w}: L2 policies"
         assert dg.feasible == dc.feasible, f"window {w}: feasibility"
         assert torch.equal(dg.sample_rates, dc.sample_rates), \
             f"window {w}: sample rates"
-        compare_counts(w, gpu_counts[w], cpu_counts[w])
-        if dg.sizes.tolist() != dc.sizes.tolist():
-            if not (not dg.feasible
-                    and near_breakpoint(dg.partition, gpu_curves[w])
-                    and near_breakpoint(dc.partition, cpu_curves[w])):
-                raise AssertionError(f"window {w}: sizes differ: card "
-                                     f"{dg.sizes.tolist()} vs CPU "
-                                     f"{dc.sizes.tolist()}")
-            print(f"PGD TIE in window {w}: relaxed optimum within 1e-3 "
-                  f"of a breakpoint on both devices; card sizes "
-                  f"{dg.sizes.tolist()} guard {dg.guard} vs CPU "
-                  f"{dc.sizes.tolist()} guard {dc.guard}; policies, "
+        compare_counts(w, grec["counts"][w], crec["counts"][w])
+        stage = pgd_tie(dg, dc, grec["curves"][w])
+        if stage is not None:
+            print(f"PGD TIE in window {w} ({stage}): relaxed optimum within "
+                  f"1e-3 of a breakpoint on both devices; card sizes "
+                  f"{dg.sizes.tolist()} / {dg.sizes2.tolist()} guard "
+                  f"{dg.guard} vs CPU {dc.sizes.tolist()} / "
+                  f"{dc.sizes2.tolist()} guard {dc.guard}; policies, "
                   f"feasibility and counts through window {w} equal; "
                   f"later windows are not compared")
             tie_at = w
             break
         assert dg.guard == dc.guard, f"window {w}: guard {dg.guard}"
-        if dg.partition.relaxed is not None:
-            same = torch.equal(dg.partition.relaxed, dc.partition.relaxed)
-            print(f"window {w}: PGD relaxed optimum bit-identical card vs "
-                  f"CPU: {same}")
-        lat_g, lat_c = dg.partition.latency, dc.partition.latency
-        assert abs(lat_g - lat_c) <= 1e-12 * abs(lat_c), \
-            f"window {w}: partition latency {lat_g} vs {lat_c}"
-    if tie_at is not None or len(cpu.history) < len(gpu.history):
-        return              # later windows replayed other sizes, or cut
-    for i, (tg, tc) in enumerate(zip(gpu.tenants, cpu.tenants)):
-        (ag, fg), (ac, fc) = tg.cache.state_arrays(), tc.cache.state_arrays()
-        assert torch.equal(ag.cpu(), ac) and torch.equal(fg.cpu(), fc), \
-            f"tenant {i}: final LRU state differs"
+        compare_states(f"window {w}", grec["states"][w], crec["states"][w])
+        for tag, pg, pc in (("L1", dg.partition, dc.partition),
+                            ("L2", dg.partition2, dc.partition2)):
+            if pg is None:
+                continue
+            if pg.relaxed is not None:
+                same = torch.equal(pg.relaxed, pc.relaxed)
+                print(f"window {w}: {tag} PGD relaxed optimum "
+                      f"bit-identical card vs CPU: {same}")
+            assert abs(pg.latency - pc.latency) <= 1e-12 * abs(pc.latency), \
+                f"window {w}: {tag} partition latency {pg.latency} vs " \
+                f"{pc.latency}"
+    if tie_at is None and len(cpu.history) == len(gpu.history):
+        sg, sc = gpu.summary(), cpu.summary()
+        for k, v in sc.items():
+            assert (sg[k] == v if isinstance(v, int)
+                    else abs(sg[k] - v) <= 1e-12 * abs(v)), \
+                f"summary {k}: {sg[k]} vs {v}"
 
 
 def segments_work(groups) -> tuple[int, int]:
@@ -304,60 +395,159 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     return max(b, o), ("operations" if o >= b else "bytes")
 
 
-def drive(path: str, dev, windows, names, capacity, want_segments: bool):
-    """One main path on the card, every launch counter 0 just before and
-    read just after; then the same windows on the CPU, compared."""
+def drive(path: str, dev, windows, names, capacity, want=(), scheme="eci",
+          before_window=None, cpu_budget=False, **kw):
+    """One main path on the card, every launch counter 0 just before each
+    window and read just after (``want``: kernels every window must
+    launch); then the same windows on the CPU, compared.  Returns the
+    path's launches, the card manager and its records."""
     from repro_torch.core import StageProfile
-    from repro_torch.kernels.cache_sim.kernel import (cache_sim_scan,
-                                                      cache_sim_segments_scan)
     prof = StageProfile(dev)
-    torch.cuda.reset_peak_memory_stats()
-    cache_sim_scan.launches = 0
-    cache_sim_segments_scan.launches = 0
-    gpu, walls, gpu_curves, gpu_counts, seg = run_windows(
-        dev, windows, names, capacity, profile=prof)
-    launches = {"cache_sim_scan": cache_sim_scan.launches,
-                "cache_sim_segments_scan": cache_sim_segments_scan.launches}
-    peak = torch.cuda.max_memory_allocated()
+    gpu, grec = run_windows(dev, windows, names, capacity, profile=prof,
+                            scheme=scheme, before_window=before_window, **kw)
+    launches = {k: sum(x[k] for x in grec["launches"]) for k in KERNEL_NAMES}
     assert launches["cache_sim_scan"] > 0, \
         f"{path}: the main path launched no cache_sim_scan"
-    if want_segments:
-        assert all(k > 0 for k in seg), \
-            f"{path}: a window launched no cache_sim_segments_scan: {seg}"
-    for w, (wall, d) in enumerate(zip(walls, gpu.history)):
+    for k in want:
+        per = [x[k] for x in grec["launches"]]
+        assert all(x > 0 for x in per), f"{path}: a window launched no {k}: {per}"
+    for w, d in enumerate(gpu.history):
         rates = sorted(set(d.sample_rates.tolist()))
-        print(f"{path} window {w}: {wall:.3f} s on the card, feasible="
-              f"{d.feasible}, allocated={int(d.sizes.sum())}, sample rates "
-              f"{rates}, segments launches {seg[w]}, policies "
-              f"{dict(collections.Counter(p.value for p in d.policies))}")
-    print(f"{path} stages (s, summed over windows): " + json.dumps(
-        {k: round(v, 4) for k, v in prof.times.items()}))
-    print(f"{path} peak device memory: {peak / 2**20:.1f} MiB; launches on "
-          f"the path: {json.dumps(launches)}")
+        print(f"{path} window {w}: {grec['walls'][w]:.3f} s on the card, "
+              f"peak device memory {grec['peak'][w] / 2**20:.1f} MiB, "
+              f"feasible={d.feasible}, allocated={int(d.sizes.sum())}"
+              f"+{int(d.sizes2.sum())}, sample rates {rates}, policies "
+              f"{dict(collections.Counter(p.value for p in d.policies))}"
+              f"/{dict(collections.Counter(p.value for p in d.policies2))}")
+        print(f"{path} window {w} stages (s): " + json.dumps(
+            {k: round(v, 4) for k, v in grec["stages"][w].items()})
+            + " launches: " + json.dumps(grec["launches"][w]))
+    print(f"{path} peak device memory: {max(grec['peak']) / 2**20:.1f} MiB; "
+          f"launches on the path: {json.dumps(launches)}")
     s = gpu.summary()
     print(f"{path} guard violations observed: "
           f"{s['guard_violations_observed']} ("
-          f"{'; '.join(v for d in gpu.history for v in d.guard) or 'none'})")
+          f"{'; '.join(v for d in gpu.history for v in d.guard) or 'none'})"
+          f"; ro_fallback_windows {s['ro_fallback_windows']}")
     assert np.isfinite(s["mean_latency"]) and s["accesses"] == \
         len(windows) * len(names) * ACCESSES, "summary"
     assert all(int(d.sizes.sum()) <= capacity for d in gpu.history), \
         "capacity"
+    if "capacity2" in kw:
+        assert all(int(d.sizes2.sum()) <= kw["capacity2"]
+                   for d in gpu.history), "capacity2"
 
     t0 = time.perf_counter()
-    deadline = T_START + CPU_BUDGET_S if want_segments else None
-    cpu, cpu_walls, cpu_curves, cpu_counts, _ = run_windows(
-        "cpu", windows, names, capacity, deadline=deadline)
+    deadline = T_START + CPU_BUDGET_S if cpu_budget else None
+    cpu, crec = run_windows("cpu", windows, names, capacity,
+                            deadline=deadline, scheme=scheme, **kw)
     print(f"{path} CPU run: {time.perf_counter() - t0:.1f} s "
-          f"({', '.join(f'{x:.2f}' for x in cpu_walls)} s per window)")
-    if len(cpu_walls) < len(windows):
-        print(f"{path} CUT: the CPU comparison covers {len(cpu_walls)} of "
-              f"{len(windows)} windows (time budget {CPU_BUDGET_S:.0f} s); "
-              f"final LRU states are not compared")
-    compare_runs(gpu, gpu_curves, gpu_counts, cpu, cpu_curves, cpu_counts)
+          f"({', '.join(f'{x:.2f}' for x in crec['walls'])} s per window)")
+    if len(crec["walls"]) < len(windows):
+        print(f"{path} CUT: the CPU comparison covers {len(crec['walls'])} "
+              f"of {len(windows)} windows (time budget {CPU_BUDGET_S:.0f} "
+              f"s)")
+    compare_runs(gpu, grec, cpu, crec)
     print(f"check: {path} card run == CPU run (sizes, policies, "
           f"feasibility, sample rates, guard reports, per-tenant counts, "
-          f"LRU states; latencies to rel 1e-12)")
-    return launches
+          f"LRU states, summary; latencies to rel 1e-12)")
+    return launches, (gpu, grec), (cpu, crec)
+
+
+class Recorder:
+    """Wraps a module function: counts its calls and keeps the first
+    call's arguments (the wrapped function still runs)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls, self.args = 0, None
+        self.by_device = collections.Counter()
+
+    def __enter__(self):
+        def wrapped(*a, **k):
+            self.calls += 1
+            self.by_device[a[0].device.type] += 1
+            if self.args is None:
+                self.args = a
+            return self.fn(*a, **k)
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+class RouteReplays:
+    """Before each ETICA window: replay the window on clones of every
+    tenant's two levels through ``simulate_many`` three ways — on the
+    card with ``return_window_rd=False`` (``cache_sim_levels_scan``:
+    counters 0 just before, read just after), on the card with
+    ``return_window_rd=True`` (``cache_sim_scan``) and on the CPU — and
+    require equal results and final states.  Keeps the levels kernel's
+    launches and the last window's kernel inputs."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.launches = collections.Counter()
+        self.args = None
+        self.walls = []
+
+    def _clones(self, mgr, device):
+        from repro_torch.core import LRUCache
+        out = ([], [])
+        for t in mgr.tenants:
+            for lv, c in enumerate((t.cache, t.cache2)):
+                cl = LRUCache(c.capacity, device)
+                a, d = c.state_arrays()
+                cl.set_state_arrays(a.to(device).clone(), d.to(device).clone())
+                out[lv].append(cl)
+        return out
+
+    def __call__(self, mgr, w, traces):
+        import repro_torch.core.batch_sim as bs
+        from repro_torch.core import simulate_many
+        kw = dict(policies=[t.policy for t in mgr.tenants],
+                  policies2=[t.policy2 for t in mgr.tenants],
+                  t_fast=mgr.t_fast, t_slow=mgr.t_slow,
+                  t_write_bypass=mgr.t_write_bypass, t_fast2=mgr.t_fast2,
+                  flush_cost=mgr.flush_cost)
+        runs = []
+        for device, window_rd, counted in (
+                (self.dev, False, True), (self.dev, True, False),
+                (torch.device("cpu"), False, False)):
+            c1, c2 = self._clones(mgr, device)
+            if counted:
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                with Recorder(bs, "residency_levels") as rec:
+                    res = simulate_many(traces, caches=c1, caches2=c2,
+                                        return_window_rd=False,
+                                        device=device, **kw)
+                torch.cuda.synchronize()
+                self.walls.append(time.perf_counter() - t0)
+                got = read_counts()
+                assert got["cache_sim_levels_scan"] == 1, got
+                self.launches.update(got)
+                self.args = rec.args
+            else:
+                res = simulate_many(traces, caches=c1, caches2=c2,
+                                    return_window_rd=window_rd,
+                                    device=device, **kw)
+                res = res[0] if window_rd else res
+            runs.append((res, [tuple(x.cpu() for x in c.state_arrays())
+                               for c in c1 + c2]))
+        (r0, s0), (r1, s1), (r2, s2) = runs
+        assert r0 == r1 == r2, f"window {w}: residency routes differ"
+        for a, b, c in zip(s0, s1, s2):
+            assert all(torch.equal(x, y) and torch.equal(x, z)
+                       for x, y, z in zip(a, b, c)), \
+                f"window {w}: final states of the routes differ"
+        print(f"check: ETICA window {w} replayed on clones: "
+              f"cache_sim_levels_scan route == cache_sim_scan route == CPU "
+              f"(results, both levels' states); levels route "
+              f"{self.walls[-1]:.3f} s")
 
 
 def main() -> int:
@@ -365,19 +555,24 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.core.batch_sim as bs
     from repro_torch.core.batch_sim import (padded_segment_layout,
                                             padded_tape_links, segment_links)
     from repro_torch.core.monitor import shards_subtape
     from repro_torch.core.reuse_distance import auto_sample_rate
     from repro_torch.kernels import build_library
-    from repro_torch.kernels.cache_sim.kernel import (SEGMENTS_SOURCES,
-                                                      SOURCES,
+    from repro_torch.kernels.cache_sim.kernel import (LIBRARIES,
+                                                      cache_sim_levels_scan,
                                                       cache_sim_scan,
-                                                      cache_sim_segments_scan)
+                                                      cache_sim_segments_scan,
+                                                      live_count_scan)
     from repro_torch.kernels.cache_sim.ops import width_groups_of
-    from repro_torch.kernels.cache_sim.ref import (cache_sim_ref,
+    from repro_torch.kernels.cache_sim.ref import (cache_sim_levels_ref,
+                                                   cache_sim_ref,
                                                    cache_sim_segments_ref,
                                                    cache_sim_segments_tree,
+                                                   live_counts_delta,
+                                                   live_counts_ref,
                                                    stack_distances_tree)
 
     dev = torch.device("cuda")
@@ -389,11 +584,9 @@ def main() -> int:
 
     # ----------------------------------------- 2. build, one nvcc a source
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as ex:
         builds = {name: ex.submit(build_library, name, srcs)
-                  for name, srcs in (("cache_sim", SOURCES),
-                                     ("cache_sim_segments",
-                                      SEGMENTS_SOURCES))}
+                  for name, srcs in LIBRARIES}
         built = {name: f.result() for name, f in builds.items()}
     print(f"build: {', '.join(lib.name for lib, _ in built.values())} in "
           f"{time.perf_counter() - t0:.2f} s (in parallel)")
@@ -403,20 +596,24 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     # ------------------------------------- 3. kernels vs plain, small tapes
-    max_err = {"cache_sim_scan": 0, "cache_sim_segments_scan": 0}
+    max_err = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def check(name: str, what: str, got, want) -> None:
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+            if got.numel() else 0
+        assert err == 0, f"{name} {what}: max err {err}"
+        max_err[name] = max(max_err[name], err)
+
     for n in (1, 255, 256, 257, 4097, 32768):
         prev, nxt, reads = tape_links(n, seed=n, device=dev)
         p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
         for tag, occ in (("occ=1", torch.ones_like(p32)),
                          ("occ=is_read", reads.to(torch.int32))):
             got = cache_sim_scan(p32, n32, occ)
-            want = cache_sim_ref(p32, n32, occ)
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int64) - want.to(torch.int64))
-                      .abs().max())
-            assert err == 0, f"cache_sim_scan n={n} {tag}: max err {err}"
+            check("cache_sim_scan", f"n={n} {tag}", got,
+                  cache_sim_ref(p32, n32, occ))
             assert bool((got[prev < 0] == -1).all()), "cold rows must be -1"
-            max_err["cache_sim_scan"] = max(max_err["cache_sim_scan"], err)
         print(f"check: cache_sim_scan == cache_sim_ref at n={n} "
               f"(occ=1, occ=is_read; {int((prev < 0).sum())} cold rows)")
     for w, lens in SEGMENT_LENS.items():
@@ -426,19 +623,48 @@ def main() -> int:
             for tag, occ in (("occ=1", occ1),
                              ("occ=is_read", reads[lo:hi].contiguous())):
                 got = cache_sim_segments_scan(p32, n32, occ, gw)
-                want = cache_sim_segments_ref(p32, n32, occ, gw)
-                torch.cuda.synchronize()
-                err = int((got.to(torch.int64) - want.to(torch.int64))
-                          .abs().max())
-                assert err == 0, \
-                    f"cache_sim_segments_scan w={gw} {tag}: max err {err}"
+                check("cache_sim_segments_scan", f"w={gw} {tag}", got,
+                      cache_sim_segments_ref(p32, n32, occ, gw))
                 assert bool((got[p32 < 0] == -1).all()), \
                     "cold and pad rows must be -1"
-                max_err["cache_sim_segments_scan"] = max(
-                    max_err["cache_sim_segments_scan"], err)
         print(f"check: cache_sim_segments_scan == cache_sim_segments_ref on "
               f"segments {lens} (widths {[g[0] for g in groups]}; occ=1, "
               f"occ=is_read)")
+    for n in (1, 255, 4097, 65536):
+        prev, nxt, reads = tape_links(n, seed=n + 7, device=dev)
+        p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
+        rng = np.random.default_rng(n)
+        c1 = rng.integers(0, 64, n)
+        ct = c1 + rng.integers(0, 64, n)
+        c1[: n // 4] = 0                                 # cap1 = 0
+        ct[n // 4: n // 2] = c1[n // 4: n // 2]          # cap1 = captot
+        cap1 = torch.as_tensor(c1, dtype=torch.int32, device=dev)
+        captot = torch.as_tensor(ct, dtype=torch.int32, device=dev)
+        for tag, occ in (("occ=1", torch.ones_like(p32)),
+                         ("occ=is_read", reads.to(torch.int32))):
+            got = cache_sim_levels_scan(p32, n32, occ, cap1, captot)
+            want = cache_sim_levels_ref(p32, n32, occ, cap1, captot)
+            check("cache_sim_levels_scan", f"n={n} {tag} l1", got[0],
+                  want[0])
+            check("cache_sim_levels_scan", f"n={n} {tag} union", got[1],
+                  want[1])
+        # live counts: the tape's links plus rows with nxt = -1, nxt = j
+        # and nxt = n, which never / always stay live
+        pick = torch.as_tensor(rng.integers(0, 5, n), device=dev)
+        pos = torch.arange(n, device=dev)
+        nl = torch.where(pick == 0, -1, torch.where(
+            pick == 1, pos, torch.where(pick == 2, n, nxt))).to(torch.int32)
+        for tag, occ in (("occ=is_read", reads.to(torch.int32)),
+                         ("occ=1", torch.ones_like(nl))):
+            got = live_count_scan(nl, occ)
+            check("live_count_scan", f"n={n} {tag} vs dense", got,
+                  live_counts_ref(nl, occ))
+            check("live_count_scan", f"n={n} {tag} vs delta", got,
+                  live_counts_delta(nl, occ))
+        print(f"check: cache_sim_levels_scan == cache_sim_levels_ref and "
+              f"live_count_scan == live_counts_ref == live_counts_delta at "
+              f"n={n} (cap1 = 0, cap1 = captot and varying rows; occ=1, "
+              f"occ=is_read; nxt = -1, j, n rows)")
 
     # --------------------------------------------- 4. slice 1's main path
     t0 = time.perf_counter()
@@ -446,8 +672,7 @@ def main() -> int:
     print(f"traces: {WINDOWS} windows x {len(MSR_16)} tenants x "
           f"{ACCESSES} accesses generated in "
           f"{time.perf_counter() - t0:.1f} s (outside the timed region)")
-    launches16 = drive("16-tenant", dev, windows, MSR_16, 6000,
-                       want_segments=False)
+    launches16, _, _ = drive("16-tenant", dev, windows, MSR_16, 6000)
 
     # ------------------------------------------------ 5. the SHARDS path
     t0 = time.perf_counter()
@@ -456,10 +681,62 @@ def main() -> int:
     print(f"traces: {SHARDS_WINDOWS} windows x {len(SHARDS_NAMES)} tenants "
           f"x {ACCESSES} accesses generated in "
           f"{time.perf_counter() - t0:.1f} s (outside the timed region)")
-    launches256 = drive("256-tenant", dev, swindows, SHARDS_NAMES,
-                        SHARDS_CAPACITY, want_segments=True)
+    launches256, _, _ = drive("256-tenant", dev, swindows, SHARDS_NAMES,
+                              SHARDS_CAPACITY,
+                              want=("cache_sim_segments_scan",),
+                              cpu_budget=True)
 
-    # ------------- 6a. full window tape: cache_sim_scan vs its merge tree
+    # ------------------------- 6. the ETICA path, with its residency routes
+    routes = RouteReplays(dev)
+    launches_et, _, (cpu_et, crec_et) = drive(
+        "ETICA", dev, windows, MSR_16, ETICA_CAP1, scheme="etica",
+        before_window=routes, capacity2=ETICA_CAP2, t_fast2=T_FAST2)
+    print(f"ETICA residency routes: cache_sim_levels_scan launches "
+          f"{routes.launches['cache_sim_levels_scan']} over "
+          f"{len(routes.walls)} windows (counters 0 just before each "
+          f"replay, read just after); live_count_scan launches there "
+          f"{routes.launches['live_count_scan']}")
+    assert routes.launches["cache_sim_levels_scan"] == WINDOWS
+    t0 = time.perf_counter()
+    lru, lrec = run_windows("cpu", windows[:1], MSR_16, ETICA_CAP1,
+                            scheme="etica", engine="lru",
+                            capacity2=ETICA_CAP2, t_fast2=T_FAST2)
+    dl, dc = lru.history[0], cpu_et.history[0]
+    assert dl.sizes.tolist() == dc.sizes.tolist() and \
+        dl.sizes2.tolist() == dc.sizes2.tolist(), "lru engine: sizes"
+    assert dl.policies == dc.policies and dl.policies2 == dc.policies2
+    compare_counts(0, lrec["counts"][0], crec_et["counts"][0], rel=1e-9)
+    compare_states("lru engine, window 0", lrec["states"][0],
+                   crec_et["states"][0])
+    print(f"check: ETICA window 0 through engine=\"lru\" on the host "
+          f"({time.perf_counter() - t0:.1f} s) == the batch engine (sizes, "
+          f"policies per level, counts, both levels' states; the "
+          f"interpreter's per-access latency sums to rel 1e-9)")
+
+    # --------------------------------------- 7. the ETICA pressure path
+    with Recorder(bs, "_ro_token_replay_levels") as tok, \
+            Recorder(bs, "ro_live_counts") as live_rec:
+        launches_pr, (gpu_pr, _), _ = drive(
+            "pressure", dev, windows[:PRESSURE_WINDOWS], MSR_16,
+            PRESSURE_CAP1, scheme="etica", capacity2=PRESSURE_CAP2,
+            t_fast2=T_FAST2, w_threshold=0.0)
+    print(f"pressure: tenant-windows through _ro_token_replay_levels on "
+          f"the card: {tok.by_device['cuda']} (CPU run: "
+          f"{tok.by_device['cpu']}); live_count_scan launches on the card "
+          f"path (L and U2): {launches_pr['live_count_scan']}; "
+          f"ro_fallback_windows {gpu_pr.summary()['ro_fallback_windows']}")
+    assert tok.by_device["cuda"] >= 1, \
+        "no tenant-window took the two-level token replay"
+    assert gpu_pr.summary()["ro_fallback_windows"] == 0
+    assert launches_pr["live_count_scan"] > 0
+    assert all(t.policy.value == "ro" for t in gpu_pr.tenants)
+    for name, launches in (("16-tenant", launches16),
+                           ("256-tenant", launches256),
+                           ("ETICA", launches_et)):
+        print(f"live_count_scan launches on the {name} path: "
+              f"{launches['live_count_scan']}")
+
+    # ------------- 8a. full window tape: cache_sim_scan vs its merge tree
     tr0 = windows[0]
     addrs = torch.cat([t.addrs for t in tr0]).to(dev)
     lens = torch.tensor([len(t) for t in tr0], device=dev)
@@ -468,11 +745,9 @@ def main() -> int:
                                       torch.cumsum(lens, 0)[tid])
     p32, n32 = prev.to(torch.int32), nxt_c.to(torch.int32)
     ones = torch.ones_like(p32)
-    got = cache_sim_scan(p32, n32, ones).to(torch.int64)
-    want = stack_distances_tree(prev, nxt_c)
-    torch.cuda.synchronize()
-    err = int((got - want).abs().max())
-    assert err == 0, f"full tape: kernel vs merge tree max err {err}"
+    got = cache_sim_scan(p32, n32, ones)
+    check("cache_sim_scan", "full tape vs merge tree", got,
+          stack_distances_tree(prev, nxt_c))
     m = int(prev.shape[0])
     hot = prev >= 0
     pos = torch.arange(m, device=dev)
@@ -491,11 +766,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/cache_sim/csrc/cache_sim.cu",
         "replaces": "src/repro/kernels/cache_sim/kernel.py:63",
         "launches": launches16["cache_sim_scan"],
-        "max_abs_err": max(max_err["cache_sim_scan"], err),
+        "max_abs_err": max_err["cache_sim_scan"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": bnd_by,
         "library_ms": None}]
 
-    # ---- 6b. full sampled tape: cache_sim_segments_scan vs its tree
+    # ---- 8b. full sampled tape: cache_sim_segments_scan vs its tree
     str0 = swindows[0]
     rates = [auto_sample_rate(len(t)) for t in str0]
     addrs_s, _, kept = shards_subtape(str0, rates, 0,
@@ -511,13 +786,9 @@ def main() -> int:
     groups = width_groups_of(lay[4])
     args = [(padded_group_links(gprev, gnxt, gocc, w, lo, hi), w)
             for w, lo, hi in groups]
-    err = 0
     for (a, w) in args:
-        got = cache_sim_segments_scan(*a, w).to(torch.int64)
-        want = cache_sim_segments_tree(*a, w).to(torch.int64)
-        torch.cuda.synchronize()
-        err = max(err, int((got - want).abs().max()))
-    assert err == 0, f"sampled tape: kernel vs merge tree max err {err}"
+        check("cache_sim_segments_scan", f"sampled tape w={w} vs tree",
+              cache_sim_segments_scan(*a, w), cache_sim_segments_tree(*a, w))
     m, ops = segments_work(groups)
     seg_ms = cuda_ms(lambda: [cache_sim_segments_scan(*a, w)
                               for a, w in args], REPS)
@@ -537,8 +808,74 @@ def main() -> int:
                   "cache_sim_segments.cu",
         "replaces": "src/repro/kernels/cache_sim/kernel.py:136",
         "launches": launches256["cache_sim_segments_scan"],
-        "max_abs_err": max(max_err["cache_sim_segments_scan"], err),
+        "max_abs_err": max_err["cache_sim_segments_scan"],
         "ms": seg_ms, "plain_ms": seg_plain, "bound_ms": bnd,
+        "bound_by": bnd_by, "library_ms": None})
+    del swindows, args, gprev, gnxt, gocc
+
+    # ---- 8c. the last ETICA window's tape: cache_sim_levels_scan vs the
+    # merge tree's distances compared with the two thresholds
+    prev, nxt_c, cap1_of, captot_of = routes.args[:4]
+    p32, n32 = prev.to(torch.int32), nxt_c.to(torch.int32)
+    c132, ct32 = cap1_of.to(torch.int32), captot_of.to(torch.int32)
+    ones = torch.ones_like(p32)
+
+    def levels_plain():
+        sd = stack_distances_tree(prev, nxt_c)
+        return ((sd >= 0) & (sd < cap1_of), (sd >= 0) & (sd < captot_of))
+
+    got = cache_sim_levels_scan(p32, n32, ones, c132, ct32)
+    want = levels_plain()
+    for g, wnt, tag in zip(got, want, ("l1", "union")):
+        check("cache_sim_levels_scan", f"ETICA tape {tag} vs merge tree",
+              g, wnt)
+    m = int(prev.shape[0])
+    hot = prev >= 0
+    lv_ms = cuda_ms(lambda: cache_sim_levels_scan(p32, n32, ones, c132,
+                                                  ct32), REPS)
+    lv_plain = cuda_ms(levels_plain, REPS // 4)
+    # the function's floor: read prev, nxt, occ, cap1, captot and write
+    # both masks once (28 n bytes); a Fenwick count's n * ceil(log2 n)
+    bnd, bnd_by = bound_ms(28 * m, m * math.ceil(math.log2(max(m, 2))))
+    print(f"ETICA tape (window {WINDOWS - 1}, warm prefixes included): {m} "
+          f"accesses, {int(hot.sum())} hot; cache_sim_levels_scan "
+          f"{lv_ms:.3f} ms, merge tree + compares {lv_plain:.3f} ms, bound "
+          f"{bnd:.6f} ms by {bnd_by}; kernel / bound = {lv_ms / bnd:.1f}")
+    rows.append({
+        "name": "cache_sim_levels_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/cache_sim/csrc/"
+                  "cache_sim_levels.cu",
+        "replaces": "src/repro/kernels/cache_sim/kernel.py:294",
+        "launches": routes.launches["cache_sim_levels_scan"],
+        "max_abs_err": max_err["cache_sim_levels_scan"],
+        "ms": lv_ms, "plain_ms": lv_plain, "bound_ms": bnd,
+        "bound_by": bnd_by, "library_ms": None})
+
+    # ---- 8d. the pressure path's first guard tape: live_count_scan vs
+    # the O(n) delta form
+    nxt_l, occ_l = live_rec.args
+    n32 = nxt_l.to(torch.int32).contiguous()
+    o32 = occ_l.to(torch.int32).contiguous()
+    check("live_count_scan", "pressure tape vs delta",
+          live_count_scan(n32, o32), live_counts_delta(nxt_l, occ_l))
+    m = int(n32.shape[0])
+    lc_ms = cuda_ms(lambda: live_count_scan(n32, o32), REPS)
+    lc_plain = cuda_ms(lambda: live_counts_delta(nxt_l, occ_l), REPS)
+    # the function's floor: nxt and occ read, L written once (12 n
+    # bytes); a prefix sum's n additions
+    bnd, bnd_by = bound_ms(12 * m, m)
+    print(f"pressure guard tape: {m} accesses; live_count_scan "
+          f"{lc_ms:.3f} ms, delta form {lc_plain:.3f} ms, bound "
+          f"{bnd:.6f} ms by {bnd_by}; kernel / bound = {lc_ms / bnd:.1f}")
+    live_total = sum(x["live_count_scan"] for x in
+                     (launches16, launches256, launches_et, launches_pr))
+    rows.append({
+        "name": "live_count_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/cache_sim/csrc/live_count.cu",
+        "replaces": "src/repro/kernels/cache_sim/kernel.py:220",
+        "launches": live_total,
+        "max_abs_err": max_err["live_count_scan"],
+        "ms": lc_ms, "plain_ms": lc_plain, "bound_ms": bnd,
         "bound_by": bnd_by, "library_ms": None})
     print(f"cache_sim_scan launches on the 256-tenant path: "
           f"{launches256['cache_sim_scan']}; total run "

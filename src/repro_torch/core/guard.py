@@ -3,8 +3,9 @@
 The Analyzer's outputs drive real resizes and policy flips, so every
 decision is checked before it is actuated:
 
-  * every size is finite and >= 0, and Σ sizes <= capacity (the
-    reference's second-level checks wait for the two-level port);
+  * every L1 size is finite and >= 0, and Σ sizes <= capacity;
+  * every L2 size is finite and >= 0, and Σ sizes2 <= capacity2
+    (checked only when a second level exists);
   * per-tenant ``c_min`` floors hold — ``floors[i] = min(c_min, urd_i)``,
     checked only when the floors fit the partitioned budget;
   * the partition objective and hit ratios are finite, hit ratios within
@@ -60,7 +61,8 @@ def _check_policies(v: list[str], policies, tag: str) -> None:
             return
 
 
-def validate_decision(decision, capacity: int, floors=None,
+def validate_decision(decision, capacity: int, capacity2: int = 0,
+                      floors=None,
                       floor_budget: int | None = None) -> GuardReport:
     """Validate one ``AnalyzerDecision`` against the hard invariants.
 
@@ -71,7 +73,11 @@ def validate_decision(decision, capacity: int, floors=None,
     """
     v: list[str] = []
     _check_level(v, decision.sizes, int(capacity), "L1")
+    if capacity2 > 0 and decision.sizes2 is not None:
+        _check_level(v, decision.sizes2, int(capacity2), "L2")
     _check_policies(v, decision.policies, "L1")
+    if capacity2 > 0:
+        _check_policies(v, decision.policies2, "L2")
 
     part = decision.partition
     if part is not None:

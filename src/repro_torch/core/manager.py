@@ -11,19 +11,22 @@
   * ``Actuator`` — resizes the per-tenant LRU partitions (evicting
     LRU-first on shrink) and switches write policies.
 
-Port of ``repro.core.manager`` for the fixed-Δt, single-level,
-fault-free deployment: each ``run_window`` replays every tenant's window
-in one ``batch_sim.simulate_many`` pass, analyzes it with
-``monitor.analyze_windows``, solves Eq. 2 with ``pgd_solve``, checks the
-decision with ``guard.validate_decision`` and actuates it.  The monitor
-is exact below ``auto_sample_tenants`` (256) tenants, reusing the replay
-pass's reuse distances, and SHARDS-sampled from there on (or whenever
+Port of ``repro.core.manager`` for the fixed-Δt, fault-free deployment,
+with one cache level or the ETICA two-level hierarchy (``capacity2 >
+0``): each ``run_window`` replays every tenant's window in one
+``batch_sim.simulate_many`` pass (or, with ``engine="lru"``, through the
+per-access interpreter ``simulator.simulate``), analyzes it with
+``monitor.analyze_windows``, solves Eq. 2 per level with
+``two_level_solve`` (``pgd_solve`` by default), checks the decision with
+``guard.validate_decision`` and actuates it.  The monitor is exact below
+``auto_sample_tenants`` (256) tenants, reusing the replay pass's reuse
+distances, and SHARDS-sampled from there on (or whenever
 ``sample_rate`` is set; see ``effective_sample_rate``).  Everything runs
 on the manager's ``device`` — the CUDA card unless the caller asks for
 the CPU.  The reference's other paths (event-driven reconfiguration,
-fault injection and the degradation ladder, the device and sharded
-pipelines, the two-level hierarchy, the per-access interpreter) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+fault injection and the degradation ladder with ``greedy_allocate``, the
+device and sharded pipelines) raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from repro_torch.core.mrc import HitRatioFunction
 from repro_torch.core.partitioner import (PartitionResult, pgd_solve,
                                           two_level_solve)
 from repro_torch.core.profile import StageProfile, pstage
-from repro_torch.core.simulator import LRUCache, SimResult
+from repro_torch.core.simulator import LRUCache, SimResult, simulate
 from repro_torch.core.trace import Trace, validate_trace_arrays
 from repro_torch.core.write_policy import WritePolicy
 from repro_torch.device import resolve_device
@@ -64,6 +67,10 @@ class TenantState:
     window_reads: list[torch.Tensor] = dataclasses.field(default_factory=list)
     result: SimResult = dataclasses.field(default_factory=SimResult)
     active: bool = True                         # finished tenants are excluded
+    # second hierarchy level (ETICA): its partition and write policy
+    cache2: LRUCache = dataclasses.field(
+        default_factory=lambda: LRUCache(0))
+    policy2: WritePolicy = WritePolicy.WB
 
     def window_trace(self) -> Trace:
         dev = self.cache.state_arrays()[0].device
@@ -95,6 +102,10 @@ class AnalyzerDecision:
     policies: list[WritePolicy]
     feasible: bool
     partition: PartitionResult
+    # the second level (zeros / WB / None for a single-level manager)
+    sizes2: torch.Tensor | None = None
+    policies2: list[WritePolicy] | None = None
+    partition2: PartitionResult | None = None
     trigger: tuple[ReconfigEvent, ...] = ()
     # guard violations detected (non-empty = an actuated violation)
     guard: tuple[str, ...] = ()
@@ -116,6 +127,16 @@ class ECICacheManager:
     from there on), a fixed rate in (0, 1], or ``"auto"`` (aim for
     ``sample_target`` kept accesses per tenant window, exact below
     ``sample_floor``).
+
+    ``capacity2 > 0`` makes each tenant's partition an ETICA two-level
+    hierarchy: an L1 and an L2 LRU partition, sized by
+    ``two_level_solve`` (the level-2 Eq. 2 on the residual curves with
+    service time ``t_fast2``, default ``3 * t_fast``), with per-level
+    Alg. 3 (``w_threshold`` for L1, the stricter ``w_threshold2`` for
+    L2, whose clean policy flushes dirty victims at demotion).
+    ``capacity2 == 0`` is the single-level scheme.  ``engine="lru"``
+    replays through the per-access interpreter instead of the batch
+    engine; both give the same results.
 
     ``device`` is where the replay, the monitor and the partitioner run:
     ``None`` means the CUDA card (an error names ``device="cpu"`` when
@@ -141,22 +162,20 @@ class ECICacheManager:
                  percentile: float = 100.0,
                  partition_fn: Callable = pgd_solve,
                  engine: str = "batch",
-                 capacity2: int = 0,
+                 capacity2: int = 0, t_fast2: float | None = None,
+                 w_threshold2: float = 0.3,
                  history_limit: int | None = 256,
                  auto_sample_tenants: int = 256,
                  phase_detect: bool = False, pipeline: str = "host",
                  faults=None, fault_tolerant: bool | None = None,
                  device: str | torch.device | None = None,
                  profile: StageProfile | None = None):
-        if engine != "batch":
-            raise _not_ported(f"engine={engine!r} (the per-access "
-                              "interpreter)", "modules queue, simulate")
+        if engine not in ("batch", "lru"):
+            raise ValueError(f"engine must be 'batch' or 'lru', got "
+                             f"{engine!r}")
         if pipeline != "host":
             raise _not_ported(f"pipeline={pipeline!r}",
                               "modules queue, device and shard pipelines")
-        if capacity2 > 0:
-            raise _not_ported("the two-level hierarchy (capacity2 > 0)",
-                              "modules queue, two-level")
         if phase_detect:
             raise _not_ported("event-driven reconfiguration (phase_detect)",
                               "modules queue, characterize/faults/scenarios")
@@ -166,9 +185,12 @@ class ECICacheManager:
         self.device = resolve_device(device)
         self.profile = profile
         self.capacity = int(capacity)
+        self.capacity2 = int(capacity2)
         self.c_min = int(c_min)
         self.w_threshold = float(w_threshold)
+        self.w_threshold2 = float(w_threshold2)
         self.t_fast, self.t_slow = float(t_fast), float(t_slow)
+        self.t_fast2 = (3.0 * t_fast if t_fast2 is None else float(t_fast2))
         self.t_write_bypass = (1.2 * t_fast if t_write_bypass is None
                                else float(t_write_bypass))
         self.flush_cost = float(flush_cost)
@@ -180,8 +202,10 @@ class ECICacheManager:
         self.auto_sample_tenants = int(auto_sample_tenants)
         self.percentile = percentile
         self.partition_fn = partition_fn
+        self.engine = engine
         init = int(initial_blocks if initial_blocks is not None else c_min)
-        self.tenants = [TenantState(nm, LRUCache(init, self.device))
+        self.tenants = [TenantState(nm, LRUCache(init, self.device),
+                                    cache2=LRUCache(0, self.device))
                         for nm in tenant_names]
         self.history: collections.deque[AnalyzerDecision] = \
             collections.deque(maxlen=history_limit)
@@ -193,6 +217,9 @@ class ECICacheManager:
         self.reconfig_events = 0        # total events ever (deque is bounded)
         self.guard_violations_observed = 0
         self.guard_violations_actuated = 0
+        # tenant-windows the batch engine replayed through the interpreter
+        # (degenerate two-level windows only)
+        self.ro_fallback_windows = 0
 
     # ------------------------------------------------------------- Monitor
     def record(self, tenant: int, addrs, is_read) -> None:
@@ -211,6 +238,7 @@ class ECICacheManager:
         t = self.tenants[tenant]
         t.active = False
         t.cache.resize(0)
+        t.cache2.resize(0)
 
     # ------------------------------------------------------------ Analyzer
     def effective_sample_rate(self) -> float | str | None:
@@ -236,24 +264,38 @@ class ECICacheManager:
                 # exactly the writes with a TRD sample
                 t.policy = (WritePolicy.RO if wrs[k] >= self.w_threshold
                             else WritePolicy.WB)
+                if self.capacity2 > 0:
+                    # per-level Alg. 3: the endurance-sensitive L2 turns
+                    # clean at a stricter threshold
+                    t.policy2 = (WritePolicy.RO if wrs[k] >= self.w_threshold2
+                                 else WritePolicy.WB)
         with pstage(self.profile, "pgd"):
-            part, _ = two_level_solve(
-                mon.curves, self.capacity, 0, self.t_fast, 3.0 * self.t_fast,
-                self.t_slow, c_min=self.c_min, partition_fn=self.partition_fn)
+            part, part2 = two_level_solve(
+                mon.curves, self.capacity, self.capacity2, self.t_fast,
+                self.t_fast2, self.t_slow, c_min=self.c_min,
+                partition_fn=self.partition_fn)
         n_ten = len(self.tenants)
         sizes_full = torch.zeros(n_ten, dtype=torch.int64)
+        sizes2_full = torch.zeros(n_ten, dtype=torch.int64)
         floors = torch.zeros(n_ten, dtype=torch.int64)
         part_sizes = part.sizes.tolist()
+        part2_sizes = part2.sizes.tolist() if part2 is not None else None
         k = 0
         for i, t in enumerate(self.tenants):
             if not t.active:
                 continue
             sizes_full[i] = part_sizes[k]
+            if part2_sizes is not None:
+                sizes2_full[i] = part2_sizes[k]
             floors[i] = min(self.c_min, t.urd_size)
             k += 1
         decision = AnalyzerDecision(sizes_full,
                                     [t.policy for t in self.tenants],
                                     part.feasible, part,
+                                    sizes2=sizes2_full,
+                                    policies2=[t.policy2
+                                               for t in self.tenants],
+                                    partition2=part2,
                                     trigger=tuple(trigger),
                                     sample_rates=mon.sample_rates.cpu())
         return decision, floors
@@ -286,7 +328,8 @@ class ECICacheManager:
                 tenant_ids=act, device=self.device)
         self.windows_analyzed += 1
         decision, floors = self._build_decision(mon, act, trigger)
-        report = validate_decision(decision, self.capacity, floors=floors,
+        report = validate_decision(decision, self.capacity, self.capacity2,
+                                   floors=floors,
                                    floor_budget=self.capacity)
         if not report.ok:
             self.guard_violations_observed += len(report.violations)
@@ -301,9 +344,14 @@ class ECICacheManager:
             # a violating decision is shipped; count it so garbage never
             # actuates silently
             self.guard_violations_actuated += 1
-        for t, size in zip(self.tenants, decision.sizes.tolist()):
+        sizes2 = (decision.sizes2 if decision.sizes2 is not None
+                  else torch.zeros(len(self.tenants), dtype=torch.int64))
+        for t, size, size2 in zip(self.tenants, decision.sizes.tolist(),
+                                  sizes2.tolist()):
             if t.active:
                 t.cache.resize(int(size))
+                if self.capacity2 > 0 or t.cache2.capacity > 0:
+                    t.cache2.resize(int(size2))
                 t.clear_window()
 
     # --------------------------------------------------------- trace replay
@@ -313,8 +361,14 @@ class ECICacheManager:
         agg.writes += res.writes; agg.write_hits += res.write_hits
         agg.cache_writes += res.cache_writes
         agg.total_latency += res.total_latency
+        agg.read_hits_l2 += res.read_hits_l2
+        agg.write_hits_l2 += res.write_hits_l2
+        agg.cache_writes_l2 += res.cache_writes_l2
+        agg.fallback += res.fallback
         agg.capacity = t.cache.capacity
+        agg.capacity2 = t.cache2.capacity
         agg.policy = t.policy.value
+        agg.policy2 = t.policy2.value
 
     def run_window(self, traces: list[Trace | None]) -> None:
         """Replay one Δt window for every tenant, then analyze + actuate.
@@ -333,16 +387,33 @@ class ECICacheManager:
         for i in idx:
             self.record(i, traces[i].addrs, traces[i].is_read)
 
-        results, rds = simulate_many(
-            [traces[i] for i in idx],
-            policies=[self.tenants[i].policy for i in idx],
-            t_fast=self.t_fast, t_slow=self.t_slow,
-            t_write_bypass=self.t_write_bypass,
-            flush_cost=self.flush_cost,
-            caches=[self.tenants[i].cache for i in idx],
-            return_window_rd=True, device=self.device,
-            profile=self.profile)
-        window_trd = {i: rd for i, rd in zip(idx, rds) if rd is not None}
+        window_trd: dict[int, torch.Tensor] = {}
+        if self.engine == "batch":
+            results, rds = simulate_many(
+                [traces[i] for i in idx],
+                policies=[self.tenants[i].policy for i in idx],
+                t_fast=self.t_fast, t_slow=self.t_slow,
+                t_write_bypass=self.t_write_bypass,
+                flush_cost=self.flush_cost,
+                caches=[self.tenants[i].cache for i in idx],
+                policies2=[self.tenants[i].policy2 for i in idx],
+                caches2=[self.tenants[i].cache2 for i in idx],
+                t_fast2=self.t_fast2,
+                return_window_rd=True, device=self.device,
+                profile=self.profile)
+            window_trd = {i: rd for i, rd in zip(idx, rds) if rd is not None}
+            self.ro_fallback_windows += sum(r.fallback for r in results)
+        else:
+            results = []
+            with pstage(self.profile, "replay"):
+                for i in idx:
+                    t = self.tenants[i]
+                    results.append(simulate(
+                        traces[i], t.cache.capacity, t.policy, self.t_fast,
+                        self.t_slow, t_write_bypass=self.t_write_bypass,
+                        flush_cost=self.flush_cost, cache=t.cache,
+                        capacity2=t.cache2.capacity, policy2=t.policy2,
+                        t_fast2=self.t_fast2, cache2=t.cache2))
         for i, res in zip(idx, results):
             self._accumulate(self.tenants[i], res)
         self.tenant_windows += len(idx)
@@ -358,6 +429,10 @@ class ECICacheManager:
     # ------------------------------------------------------------- metrics
     def allocated_sizes(self) -> torch.Tensor:
         return torch.tensor([t.cache.capacity for t in self.tenants],
+                            dtype=torch.int64)
+
+    def allocated_sizes2(self) -> torch.Tensor:
+        return torch.tensor([t.cache2.capacity for t in self.tenants],
                             dtype=torch.int64)
 
     def summary(self) -> dict[str, float]:
@@ -376,6 +451,13 @@ class ECICacheManager:
             "perf_per_cost": (1.0 / mean_lat) / alloc if mean_lat and alloc else 0.0,
             "read_hit_ratio": (sum(r.read_hits for r in res)
                                / max(sum(r.reads for r in res), 1)),
+            "cache_writes_l2": sum(r.cache_writes_l2 for r in res),
+            "allocated_blocks_l2": int(self.allocated_sizes2().sum()),
+            "read_hit_ratio_l2": (sum(r.read_hits_l2 for r in res)
+                                  / max(sum(r.reads for r in res), 1)),
+            # tenant-windows the batch engine replayed through the
+            # interpreter (degenerate two-level windows only)
+            "ro_fallback_windows": self.ro_fallback_windows,
             "tenant_windows": self.tenant_windows,
             "windows_run": self.windows_run,
             "windows_analyzed": self.windows_analyzed,

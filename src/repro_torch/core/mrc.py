@@ -66,6 +66,25 @@ class HitRatioFunction:
         return nxt, float(self.heights[min(k, self.heights.shape[0] - 1)]) \
             - cur
 
+    def shifted(self, base: int) -> "HitRatioFunction":
+        """Residual curve ``h~(c) = h(base + c) - h(base)``: level-2 input.
+
+        With ``base`` L1 blocks granted, ``c`` more L2 blocks turn exactly
+        the accesses with reuse distance in ``[base, base + c)`` into L2
+        hits (the union of the levels is one LRU stack).  The same
+        ``searchsorted`` split and float64 subtractions as the reference,
+        so the curve is bit-identical.  ``shifted(0) == self``.
+        """
+        base = max(int(base), 0)
+        dev = self.edges.device
+        k = int(torch.searchsorted(
+            self.edges, torch.tensor([base], device=dev), right=True)[0])
+        h0 = float(self(base)) if base > 0 else float(self.heights[0])
+        zero = torch.zeros(1, dtype=torch.int64, device=dev)
+        edges = torch.cat([zero, self.edges[k:] - base])
+        heights = torch.cat([zero.to(torch.float64), self.heights[k:] - h0])
+        return HitRatioFunction(edges, heights, self.n_accesses)
+
 
 def build_hit_ratio_function(rd: RDResult, n_accesses: int | None = None
                              ) -> HitRatioFunction:
@@ -172,6 +191,42 @@ class BatchedHitRatioFunctions:
         idx = torch.minimum(torch.clamp(idx, min=0), lens - 1)
         out = self.heights[self.offsets[:-1] + idx]
         return torch.where(c <= 0, 0.0, out)
+
+    def shifted(self, bases) -> "BatchedHitRatioFunctions":
+        """Vectorized residual curves ``h~_i(c) = h_i(base_i + c) -
+        h_i(base_i)``, bit-for-bit ``HitRatioFunction.shifted`` per curve
+        (the same split, the same float64 subtractions); the level-2
+        stage of ``two_level_solve`` runs on it with no loop over
+        tenants."""
+        dev = self.edges.device
+        b = torch.clamp(torch.as_tensor(bases, dtype=torch.int64,
+                                        device=dev), min=0)
+        n = len(self)
+        if n == 0:
+            return self
+        i64 = dict(dtype=torch.int64, device=dev)
+        lens = torch.diff(self.offsets)
+        k = self._composite(b) - self.offsets[:-1]        # per-curve split
+        h0 = torch.where(b > 0, self.evaluate(b),
+                         self.heights[self.offsets[:-1]])
+        tail = lens - k                                    # kept breakpoints
+        new_off = torch.cat([torch.zeros(1, **i64),
+                             torch.cumsum(tail + 1, 0)])   # +1: the 0 head
+        total_new = int(new_off[-1])
+        edges = torch.zeros(total_new, **i64)
+        heights = torch.zeros(total_new, dtype=torch.float64, device=dev)
+        total = int(tail.sum())
+        if total:
+            rank = (torch.arange(total, **i64)
+                    - torch.repeat_interleave(torch.cumsum(tail, 0) - tail,
+                                              tail))
+            src = torch.repeat_interleave(self.offsets[:-1] + k, tail) + rank
+            dst = torch.repeat_interleave(new_off[:-1] + 1, tail) + rank
+            edges[dst] = self.edges[src] - torch.repeat_interleave(b, tail)
+            heights[dst] = self.heights[src] \
+                - torch.repeat_interleave(h0, tail)
+        return BatchedHitRatioFunctions(edges, heights, new_off,
+                                        self.n_accesses.clone())
 
 
 def build_hit_ratio_functions(dist: torch.Tensor, tid: torch.Tensor,

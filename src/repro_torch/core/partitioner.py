@@ -43,8 +43,9 @@ Sums over tenants take one of two routes, split at 32 tenants:
 
 Every operation is an elementwise IEEE op or an exact reduction on one
 device, so the card and the CPU produce the same bits on both routes.
-The greedy breakpoint partitioner (``greedy_allocate``) and the ETICA
-second level are not ported yet.
+``two_level_solve`` runs the partitioner twice for the ETICA hierarchy,
+the second time on the residual curves.  The greedy breakpoint
+partitioner (``greedy_allocate``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -89,18 +90,25 @@ def two_level_solve(hs, capacity: int, capacity2: int, t_fast: float,
                     t_fast2: float, t_slow: float, c_min: int = 0,
                     partition_fn=None, weights=None
                     ) -> tuple[PartitionResult, PartitionResult | None]:
-    """Eq. 2 with per-level capacities; single level only in the port.
+    """Eq. 2 with per-level capacities and per-level service times.
 
-    Returns ``(level1, None)``: the second level (``capacity2 > 0``, the
-    residual-curve ETICA stage) is not ported yet.
+    Stage 1 sizes L1 as the single-level problem (``capacity2 <= 0``
+    reproduces it and returns ``(level1, None)``); stage 2 runs the same
+    partitioner on the residual curves ``h_i.shifted(c1_i)`` against
+    ``capacity2`` with gain ``t_slow - t_fast2`` and no per-tenant
+    minimum.
     """
-    if capacity2 > 0:
-        raise NotImplementedError(
-            "two-level partitioning is not ported yet (ROADMAP: modules "
-            "queue, two-level)")
     fn = partition_fn if partition_fn is not None else pgd_solve
     kw = {} if weights is None else {"weights": weights}
-    return fn(hs, capacity, t_fast, t_slow, c_min=c_min, **kw), None
+    p1 = fn(hs, capacity, t_fast, t_slow, c_min=c_min, **kw)
+    if capacity2 <= 0:
+        return p1, None
+    if isinstance(hs, BatchedHitRatioFunctions):
+        shifted = hs.shifted(p1.sizes)       # vectorized residual curves
+    else:
+        shifted = [h.shifted(int(s)) for h, s in zip(hs, p1.sizes.tolist())]
+    p2 = fn(shifted, capacity2, t_fast2, t_slow, c_min=0, **kw)
+    return p1, p2
 
 
 # XLA's CPU float32 sums run left to right up to this many elements

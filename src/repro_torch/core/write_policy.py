@@ -15,7 +15,8 @@ import enum
 
 from repro_torch.core.trace import AccessClass, Trace, classify_accesses
 
-__all__ = ["WritePolicy", "write_ratio", "assign_write_policy"]
+__all__ = ["WritePolicy", "write_ratio", "assign_write_policy",
+           "assign_write_policy_levels"]
 
 
 class WritePolicy(enum.Enum):
@@ -38,3 +39,14 @@ def assign_write_policy(trace: Trace, w_threshold: float = 0.5) -> WritePolicy:
     """RO when unreferenced-write re-touches dominate, else WB (Alg. 3)."""
     return (WritePolicy.RO if write_ratio(trace) >= w_threshold
             else WritePolicy.WB)
+
+
+def assign_write_policy_levels(trace: Trace, w_threshold: float = 0.5,
+                               w_threshold2: float = 0.3
+                               ) -> tuple[WritePolicy, WritePolicy]:
+    """ETICA's per-level Alg. 3 from one writeRatio: each level applies
+    the rule at its own threshold; L2 (the larger, endurance-sensitive
+    level) uses the stricter, lower one, so it turns clean (RO) first."""
+    wr = write_ratio(trace)
+    return (WritePolicy.RO if wr >= w_threshold else WritePolicy.WB,
+            WritePolicy.RO if wr >= w_threshold2 else WritePolicy.WB)

@@ -30,7 +30,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LOADED: dict[pathlib.Path, ctypes.CDLL] = {}
+_LOADED: dict[tuple[str, ...], ctypes.CDLL] = {}
 
 
 def hopper_available() -> bool:
@@ -87,10 +87,12 @@ def build_library(name: str, sources: list[pathlib.Path]
 
 
 def load_library(name: str, sources: list[pathlib.Path]) -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; cached per process."""
-    path, _ = build_library(name, sources)
-    lib = _LOADED.get(path)
+    """Build (if needed) and load the kernel library; cached per process
+    (a launch after the first neither rereads nor rehashes the sources)."""
+    key = (name, *map(str, sources))
+    lib = _LOADED.get(key)
     if lib is None:
+        path, _ = build_library(name, sources)
         lib = ctypes.CDLL(str(path))
-        _LOADED[path] = lib
+        _LOADED[key] = lib
     return lib

@@ -12,17 +12,31 @@ reference's ``stack_distances_segments_accel``: the tape is re-laid out
 power-of-two padded and self-aligned, and each distinct padded width is
 one call of ``kernel.cache_sim_segments_scan`` on a CUDA tensor, or of
 the merge-sort tree ``ref.cache_sim_segments_tree`` on a CPU tensor.
+
+``residency_levels`` is the two-level replay's both-level residency
+(the reference's ``residency_levels_accel``): one
+``kernel.cache_sim_levels_scan`` launch on a CUDA tensor, the merge-tree
+distances (or, with an explicit occupancy, the dense
+``ref.cache_sim_levels_ref``) compared with the two thresholds on a CPU
+tensor.  ``ro_live_counts`` is the RO no-eviction guard's live count
+(the reference's ``ro_live_counts_accel``): ``kernel.live_count_scan``
+on a CUDA tensor, the O(n) ``ref.live_counts_delta`` on a CPU tensor.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.cache_sim.kernel import (cache_sim_scan,
-                                                  cache_sim_segments_scan)
-from repro_torch.kernels.cache_sim.ref import (cache_sim_segments_tree,
+from repro_torch.kernels.cache_sim.kernel import (cache_sim_levels_scan,
+                                                  cache_sim_scan,
+                                                  cache_sim_segments_scan,
+                                                  live_count_scan)
+from repro_torch.kernels.cache_sim.ref import (cache_sim_levels_ref,
+                                               cache_sim_segments_tree,
+                                               live_counts_delta,
                                                stack_distances_tree)
 
-__all__ = ["stack_distances", "stack_distances_segments", "width_groups_of"]
+__all__ = ["residency_levels", "ro_live_counts", "stack_distances",
+           "stack_distances_segments", "width_groups_of"]
 
 
 def stack_distances(prev: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
@@ -38,6 +52,49 @@ def stack_distances(prev: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
                                 torch.ones_like(p32))
         return counts.to(torch.int64)
     return stack_distances_tree(prev, nxt)
+
+
+def residency_levels(prev: torch.Tensor, nxt: torch.Tensor,
+                     cap1: torch.Tensor, captot: torch.Tensor,
+                     occ: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both-level residency as bool masks ``(l1, union)`` per access.
+
+    ``l1 = hot & (SD < cap1)``, ``union = hot & (SD < captot)`` with the
+    per-access thresholds of the access's tenant (``occ`` defaults to
+    every access occupying).  Links may be severed at tenant blocks as
+    for ``stack_distances``, so one call covers a whole tape.
+    """
+    if prev.device.type == "cuda":
+        p32 = prev.to(torch.int32).contiguous()
+        o32 = (torch.ones_like(p32) if occ is None
+               else occ.to(torch.int32).contiguous())
+        l1, un = cache_sim_levels_scan(
+            p32, nxt.to(torch.int32).contiguous(), o32,
+            cap1.to(torch.int32).contiguous(),
+            captot.to(torch.int32).contiguous())
+        return l1.bool(), un.bool()
+    if occ is not None:
+        l1, un = cache_sim_levels_ref(prev, nxt, occ, cap1, captot)
+        return l1.bool(), un.bool()
+    sd = stack_distances_tree(prev, nxt)
+    hot = sd >= 0
+    return hot & (sd < cap1), hot & (sd < captot)
+
+
+def ro_live_counts(nxt: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    """int64 live counts ``L[i] = #{ j <= i : occ[j], nxt[j] > i }``.
+
+    With ``occ = is_read`` the RO guard's live blocks after each access;
+    with ``occ`` on the warm-L2 pseudo rows the still-untouched warm-L2
+    blocks (``U2``).
+    """
+    if nxt.device.type == "cuda":
+        counts = live_count_scan(nxt.to(torch.int32).contiguous(),
+                                 occ.to(torch.int32).contiguous())
+    else:
+        counts = live_counts_delta(nxt, occ)
+    return counts.to(torch.int64)
 
 
 def width_groups_of(widths) -> tuple[tuple[int, int, int], ...]:

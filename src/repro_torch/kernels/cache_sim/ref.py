@@ -12,6 +12,13 @@ Two routes to the same numbers, both running on any device:
     ``repro.core.batch_sim``).  It is what a CPU tensor takes on the main
     path at any size.
 
+The two-level hierarchy's kernels have dense yardsticks here too:
+``cache_sim_levels_ref`` (the count compared with two per-row capacity
+thresholds, the masks of ``cache_sim_levels_scan``) and
+``live_counts_ref`` (the RO live count of ``live_count_scan``, with its
+O(n) form ``live_counts_delta``, which a CPU tensor takes on the main
+path).
+
 The segment-restricted count of ``cache_sim_segments_scan`` has the same
 two routes on a padded, self-aligned multi-tenant tape: the dense
 ``cache_sim_segments_ref`` (the j plane masked to the row's own
@@ -26,9 +33,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["cache_sim_ref", "cache_sim_segments_ref",
+__all__ = ["cache_sim_levels_ref", "cache_sim_ref", "cache_sim_segments_ref",
            "cache_sim_segments_tree", "count_prev_ge", "coverage_counts",
-           "stack_distances_tree"]
+           "live_counts_delta", "live_counts_ref", "stack_distances_tree"]
 
 _PAIRS_PER_CHUNK = 1 << 24
 
@@ -56,6 +63,64 @@ def cache_sim_ref(prev: torch.Tensor, nxt: torch.Tensor,
         out[lo:hi] = contrib.sum(dim=1, dtype=torch.int32)
     out[prev < 0] = -1
     return out
+
+
+def cache_sim_levels_ref(prev: torch.Tensor, nxt: torch.Tensor,
+                         occ: torch.Tensor, cap1: torch.Tensor,
+                         captot: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both-level residency masks ``(l1, union)``, int32 0/1 per row.
+
+    The exclusive two-level hierarchy's union is one LRU stack whose top
+    ``cap1[i]`` entries are L1, so with ``SD = cache_sim_ref(prev, nxt,
+    occ)``: ``l1[i] = prev[i] >= 0 and SD[i] < cap1[i]``, ``union[i] =
+    prev[i] >= 0 and SD[i] < captot[i]`` (an L2 hit is ``union & ~l1``).
+    Cold rows are 0 in both.
+    """
+    counts = cache_sim_ref(prev, nxt, occ)
+    hot = prev >= 0
+    return ((hot & (counts < cap1)).to(torch.int32),
+            (hot & (counts < captot)).to(torch.int32))
+
+
+def live_counts_ref(nxt: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    """counts[i] = #{ j <= i : occ[j] > 0, nxt[j] > i } (dense O(n²)).
+
+    The RO write-around live count: occupying tokens still resident
+    after access i assuming no eviction (the batch engine's no-eviction
+    guard; with ``occ`` on the warm-L2 pseudo rows, the still-untouched
+    warm-L2 blocks).  int32, row-chunked like ``cache_sim_ref``.
+    """
+    n = nxt.shape[0]
+    dev = nxt.device
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    j = torch.arange(n, device=dev)[None, :]
+    nxt_j = nxt[None, :]
+    occ_j = (occ > 0)[None, :]
+    rows = max(1, _PAIRS_PER_CHUNK // max(n, 1))
+    for lo in range(0, n, rows):
+        hi = min(n, lo + rows)
+        i = torch.arange(lo, hi, device=dev)[:, None]
+        contrib = (j <= i) & (nxt_j > i) & occ_j
+        out[lo:hi] = contrib.sum(dim=1, dtype=torch.int32)
+    return out
+
+
+def live_counts_delta(nxt: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    """``live_counts_ref`` in O(n): +1 at each token's birth j, -1 at its
+    death ``min(nxt[j], n)``, prefix-summed.
+
+    Only rows with ``occ[j] > 0`` and ``nxt[j] > j`` are tokens; a row
+    with ``nxt[j] <= j`` (a pad row's -1, say) never counts in the dense
+    definition, so it adds nothing here either.  int32.
+    """
+    n = nxt.shape[0]
+    nx = nxt.to(torch.int64)
+    pos = torch.arange(n, dtype=torch.int64, device=nxt.device)
+    tok = (occ > 0) & (nx > pos)
+    d = (torch.bincount(pos[tok], minlength=n + 1)
+         - torch.bincount(torch.clamp(nx[tok], max=n), minlength=n + 1))
+    return torch.cumsum(d[:n], 0).to(torch.int32)
 
 
 def cache_sim_segments_ref(prev: torch.Tensor, nxt: torch.Tensor,

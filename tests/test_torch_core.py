@@ -253,8 +253,11 @@ def test_two_level_solve_single_level_only():
                                    torch.tensor([3]))
     p1, p2 = partitioner.two_level_solve(hb, 100, 0, 1.0, 3.0, 20.0)
     assert p2 is None and p1.feasible
-    with pytest.raises(NotImplementedError, match="two-level"):
-        partitioner.two_level_solve(hb, 100, 10, 1.0, 3.0, 20.0)
+    # a second level now runs stage 2 on the residual curve, which L1's
+    # grant of 3 blocks saturates
+    p1b, p2 = partitioner.two_level_solve(hb, 100, 10, 1.0, 3.0, 20.0)
+    assert torch.equal(p1b.sizes, p1.sizes) and p1.sizes.tolist() == [3]
+    assert p2.feasible and p2.sizes.tolist() == [0]
 
 
 # ---------------------------------------------------------------- guard
@@ -296,16 +299,18 @@ def test_lru_cache_state_and_resize():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(engine="lru"), "interpreter"),
+    (dict(scheme="static"), "static"),
     (dict(pipeline="device"), "pipeline"),
-    (dict(capacity2=10), "two-level"),
+    (dict(scheme="reuse_intensity"), "reuse_intensity"),
     (dict(phase_detect=True), "phase_detect"),
     (dict(fault_tolerant=True), "fault"),
     (dict(pipeline="sharded"), "pipeline"),
 ])
 def test_manager_refuses_knobs_off_the_slice(kw, match):
+    kw = dict(kw)
+    scheme = kw.pop("scheme", "eci")
     with pytest.raises(NotImplementedError, match=match):
-        make_manager("eci", 100, NAMES, device="cpu", **kw)
+        make_manager(scheme, 100, NAMES, device="cpu", **kw)
 
 
 def test_manager_retire_and_sampling_threshold():

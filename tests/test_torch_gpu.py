@@ -4,29 +4,36 @@ Every test here needs a Hopper card and skips elsewhere with the reason;
 run them on the card with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``.  They hold each kernel against its plain
 PyTorch version on the same inputs, exactly (the counts are integers),
-and run ``pgd_solve`` and the 256-tenant SHARDS-sampled manager on the
-card against the CPU.
+and run ``pgd_solve``, the 256-tenant SHARDS-sampled manager, two-level
+``simulate_many`` (through both residency routes) and the ``etica``
+manager on the card against the CPU.
 This module imports nothing of JAX, so it runs where JAX is absent.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import make_manager
+from repro_torch.core import (LRUCache, Trace, WritePolicy, make_manager,
+                              simulate_many)
 from repro_torch.core.batch_sim import (padded_segment_layout,
                                         padded_tape_links, segment_links)
 from repro_torch.core.mrc import build_hit_ratio_functions
 from repro_torch.core.partitioner import pgd_solve
 from repro_torch.data.traces import MSR_PROFILES, msr_trace
 from repro_torch.kernels import hopper_available
-from repro_torch.kernels.cache_sim.kernel import (cache_sim_scan,
-                                                  cache_sim_segments_scan)
+from repro_torch.kernels.cache_sim.kernel import (cache_sim_levels_scan,
+                                                  cache_sim_scan,
+                                                  cache_sim_segments_scan,
+                                                  live_count_scan)
 from repro_torch.kernels.cache_sim.ops import (stack_distances,
                                                stack_distances_segments,
                                                width_groups_of)
-from repro_torch.kernels.cache_sim.ref import (cache_sim_ref,
+from repro_torch.kernels.cache_sim.ref import (cache_sim_levels_ref,
+                                               cache_sim_ref,
                                                cache_sim_segments_ref,
                                                cache_sim_segments_tree,
+                                               live_counts_delta,
+                                               live_counts_ref,
                                                stack_distances_tree)
 
 pytestmark = pytest.mark.gpu
@@ -223,3 +230,140 @@ def test_manager_256_tenants_on_card_matches_cpu(card):
         assert tg.result == tc.result
         assert torch.equal(tg.cache.state_arrays()[0].cpu(),
                            tc.cache.state_arrays()[0])
+
+
+def _caps(n, seed, device):
+    """Per-row L1 and union capacities: a quarter cap1 = 0, a quarter
+    cap1 = captot, the rest varying."""
+    rng = np.random.default_rng(seed)
+    cap1 = rng.integers(0, 40, n)
+    captot = cap1 + rng.integers(0, 40, n)
+    cap1[: n // 4] = 0
+    captot[n // 4: n // 2] = cap1[n // 4: n // 2]
+    return (torch.as_tensor(cap1, dtype=torch.int32, device=device),
+            torch.as_tensor(captot, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("n", [1, 31, 255, 4097, 65536])
+@pytest.mark.parametrize("occ_kind", ["ones", "reads"])
+def test_cache_sim_levels_scan_matches_ref_on_card(card, n, occ_kind):
+    prev, nxt, reads = _tape(n, n + 1, card)
+    p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
+    occ = (torch.ones_like(p32) if occ_kind == "ones"
+           else reads.to(torch.int32))
+    cap1, captot = _caps(n, n, card)
+    got = cache_sim_levels_scan(p32, n32, occ, cap1, captot)
+    want = cache_sim_levels_ref(p32, n32, occ, cap1, captot)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not bool(got[1][prev < 0].any())
+
+
+def _live_inputs(n, seed, device):
+    """Links of a tape plus rows with nxt = -1, nxt = j and nxt = n."""
+    _, nxt, reads = _tape(n, seed, device)
+    rng = np.random.default_rng(seed)
+    nxt = nxt.clone()
+    pos = torch.arange(n, device=device)
+    pick = torch.as_tensor(rng.integers(0, 4, n), device=device)
+    nxt = torch.where(pick == 0, -1, nxt)
+    nxt = torch.where(pick == 1, pos, nxt)
+    nxt = torch.where((pick == 2) & (pos % 3 == 0), n, nxt)
+    return nxt.to(torch.int32), reads.to(torch.int32)
+
+
+@pytest.mark.parametrize("n", [1, 255, 4097, 8192, 8193, 65536, 300_000])
+def test_live_count_scan_matches_ref_on_card(card, n):
+    nxt, occ = _live_inputs(n, n, card)
+    got = live_count_scan(nxt, occ)
+    want = live_counts_delta(nxt, occ)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if n <= 8193:
+        assert torch.equal(got, live_counts_ref(nxt, occ))
+
+
+def test_level_kernels_launch_counters_and_input_checks(card):
+    prev, nxt, reads = _tape(1000, 5, card)
+    p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
+    cap1, captot = _caps(1000, 5, card)
+    b_lv, b_live = cache_sim_levels_scan.launches, live_count_scan.launches
+    cache_sim_levels_scan(p32, n32, torch.ones_like(p32), cap1, captot)
+    live_count_scan(n32, reads.to(torch.int32))
+    assert cache_sim_levels_scan.launches == b_lv + 1
+    assert live_count_scan.launches == b_live + 1
+    with pytest.raises(ValueError):
+        cache_sim_levels_scan(prev, nxt, torch.ones_like(prev), cap1.long(),
+                              captot.long())                     # int64
+    with pytest.raises(ValueError):
+        cache_sim_levels_scan(p32, n32, torch.ones_like(p32), captot,
+                              cap1)                      # cap1 > captot
+    with pytest.raises(ValueError):
+        live_count_scan(nxt, reads.long())                        # int64
+    assert cache_sim_levels_scan.launches == b_lv + 1
+    assert live_count_scan.launches == b_live + 1
+
+
+@pytest.mark.parametrize("window_rd", [False, True])
+def test_two_level_simulate_many_card_matches_cpu(card, window_rd):
+    """Mixed WB/WT/RO x clean/dirty L2 tenants over warm windows, one
+    with L1 = 0 and RO ones under pressure: the card's residency route
+    (``cache_sim_levels_scan``, or ``cache_sim_scan`` when the window's
+    reuse distances are asked for) gives the CPU's results and states."""
+    rng = np.random.default_rng(3)
+    pols = ["wb", "wt", "ro", "ro", "wb", "ro"]
+    pols2 = ["wb", "ro", "wb", "ro", "ro", "wb"]
+    caps1 = [40, 30, 20, 8, 0, 4]
+    caps2 = [80, 60, 40, 16, 50, 8]
+    devs = (card, torch.device("cpu"))
+    side = [([LRUCache(c, dev) for c in caps1],
+             [LRUCache(c, dev) for c in caps2]) for dev in devs]
+    counters = (cache_sim_levels_scan, cache_sim_scan, live_count_scan)
+    before = [k.launches for k in counters]
+    for w in range(3):
+        traces = [Trace(torch.as_tensor(rng.integers(0, 30 + 20 * i, 2000)),
+                        torch.as_tensor(rng.random(2000) < 0.6))
+                  for i in range(len(pols))]
+        out = [simulate_many(
+            traces, policies=[WritePolicy(p) for p in pols], caches=c1,
+            policies2=[WritePolicy(p) for p in pols2], caches2=c2,
+            flush_cost=10.0, t_fast2=4.0, return_window_rd=window_rd,
+            device=dev) for dev, (c1, c2) in zip(devs, side)]
+        if window_rd:
+            (res_g, rd_g), (res_c, rd_c) = out
+            for a, b in zip(rd_g, rd_c):
+                assert torch.equal(a.cpu(), b)
+        else:
+            res_g, res_c = out
+        assert res_g == res_c
+    (g1, g2), (c1, c2) = side
+    for a, b in zip(g1 + g2, c1 + c2):
+        assert torch.equal(a.state_arrays()[0].cpu(), b.state_arrays()[0])
+        assert torch.equal(a.state_arrays()[1].cpu(), b.state_arrays()[1])
+    after = [k.launches - b for k, b in zip(counters, before)]
+    assert after[1 if window_rd else 0] == 3      # one residency launch
+    assert after[2] >= 3                          # the RO guard's L
+
+
+def test_etica_manager_on_card_matches_cpu(card):
+    names = ["wdev_0", "hm_1", "prn_1", "web_0", "prxy_0", "ts_0"]
+    kw = dict(capacity2=1200, c_min=10, initial_blocks=40, t_fast=1.0,
+              t_fast2=4.0, t_slow=20.0, flush_cost=10.0)
+    g = make_manager("etica", 400, names, device="cuda", **kw)
+    c = make_manager("etica", 400, names, device="cpu", **kw)
+    before = live_count_scan.launches
+    for w in range(3):
+        traces = [msr_trace(nm, 3000, seed=10 * w + i)
+                  for i, nm in enumerate(names)]
+        g.run_window(traces)
+        c.run_window(traces)
+        assert g.history[-1].sizes.tolist() == c.history[-1].sizes.tolist()
+        assert g.history[-1].sizes2.tolist() == \
+            c.history[-1].sizes2.tolist()
+        assert g.history[-1].policies2 == c.history[-1].policies2
+    assert live_count_scan.launches > before
+    for tg, tc in zip(g.tenants, c.tenants):
+        assert tg.result == tc.result
+        for a, b in ((tg.cache, tc.cache), (tg.cache2, tc.cache2)):
+            assert torch.equal(a.state_arrays()[0].cpu(), b.state_arrays()[0])
+    assert g.summary() == c.summary()
