@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases:
   1. print the card (``nvidia-smi`` name and power limit, torch's name);
-  2. build the four CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
+  2. build the five CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
      one ``nvcc`` per source, all started together;
   3. hold each kernel against its plain PyTorch version on the card,
      exactly: ``cache_sim_scan`` vs the dense ``cache_sim_ref`` at tape
@@ -18,7 +18,9 @@ Phases:
      ``cache_sim_levels_scan`` vs ``cache_sim_levels_ref`` and
      ``live_count_scan`` vs ``live_counts_ref`` and ``live_counts_delta``
      at n = 1 .. 65,536 (ragged tenant blocks; cap1 = 0, cap1 = captot
-     and varying rows; rows with nxt = -1, j and n);
+     and varying rows; rows with nxt = -1, j and n); ``urd_scan`` vs the
+     dense ``urd_scan_ref`` at n = 1 .. 65,536 (ragged tenant blocks,
+     severed links, cold rows);
   4. drive slice 1's path — ``make_manager("eci", 6000, ...)`` over 16
      tenants, three Δt windows of 65,536 accesses each — on the card with
      every kernel launch counter set to 0 just before each window and
@@ -46,11 +48,36 @@ Phases:
      3600 with ``w_threshold=0`` (every tenant RO after window 0), two
      windows — compared with the CPU; at least one tenant-window must
      take the two-level token replay and none the interpreter;
-  8. time each kernel at a full tape of its path (CUDA events) beside its
+  8. the Table-3 Analyzer: ``reuse_distances_accel`` (``urd_scan``) on
+     the card for the four Table-3 workloads, ``msr_trace(name, 65536,
+     seed=3)``, kinds ``urd`` and ``trd``, equal to
+     ``reuse_distances_fast`` and the Fenwick ``reuse_distances`` on the
+     CPU;
+  9. the thousand-tenant control plane of
+     ``benchmarks/bench_monitor_scale.py`` at 1024 tenants
+     (``synthetic_mix(1024, 8000, seed=7)``, ``c_min=50``, capacity
+     ``max(1024*50 + 1, int(0.35 * sum URD))``): the seed row (a
+     per-tenant ``reuse_distances_accel`` loop, 1024 ``urd_scan``
+     launches, and the fast greedy walk) and the fused row (exact
+     ``analyze_windows`` and the fast walk) on the card, the heap walk on
+     the CPU; allocations, feasibility and hit ratios equal;
+ 10. the remaining schemes on slice 1's deployment: ``static`` and
+     ``reuse_intensity`` (every window launching ``live_count_scan``)
+     driven as in phase 4, and ``GlobalLRUManager`` on the card against
+     the CPU (counts, summaries, the shared LRU state);
+ 11. ``benchmarks/bench_scenarios.py``'s settings (capacity 8192,
+     ``c_min=256``, seed 0): ``scan_flood`` isolation for ``eci`` and
+     ``static`` (with and without the aggressor) and ``churn`` with
+     ``phase_detect=True, reconfig_interval=10**9``, on the card and the
+     CPU: event logs, ``windows_analyzed``, decisions and per-tenant
+     latencies equal;
+ 12. time each kernel at a full tape of its path (CUDA events) beside its
      plain version and the bound of the function it computes (the larger
      of its bytes at the memory rate and a tree count's operations at
      the 32-bit rate), holding it against the plain version there too;
-  9. print the kernels line, the card line and, last, the result line.
+     ``urd_scan`` at a 65,536-row Table-3 window and at the 1,048,576-row
+     16-tenant tape that times ``cache_sim_scan``;
+ 13. print the kernels line, the card line and, last, the result line.
 
 Exits non-zero, printing no result, when no card is visible or any
 phase fails.
@@ -93,6 +120,12 @@ PRESSURE_CAP1, PRESSURE_CAP2, PRESSURE_WINDOWS = 1200, 3600, 3
 # the CPU comparison of the SHARDS path runs window 1 only while the
 # whole run stays inside this many seconds (10 of its 20 minutes)
 CPU_BUDGET_S = 600.0
+# the Table-3 Analyzer workloads (benchmarks/bench_monitor_scale.py:85)
+TABLE3 = ("prxy_0", "prn_1", "hm_1", "web_1")
+# the thousand-tenant control plane (bench_monitor_scale.py's 1024 point)
+CP_TENANTS, CP_ACCESSES, CP_SEED, CP_C_MIN = 1024, 8000, 7, 50
+# benchmarks/bench_scenarios.py's CAPACITY and C_MIN
+SC_CAPACITY, SC_C_MIN = 8192, 256
 SEGMENT_LENS = {64: [64, 1, 33, 0, 64], 512: [512, 300, 257, 0],
                 4096: [4096, 2049, 3000], 8192: [8192, 5000, 4097],
                 16384: [16384, 9000]}   # 16384: wider than one stage
@@ -210,19 +243,25 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 KERNEL_NAMES = ("cache_sim_scan", "cache_sim_segments_scan",
-                "cache_sim_levels_scan", "live_count_scan")
+                "cache_sim_levels_scan", "live_count_scan", "urd_scan")
 STAGES = ("tape", "ro_replay", "count", "replay", "monitor", "pgd")
 
 
+def kernel_wrappers() -> dict:
+    """name -> the launching wrapper (its ``launches`` is the count)."""
+    from repro_torch.kernels.cache_sim import kernel as cache_sim
+    from repro_torch.kernels.urd_scan import kernel as urd
+    return {name: getattr(urd if name == "urd_scan" else cache_sim, name)
+            for name in KERNEL_NAMES}
+
+
 def zero_counts() -> None:
-    from repro_torch.kernels.cache_sim import kernel
-    for name in KERNEL_NAMES:
-        getattr(kernel, name).launches = 0
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
 
 
 def read_counts() -> dict[str, int]:
-    from repro_torch.kernels.cache_sim import kernel
-    return {name: getattr(kernel, name).launches for name in KERNEL_NAMES}
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def states_of(mgr) -> list:
@@ -550,6 +589,222 @@ class RouteReplays:
               f"{self.walls[-1]:.3f} s")
 
 
+def _same_results(what: str, got, want, rel: float = 1e-12) -> None:
+    """Per-tenant ``SimResult``s: counts exactly, latency to ``rel``."""
+    assert len(got) == len(want), f"{what}: tenant counts differ"
+    compare_counts(what, [dataclasses.asdict(r) for r in got],
+                   [dataclasses.asdict(r) for r in want], rel)
+
+
+def table3_phase(dev) -> collections.Counter:
+    """Phase 8: the per-tenant Analyzer on the Table-3 workloads."""
+    from repro_torch.core import reuse_distances, reuse_distances_fast
+    from repro_torch.data.traces import msr_trace
+    from repro_torch.kernels.urd_scan.ops import reuse_distances_accel
+    launches = collections.Counter()
+    for name in TABLE3:
+        tr = msr_trace(name, ACCESSES, seed=3)
+        for kind in ("urd", "trd"):
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            got = reuse_distances_accel(tr, kind, device=dev)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            counts = read_counts()
+            launches.update(counts)
+            assert counts["urd_scan"] == 1, counts
+            t0 = time.perf_counter()
+            fast = reuse_distances_fast(tr, kind)
+            t_fast = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fen = reuse_distances(tr, kind)
+            t_fen = time.perf_counter() - t0
+            assert torch.equal(got.distances.cpu(), fen.distances), \
+                f"{name} {kind}: card vs Fenwick"
+            assert torch.equal(fast.distances, fen.distances), \
+                f"{name} {kind}: merge tree vs Fenwick"
+            print(f"Table 3 {name} {kind}: {int((fen.distances >= 0).sum())}"
+                  f" samples, max {int(fen.distances.max())}; "
+                  f"reuse_distances_accel on the card {t_card:.4f} s, "
+                  f"reuse_distances_fast on the CPU {t_fast:.4f} s, Fenwick "
+                  f"on the CPU {t_fen:.4f} s; all equal")
+    print(f"check: Table-3 Analyzer on the card == reuse_distances_fast == "
+          f"Fenwick (4 workloads x urd/trd, {ACCESSES} accesses); launches "
+          f"{json.dumps(dict(launches))}")
+    return launches
+
+
+def control_plane_phase(dev) -> collections.Counter:
+    """Phase 9: the 1024-tenant control plane, seed and fused rows on the
+    card, the heap walk on the CPU."""
+    from repro_torch.core import (Trace, analyze_windows,
+                                  build_hit_ratio_function, greedy_allocate,
+                                  urd_cache_blocks, write_ratio)
+    from repro_torch.core.mrc import BatchedHitRatioFunctions
+    from repro_torch.data.traces import synthetic_mix
+    from repro_torch.kernels.urd_scan.ops import reuse_distances_accel
+    t0 = time.perf_counter()
+    traces = synthetic_mix(CP_TENANTS, CP_ACCESSES, seed=CP_SEED)
+    dtr = [Trace(t.addrs.to(dev), t.is_read.to(dev), t.name) for t in traces]
+    torch.cuda.synchronize()
+    urd_total = int(analyze_windows(dtr, "urd", device=dev)
+                    .curves.max_useful_sizes.sum())
+    capacity = max(CP_TENANTS * CP_C_MIN + 1, int(0.35 * urd_total))
+    print(f"control plane: {CP_TENANTS} tenants x {CP_ACCESSES} accesses "
+          f"({CP_TENANTS * CP_ACCESSES} in all), sum URD {urd_total}, "
+          f"capacity {capacity}; traces made and moved to the card, "
+          f"capacity found, in {time.perf_counter() - t0:.1f} s")
+    rows = {}
+    for row in ("seed", "fused"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        if row == "seed":
+            hs = []
+            for tr in dtr:
+                rd = reuse_distances_accel(tr, "urd", device=dev)
+                hs.append(build_hit_ratio_function(rd))
+                urd_cache_blocks(rd)
+                write_ratio(tr)
+            curves = BatchedHitRatioFunctions.from_curves(hs)
+        else:
+            curves = analyze_windows(dtr, "urd", device=dev).curves
+        part = greedy_allocate(curves, capacity, 1.0, 20.0, c_min=CP_C_MIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        rows[row] = (curves, part, counts)
+        print(f"control plane {row} row on the card: {wall:.3f} s, peak "
+              f"device memory {peak:.1f} MiB, launches {json.dumps(counts)}")
+    assert rows["seed"][2]["urd_scan"] == CP_TENANTS, rows["seed"][2]
+    assert rows["fused"][2]["cache_sim_scan"] >= 1, rows["fused"][2]
+    host = rows["fused"][0].to("cpu")
+    t0 = time.perf_counter()
+    heap = greedy_allocate(host, capacity, 1.0, 20.0, c_min=CP_C_MIN,
+                           method="heap")
+    print(f"control plane heap walk on the CPU: "
+          f"{time.perf_counter() - t0:.3f} s over {host.edges.numel()} "
+          f"breakpoints")
+    sc, sf = rows["seed"][0].to("cpu"), host
+    assert all(torch.equal(getattr(sc, f), getattr(sf, f)) for f in
+               ("edges", "heights", "offsets", "n_accesses")), \
+        "seed curves differ from the fused curves"
+    for row in ("seed", "fused"):
+        part = rows[row][1]
+        assert part.sizes.tolist() == heap.sizes.tolist(), f"{row} sizes"
+        assert part.feasible == heap.feasible, f"{row} feasibility"
+        assert torch.equal(part.hit_ratios, heap.hit_ratios), \
+            f"{row} hit ratios"
+        assert abs(part.latency - heap.latency) <= 1e-12 * abs(heap.latency)
+    print(f"check: control plane seed row == fused row == heap walk "
+          f"(curves bit for bit, allocations {int(heap.sizes.sum())} blocks"
+          f", feasible={heap.feasible}, hit ratios bit for bit)")
+    return rows["seed"][2]
+
+
+def global_lru_phase(dev, windows) -> None:
+    """Phase 10, last part: one shared LRU on the card and on the CPU."""
+    from repro_torch.core import GlobalLRUManager
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        mgr = GlobalLRUManager(6000, MSR_16, t_fast=1.0, t_slow=20.0,
+                               device=device)
+        walls = []
+        for traces in windows:
+            t0 = time.perf_counter()
+            mgr.run_window(traces)
+            walls.append(time.perf_counter() - t0)
+        runs.append(mgr)
+        print(f"global LRU on {device.type}: "
+              f"{', '.join(f'{x:.2f}' for x in walls)} s per window; "
+              f"state on {mgr.cache.state_arrays()[0].device}")
+    g, c = runs
+    assert g.cache.state_arrays()[0].device.type == "cuda"
+    _same_results("global LRU", g.results, c.results)
+    compare_states("global LRU", [tuple(x.cpu() for x in
+                                        g.cache.state_arrays())],
+                   [c.cache.state_arrays()])
+    sg, sc = g.summary(), c.summary()
+    assert all(abs(sg[k] - v) <= 1e-12 * abs(v) for k, v in sc.items()), \
+        f"global LRU summary {sg} vs {sc}"
+    print(f"check: global LRU card == CPU (counts, summary "
+          f"{json.dumps({k: sg[k] for k in ('read_hit_ratio', 'mean_latency')})}"
+          f", shared LRU state)")
+
+
+def _scenario_log(mgr) -> list:
+    return [(e.window, e.tenant, e.reason, e.score) for e in mgr.events]
+
+
+def scenarios_phase(dev) -> collections.Counter:
+    """Phase 11: bench_scenarios' isolation and churn, card vs CPU."""
+    from repro_torch.core import make_manager
+    from repro_torch.data.scenarios import (churn, per_tenant_latency,
+                                            replay_scenario, scan_flood)
+
+    def factory(scheme, device, **kw):
+        return lambda names: make_manager(
+            scheme, SC_CAPACITY, names, c_min=SC_C_MIN,
+            initial_blocks=SC_C_MIN, t_fast=1.0, t_slow=20.0,
+            flush_cost=10.0, device=device, **kw)
+
+    launches = collections.Counter()
+
+    def both(tag, run, scheme, exclude=frozenset(), **kw):
+        out, counts = [], {}
+        for device in (dev, torch.device("cpu")):
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            mgr, imap = replay_scenario(run, factory(scheme, device, **kw),
+                                        exclude=exclude)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if device.type == "cuda":
+                counts = read_counts()
+                launches.update(counts)
+            out.append((mgr, imap, wall))
+        (g, gi, gw), (c, ci, cw) = out
+        assert _scenario_log(g) == _scenario_log(c), f"{tag}: events"
+        assert gi == ci
+        assert (g.windows_analyzed, g.windows_run) == \
+            (c.windows_analyzed, c.windows_run), f"{tag}: windows"
+        for w, (dg, dc) in enumerate(zip(g.history, c.history)):
+            assert dg.sizes.tolist() == dc.sizes.tolist(), f"{tag} {w}"
+            assert dg.policies == dc.policies, f"{tag} {w}: policies"
+            assert dg.guard == dc.guard, f"{tag} {w}: guard"
+        assert len(g.history) == len(c.history)
+        _same_results(tag, [t.result for t in g.tenants],
+                      [t.result for t in c.tenants])
+        lg, lc = per_tenant_latency(g, gi), per_tenant_latency(c, ci)
+        assert lg.keys() == lc.keys() and all(
+            abs(lg[k] - lc[k]) <= 1e-12 * abs(lc[k]) for k in lc), tag
+        print(f"scenario {tag}: card {gw:.2f} s, CPU {cw:.2f} s; "
+              f"{g.windows_analyzed} of {g.windows_run} windows analyzed, "
+              f"{len(g.events)} events; launches {json.dumps(counts)}")
+        return lg
+
+    flood = scan_flood(seed=0)
+    for scheme in ("eci", "static"):
+        full = both(f"scan_flood {scheme}", flood, scheme)
+        solo = both(f"scan_flood {scheme} without the aggressor", flood,
+                    scheme, exclude={flood.aggressor})
+        degr = {v: (full[v] - solo[v]) / max(solo[v], 1e-12)
+                for v in sorted(solo) if v != flood.aggressor}
+        print(f"scan_flood {scheme} isolation: max per-victim degradation "
+              f"{max(degr.values())!r} ({json.dumps(degr)})")
+    run = churn(seed=0)
+    both("churn", run, "eci", phase_detect=True, reconfig_interval=10**9)
+    print(f"check: scenarios card == CPU (event logs, windows analyzed, "
+          f"decisions, per-tenant counts and latencies); launches "
+          f"{json.dumps(dict(launches))}")
+    assert launches["cache_sim_scan"] > 0
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -561,6 +816,8 @@ def main() -> int:
     from repro_torch.core.monitor import shards_subtape
     from repro_torch.core.reuse_distance import auto_sample_rate
     from repro_torch.kernels import build_library
+    from repro_torch.core.trace import prev_next_occurrence
+    from repro_torch.data.traces import msr_trace
     from repro_torch.kernels.cache_sim.kernel import (LIBRARIES,
                                                       cache_sim_levels_scan,
                                                       cache_sim_scan,
@@ -574,6 +831,9 @@ def main() -> int:
                                                    live_counts_delta,
                                                    live_counts_ref,
                                                    stack_distances_tree)
+    from repro_torch.kernels.urd_scan.kernel import LIBRARIES as URD_LIBRARIES
+    from repro_torch.kernels.urd_scan.kernel import urd_scan
+    from repro_torch.kernels.urd_scan.ref import urd_scan_ref
 
     dev = torch.device("cuda")
     card = card_line()
@@ -584,9 +844,10 @@ def main() -> int:
 
     # ----------------------------------------- 2. build, one nvcc a source
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as ex:
+    libraries = LIBRARIES + URD_LIBRARIES
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as ex:
         builds = {name: ex.submit(build_library, name, srcs)
-                  for name, srcs in LIBRARIES}
+                  for name, srcs in libraries}
         built = {name: f.result() for name, f in builds.items()}
     print(f"build: {', '.join(lib.name for lib, _ in built.values())} in "
           f"{time.perf_counter() - t0:.2f} s (in parallel)")
@@ -665,6 +926,16 @@ def main() -> int:
               f"live_count_scan == live_counts_ref == live_counts_delta at "
               f"n={n} (cap1 = 0, cap1 = captot and varying rows; occ=1, "
               f"occ=is_read; nxt = -1, j, n rows)")
+    for n in (1, 255, 4097, 32768, 65536):
+        prev, nxt, _ = tape_links(n, seed=n + 11, device=dev)
+        p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
+        got = urd_scan(p32, n32)
+        check("urd_scan", f"n={n}", got, urd_scan_ref(p32, n32))
+        assert bool((got[prev < 0] == -1).all()), "cold rows must be -1"
+        print(f"check: urd_scan == urd_scan_ref at n={n} (ragged tenant "
+              f"blocks, severed links; {int((prev < 0).sum())} cold rows)")
+    print(f"phase seconds: build and kernel checks done at "
+          f"{time.perf_counter() - T_START:.1f} s")
 
     # --------------------------------------------- 4. slice 1's main path
     t0 = time.perf_counter()
@@ -735,8 +1006,37 @@ def main() -> int:
                            ("ETICA", launches_et)):
         print(f"live_count_scan launches on the {name} path: "
               f"{launches['live_count_scan']}")
+    print(f"phase seconds: slices 1-3 paths done at "
+          f"{time.perf_counter() - T_START:.1f} s")
 
-    # ------------- 8a. full window tape: cache_sim_scan vs its merge tree
+    # --------------------------------- 8. the Table-3 Analyzer (urd_scan)
+    t0 = time.perf_counter()
+    launches_t3 = table3_phase(dev)
+    print(f"phase seconds: Table-3 Analyzer {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------- 9. the thousand-tenant control plane
+    t0 = time.perf_counter()
+    launches_cp = control_plane_phase(dev)
+    print(f"phase seconds: control plane {time.perf_counter() - t0:.1f} s")
+
+    # ----------------------------------------- 10. the remaining schemes
+    t0 = time.perf_counter()
+    drive("static", dev, windows, MSR_16, 6000, scheme="static")
+    launches_ri, (gpu_ri, _), _ = drive(
+        "reuse_intensity", dev, windows, MSR_16, 6000,
+        want=("live_count_scan",), scheme="reuse_intensity")
+    assert all(t.policy.value == "ro" for t in gpu_ri.tenants)
+    print(f"reuse_intensity: live_count_scan launches "
+          f"{launches_ri['live_count_scan']} in {WINDOWS} windows")
+    global_lru_phase(dev, windows)
+    print(f"phase seconds: schemes {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------- 11. the scenarios
+    t0 = time.perf_counter()
+    launches_sc = scenarios_phase(dev)
+    print(f"phase seconds: scenarios {time.perf_counter() - t0:.1f} s")
+
+    # ------------- 12a. full window tape: cache_sim_scan vs its merge tree
     tr0 = windows[0]
     addrs = torch.cat([t.addrs for t in tr0]).to(dev)
     lens = torch.tensor([len(t) for t in tr0], device=dev)
@@ -770,7 +1070,46 @@ def main() -> int:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": bnd_by,
         "library_ms": None}]
 
-    # ---- 8b. full sampled tape: cache_sim_segments_scan vs its tree
+    # ---- 12b. urd_scan at the same 16-tenant tape and at a Table-3 window
+    got = urd_scan(p32, n32)
+    check("urd_scan", "full tape vs merge tree", got,
+          stack_distances_tree(prev, nxt_c))
+    urd_ms = cuda_ms(lambda: urd_scan(p32, n32), REPS)
+    urd_plain = cuda_ms(lambda: stack_distances_tree(prev, nxt_c), REPS // 4)
+    m = int(prev.shape[0])
+    # the function's floor: read prev and nxt and write RD once (12 n
+    # bytes); a Fenwick-tree count's n * ceil(log2 n) operations
+    urd_bnd, urd_by = bound_ms(12 * m, m * math.ceil(math.log2(max(m, 2))))
+    print(f"full tape: {m} accesses; urd_scan {urd_ms:.3f} ms, merge-tree "
+          f"route {urd_plain:.3f} ms, bound {urd_bnd:.6f} ms by {urd_by}; "
+          f"kernel / bound = {urd_ms / urd_bnd:.1f}")
+    t3 = msr_trace(TABLE3[0], ACCESSES, seed=3)
+    prev3, nxt3 = prev_next_occurrence(t3.addrs.to(dev))
+    p3, n3 = prev3.to(torch.int32), nxt3.to(torch.int32)
+    check("urd_scan", "Table-3 window vs merge tree", urd_scan(p3, n3),
+          stack_distances_tree(prev3, nxt3))
+    t3_ms = cuda_ms(lambda: urd_scan(p3, n3), REPS)
+    t3_plain = cuda_ms(lambda: stack_distances_tree(prev3, nxt3), REPS // 4)
+    m3 = int(prev3.shape[0])
+    t3_bnd, t3_by = bound_ms(12 * m3, m3 * math.ceil(math.log2(m3)))
+    print(f"Table-3 window ({TABLE3[0]}): {m3} accesses; urd_scan "
+          f"{t3_ms:.4f} ms, merge-tree route {t3_plain:.3f} ms, bound "
+          f"{t3_bnd:.6f} ms by {t3_by}; kernel / bound = "
+          f"{t3_ms / t3_bnd:.1f}")
+    urd_row = {
+        "name": "urd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/urd_scan/csrc/urd_scan.cu",
+        "replaces": "src/repro/kernels/urd_scan/kernel.py:62",
+        "launches": launches_t3["urd_scan"] + launches_cp["urd_scan"],
+        "max_abs_err": max_err["urd_scan"],
+        "ms": urd_ms, "plain_ms": urd_plain, "bound_ms": urd_bnd,
+        "bound_by": urd_by, "library_ms": None}
+    print(f"urd_scan launches on its paths: Table-3 Analyzer "
+          f"{launches_t3['urd_scan']}, control-plane seed row "
+          f"{launches_cp['urd_scan']}; on the scenario path "
+          f"{launches_sc['urd_scan']}")
+
+    # ---- 12c. full sampled tape: cache_sim_segments_scan vs its tree
     str0 = swindows[0]
     rates = [auto_sample_rate(len(t)) for t in str0]
     addrs_s, _, kept = shards_subtape(str0, rates, 0,
@@ -813,7 +1152,7 @@ def main() -> int:
         "bound_by": bnd_by, "library_ms": None})
     del swindows, args, gprev, gnxt, gocc
 
-    # ---- 8c. the last ETICA window's tape: cache_sim_levels_scan vs the
+    # ---- 12d. the last ETICA window's tape: cache_sim_levels_scan vs the
     # merge tree's distances compared with the two thresholds
     prev, nxt_c, cap1_of, captot_of = routes.args[:4]
     p32, n32 = prev.to(torch.int32), nxt_c.to(torch.int32)
@@ -851,7 +1190,7 @@ def main() -> int:
         "ms": lv_ms, "plain_ms": lv_plain, "bound_ms": bnd,
         "bound_by": bnd_by, "library_ms": None})
 
-    # ---- 8d. the pressure path's first guard tape: live_count_scan vs
+    # ---- 12e. the pressure path's first guard tape: live_count_scan vs
     # the O(n) delta form
     nxt_l, occ_l = live_rec.args
     n32 = nxt_l.to(torch.int32).contiguous()
@@ -868,7 +1207,8 @@ def main() -> int:
           f"{lc_ms:.3f} ms, delta form {lc_plain:.3f} ms, bound "
           f"{bnd:.6f} ms by {bnd_by}; kernel / bound = {lc_ms / bnd:.1f}")
     live_total = sum(x["live_count_scan"] for x in
-                     (launches16, launches256, launches_et, launches_pr))
+                     (launches16, launches256, launches_et, launches_pr,
+                      launches_ri))
     rows.append({
         "name": "live_count_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/cache_sim/csrc/live_count.cu",
@@ -877,6 +1217,7 @@ def main() -> int:
         "max_abs_err": max_err["live_count_scan"],
         "ms": lc_ms, "plain_ms": lc_plain, "bound_ms": bnd,
         "bound_by": bnd_by, "library_ms": None})
+    rows.append(urd_row)
     print(f"cache_sim_scan launches on the 256-tenant path: "
           f"{launches256['cache_sim_scan']}; total run "
           f"{time.perf_counter() - T_START:.1f} s")

@@ -1,8 +1,13 @@
 """ECI-Cache core: URD analysis, MRC partitioning, write policies (torch)."""
-from repro_torch.core.baselines import SCHEMES, make_manager
+from repro_torch.core.baselines import SCHEMES, GlobalLRUManager, make_manager
 from repro_torch.core.batch_sim import (padded_segment_layout,
-                                        padded_tape_links, segment_links,
+                                        padded_tape_links,
+                                        reuse_distances_fast, segment_links,
                                         simulate_batch, simulate_many)
+from repro_torch.core.characterize import (PhaseDetector, PhaseEvent,
+                                           WindowFeatures,
+                                           characterize_trace,
+                                           characterize_windows)
 from repro_torch.core.guard import GuardReport, validate_decision
 from repro_torch.core.manager import (AnalyzerDecision, ECICacheManager,
                                       ReconfigEvent, TenantState)
@@ -11,10 +16,13 @@ from repro_torch.core.mrc import (BatchedHitRatioFunctions, HitRatioFunction,
                                   build_hit_ratio_function,
                                   build_hit_ratio_functions)
 from repro_torch.core.partitioner import (PartitionResult, aggregate_latency,
-                                          pgd_solve, two_level_solve)
+                                          greedy_allocate, pgd_solve,
+                                          two_level_solve)
 from repro_torch.core.profile import StageProfile
 from repro_torch.core.reuse_distance import (RDResult, auto_sample_rate,
-                                             max_rd, sampled_reuse_distances,
+                                             max_rd, reuse_distances,
+                                             reuse_distances_vectorized,
+                                             sampled_reuse_distances,
                                              shards_keep_mask, shards_salt,
                                              urd_cache_blocks)
 from repro_torch.core.simulator import (LRUCache, SimResult,
@@ -29,18 +37,21 @@ from repro_torch.core.write_policy import (WritePolicy, assign_write_policy,
 
 __all__ = [
     "AccessClass", "AnalyzerDecision", "BatchedHitRatioFunctions",
-    "ECICacheManager", "GuardReport", "HitRatioFunction", "LRUCache",
-    "MonitorResult", "PartitionResult", "RDResult", "ReconfigEvent",
-    "SCHEMES", "SimResult", "StageProfile", "TenantState", "Trace",
-    "TraceError", "WritePolicy",
+    "ECICacheManager", "GlobalLRUManager", "GuardReport", "HitRatioFunction",
+    "LRUCache", "MonitorResult", "PartitionResult", "PhaseDetector",
+    "PhaseEvent", "RDResult", "ReconfigEvent", "SCHEMES", "SimResult",
+    "StageProfile", "TenantState", "Trace", "TraceError", "WindowFeatures",
+    "WritePolicy",
     "aggregate_latency", "analyze_windows", "assign_write_policy",
-    "assign_write_policy_levels",
-    "auto_sample_rate", "build_hit_ratio_function",
-    "build_hit_ratio_functions", "classify_accesses", "make_manager",
-    "max_rd", "padded_segment_layout", "padded_tape_links", "pgd_solve",
-    "prev_next_occurrence", "rebalance_levels", "request_type_mix", "sampled_reuse_distances",
-    "segment_links", "shards_keep_mask", "shards_salt", "simulate",
-    "simulate_batch", "simulate_many",
+    "assign_write_policy_levels", "auto_sample_rate",
+    "build_hit_ratio_function", "build_hit_ratio_functions",
+    "characterize_trace", "characterize_windows", "classify_accesses",
+    "greedy_allocate", "make_manager", "max_rd", "padded_segment_layout",
+    "padded_tape_links", "pgd_solve", "prev_next_occurrence",
+    "rebalance_levels", "request_type_mix", "reuse_distances",
+    "reuse_distances_fast", "reuse_distances_vectorized",
+    "sampled_reuse_distances", "segment_links", "shards_keep_mask",
+    "shards_salt", "simulate", "simulate_batch", "simulate_many",
     "two_level_solve", "urd_cache_blocks", "validate_decision",
     "validate_trace", "validate_trace_arrays", "write_ratio",
 ]

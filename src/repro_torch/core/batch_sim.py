@@ -46,23 +46,29 @@ segments dirty chains at L1 exits and flushes at the L1 threshold.  The
 per-access interpreter replays only degenerate windows (an empty window
 with two levels, or warm L2 behind a dead ``C2 <= 0`` level), counted
 by ``SimResult.fallback``.
+
+``reuse_distances_fast`` is the same count for one trace, as an
+``RDResult``: the vectorized drop-in for the Fenwick oracle
+``reuse_distance.reuse_distances``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.profile import StageProfile, pstage
+from repro_torch.core.reuse_distance import RDResult, _check_kind
 from repro_torch.core.simulator import (LRUCache, SimResult,
                                        rebalance_levels, simulate)
-from repro_torch.core.trace import Trace
+from repro_torch.core.trace import Trace, prev_next_occurrence
 from repro_torch.core.write_policy import WritePolicy
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cache_sim.ops import (residency_levels,
                                                ro_live_counts,
                                                stack_distances)
 
-__all__ = ["padded_segment_layout", "padded_tape_links", "segment_links",
-           "simulate_batch", "simulate_many"]
+__all__ = ["padded_segment_layout", "padded_tape_links",
+           "reuse_distances_fast", "segment_links", "simulate_batch",
+           "simulate_many"]
 
 _POLICY_CODE = {WritePolicy.WB: 0, WritePolicy.WT: 1, WritePolicy.RO: 2}
 # every padded segment width is a power of two and at least this wide
@@ -95,6 +101,18 @@ def segment_links(addrs: torch.Tensor, tid: torch.Tensor,
     nxt = torch.full((m,), m, dtype=torch.int64, device=dev)
     nxt[order[:-1]] = torch.where(same[1:], order[1:], m)
     return prev, torch.minimum(nxt, end_of), order, same
+
+
+def reuse_distances_fast(trace: Trace, kind: str = "urd") -> RDResult:
+    """Reuse distances of one trace from the stack-distance count
+    (``ops.stack_distances``, on the trace's device): the same integers
+    as the Fenwick oracle, with no per-access loop."""
+    _check_kind(kind)
+    prev, nxt = prev_next_occurrence(trace.addrs.to(torch.int64))
+    sd = stack_distances(prev, nxt)
+    if kind == "urd":
+        sd = torch.where(trace.is_read.to(torch.bool), sd, -1)
+    return RDResult(sd, kind)
 
 
 def padded_segment_layout(bounds, device: str | torch.device | None = None):

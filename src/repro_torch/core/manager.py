@@ -11,9 +11,9 @@
   * ``Actuator`` — resizes the per-tenant LRU partitions (evicting
     LRU-first on shrink) and switches write policies.
 
-Port of ``repro.core.manager`` for the fixed-Δt, fault-free deployment,
-with one cache level or the ETICA two-level hierarchy (``capacity2 >
-0``): each ``run_window`` replays every tenant's window in one
+Port of ``repro.core.manager`` for the fault-free deployment, with one
+cache level or the ETICA two-level hierarchy (``capacity2 > 0``): each
+``run_window`` replays every tenant's window in one
 ``batch_sim.simulate_many`` pass (or, with ``engine="lru"``, through the
 per-access interpreter ``simulator.simulate``), analyzes it with
 ``monitor.analyze_windows``, solves Eq. 2 per level with
@@ -21,12 +21,20 @@ per-access interpreter ``simulator.simulate``), analyzes it with
 ``guard.validate_decision`` and actuates it.  The monitor is exact below
 ``auto_sample_tenants`` (256) tenants, reusing the replay pass's reuse
 distances, and SHARDS-sampled from there on (or whenever
-``sample_rate`` is set; see ``effective_sample_rate``).  Everything runs
-on the manager's ``device`` — the CUDA card unless the caller asks for
-the CPU.  The reference's other paths (event-driven reconfiguration,
-fault injection and the degradation ladder with ``greedy_allocate``, the
-device and sharded pipelines) raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+``sample_rate`` is set; see ``effective_sample_rate``).
+
+With ``phase_detect=True`` the analyze/actuate half is event-driven
+(ReCA-style): each replayed window is characterized
+(``core.characterize``, on the replay's window reuse distances) and a
+hysteresis ``PhaseDetector`` scores every tenant; the Analyzer runs only
+on a phase change, an Alg.-3 write-ratio crossing, a tenant joining
+(``add_tenant``) or retiring, or every ``reconfig_interval`` windows.
+Windows in between accumulate in the Monitor, and the analyze that ends
+them re-counts the whole span.  Everything runs on the manager's
+``device`` — the CUDA card unless the caller asks for the CPU.  The
+reference's fault injection and degradation ladder and its device and
+sharded pipelines raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.batch_sim import simulate_many
+from repro_torch.core.characterize import PhaseDetector, characterize_windows
 from repro_torch.core.guard import validate_decision
 from repro_torch.core.monitor import analyze_windows
 from repro_torch.core.mrc import HitRatioFunction
@@ -88,12 +97,18 @@ class TenantState:
 
 @dataclasses.dataclass(frozen=True)
 class ReconfigEvent:
-    """Tenant churn telemetry: reason "retire"; ``tenant`` is the
-    manager index."""
+    """Why the Analyzer ran (event-driven mode telemetry).
+
+    reason: "phase" (detector score crossed ``hi``), "write_ratio"
+    (Alg.-3 threshold crossing), "interval" (the fixed-Δt fallback
+    clock), "join" / "retire" (tenant churn).  ``tenant`` is the manager
+    index, -1 for deployment-wide triggers.
+    """
 
     window: int
     tenant: int
     reason: str
+    score: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,7 +149,10 @@ class ECICacheManager:
     service time ``t_fast2``, default ``3 * t_fast``), with per-level
     Alg. 3 (``w_threshold`` for L1, the stricter ``w_threshold2`` for
     L2, whose clean policy flushes dirty victims at demotion).
-    ``capacity2 == 0`` is the single-level scheme.  ``engine="lru"``
+    ``capacity2 == 0`` is the single-level scheme.  ``phase_detect``
+    turns on event-driven reconfiguration (module docstring) with the
+    fallback clock ``reconfig_interval`` (1 analyzes every window); the
+    detector keeps ``PhaseDetector``'s default thresholds.  ``engine="lru"``
     replays through the per-access interpreter instead of the batch
     engine; both give the same results.
 
@@ -166,7 +184,8 @@ class ECICacheManager:
                  w_threshold2: float = 0.3,
                  history_limit: int | None = 256,
                  auto_sample_tenants: int = 256,
-                 phase_detect: bool = False, pipeline: str = "host",
+                 phase_detect: bool = False, reconfig_interval: int = 1,
+                 pipeline: str = "host",
                  faults=None, fault_tolerant: bool | None = None,
                  device: str | torch.device | None = None,
                  profile: StageProfile | None = None):
@@ -175,13 +194,12 @@ class ECICacheManager:
                              f"{engine!r}")
         if pipeline != "host":
             raise _not_ported(f"pipeline={pipeline!r}",
-                              "modules queue, device and shard pipelines")
-        if phase_detect:
-            raise _not_ported("event-driven reconfiguration (phase_detect)",
-                              "modules queue, characterize/faults/scenarios")
+                              "modules queue, item 3, device and shard "
+                              "pipelines")
         if faults is not None or fault_tolerant:
             raise _not_ported("fault injection and the degradation ladder",
-                              "modules queue, characterize/faults/scenarios")
+                              "modules queue, item 3, faults.py with the "
+                              "device and shard pipelines")
         self.device = resolve_device(device)
         self.profile = profile
         self.capacity = int(capacity)
@@ -213,7 +231,15 @@ class ECICacheManager:
             collections.deque(maxlen=history_limit)
         self.windows_analyzed = 0
         self.tenant_windows = 0         # replayed tenant-windows
-        self.windows_run = 0
+        self.windows_run = 0            # run_window calls (>= analyzed)
+        # event-driven reconfiguration (off: analyze every window)
+        self.reconfig_interval = max(int(reconfig_interval), 1)
+        self.detector = (PhaseDetector(
+            w_threshold=(w_threshold if adaptive_policy else None))
+            if phase_detect else None)
+        self._pending_windows = 0       # replayed but not yet analyzed
+        self._prev_sets: dict[int, torch.Tensor] = {}  # drift continuity
+        self._joined: list[int] = []    # tenants added since last window
         self.reconfig_events = 0        # total events ever (deque is bounded)
         self.guard_violations_observed = 0
         self.guard_violations_actuated = 0
@@ -233,12 +259,31 @@ class ECICacheManager:
         t.window_reads.append(
             torch.as_tensor(is_read).to(self.device, torch.bool))
 
+    def add_tenant(self, name: str,
+                   initial_blocks: int | None = None) -> int:
+        """Tenant churn: a workload joins mid-run.  Returns its index.
+
+        The next ``run_window`` records a ``"join"`` event; in
+        event-driven mode that forces an analyze, so the newcomer is
+        sized from its first window.
+        """
+        init = int(initial_blocks if initial_blocks is not None
+                   else self.c_min)
+        self.tenants.append(TenantState(name, LRUCache(init, self.device),
+                                        cache2=LRUCache(0, self.device)))
+        i = len(self.tenants) - 1
+        self._joined.append(i)
+        return i
+
     def retire_tenant(self, tenant: int) -> None:
         """Workload finished: release its partition (paper §6.3)."""
         t = self.tenants[tenant]
         t.active = False
         t.cache.resize(0)
         t.cache2.resize(0)
+        self._prev_sets.pop(tenant, None)
+        if self.detector is not None:
+            self.detector.forget(tenant)
 
     # ------------------------------------------------------------ Analyzer
     def effective_sample_rate(self) -> float | str | None:
@@ -370,14 +415,26 @@ class ECICacheManager:
         agg.policy = t.policy.value
         agg.policy2 = t.policy2.value
 
+    def _drain_joined(self, window: int) -> list[ReconfigEvent]:
+        """Pending ``add_tenant`` joins -> churn events (not yet recorded)."""
+        evs = [ReconfigEvent(window, i, "join") for i in self._joined]
+        self._joined.clear()
+        return evs
+
+    def _record_events(self, events: list[ReconfigEvent]) -> None:
+        self.events.extend(events)
+        self.reconfig_events += len(events)
+
     def run_window(self, traces: list[Trace | None]) -> None:
         """Replay one Δt window for every tenant, then analyze + actuate.
 
         ``traces[i] is None`` marks tenant i as finished (a "retire"
-        event).
+        event).  With ``phase_detect`` the analyze/actuate half runs only
+        when the detector, a churn event or the ``reconfig_interval``
+        clock triggers it; the replay half always runs.
         """
         win = self.windows_run
-        events = []
+        events = self._drain_joined(win)
         for i, tr in enumerate(traces):
             if tr is None and self.tenants[i].active:
                 self.retire_tenant(i)
@@ -419,12 +476,34 @@ class ECICacheManager:
         self.tenant_windows += len(idx)
         self.windows_run += 1
 
-        # fixed-Δt mode: analyze + actuate every window (churn events are
-        # telemetry only)
-        self.events.extend(events)
-        self.reconfig_events += len(events)
-        decision = self.analyze(window_trd)
-        self.actuate(decision)
+        if self.detector is None:
+            # fixed-Δt mode: analyze + actuate every window (churn events
+            # are telemetry only)
+            self._record_events(events)
+            self.actuate(self.analyze(window_trd))
+            return
+
+        # ------------------------------------- event-driven mode (ReCA)
+        # characterize this window on the replay's window reuse distances
+        feats = characterize_windows(
+            [traces[i] for i in idx],
+            prev_sets=[self._prev_sets.get(i) for i in idx],
+            dists=[window_trd.get(i) for i in idx], tenant_ids=idx,
+            device=self.device)
+        for k, i in enumerate(idx):
+            self._prev_sets[i] = feats.address_sets[k]
+        events.extend(ReconfigEvent(win, e.tenant, e.reason, e.score)
+                      for e in self.detector.update(feats, win, idx))
+        self._pending_windows += 1
+        if self._pending_windows >= self.reconfig_interval:
+            events.append(ReconfigEvent(win, -1, "interval"))
+        if events:
+            # a multi-window accumulation invalidates the single-window
+            # distances: the Analyzer re-counts the whole span
+            wtrd = window_trd if self._pending_windows == 1 else None
+            self._record_events(events)
+            self.actuate(self.analyze(wtrd, trigger=tuple(events)))
+            self._pending_windows = 0
 
     # ------------------------------------------------------------- metrics
     def allocated_sizes(self) -> torch.Tensor:

@@ -8,8 +8,9 @@ whose distance falls below each breakpoint.  For URD-based curves the
 numerator counts only read re-uses; the denominator is all accesses.
 
 Heights are float64 and computed by the same integer cumsums over the
-same denominators as the reference (one IEEE division each), so they
-are bit-identical on any device.
+same denominators as the reference (one IEEE division each, always by a
+tensor: CUDA divides by a Python number as a multiply by its
+reciprocal), so they are bit-identical on any device.
 """
 from __future__ import annotations
 
@@ -50,6 +51,10 @@ class HitRatioFunction:
     def max_useful_size(self) -> int:
         """Smallest c achieving the maximum hit ratio (== URD-based size)."""
         return int(self.edges[-1])
+
+    @property
+    def max_hit_ratio(self) -> float:
+        return float(self.heights[-1]) if self.heights.numel() else 0.0
 
     def marginal_gain(self, c: int) -> tuple[int, float]:
         """From size c: (next breakpoint size, hit-ratio gain going there).
@@ -103,7 +108,11 @@ def build_hit_ratio_function(rd: RDResult, n_accesses: int | None = None
                                 torch.zeros(1, dtype=torch.float64,
                                             device=dev), n)
     sizes, counts = torch.unique(samples + 1, return_counts=True)
-    heights = torch.cumsum(counts, 0).to(torch.float64) / n
+    # divide by a tensor on the device: a CUDA tensor divided by a Python
+    # number is multiplied by its reciprocal, which is not correctly
+    # rounded (3 / 5 != 3 * (1 / 5))
+    heights = (torch.cumsum(counts, 0).to(torch.float64)
+               / torch.tensor(float(n), dtype=torch.float64, device=dev))
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
     return HitRatioFunction(torch.cat([zero, sizes]),
                             torch.cat([zero.to(torch.float64), heights]), n)
@@ -167,6 +176,11 @@ class BatchedHitRatioFunctions:
     def max_useful_sizes(self) -> torch.Tensor:
         """int64[N]: each curve's smallest saturating size (URD sizes)."""
         return self.edges[self.offsets[1:] - 1]
+
+    @property
+    def max_hit_ratios(self) -> torch.Tensor:
+        """float64[N]: each curve's plateau (its largest hit ratio)."""
+        return self.heights[self.offsets[1:] - 1]
 
     def _composite(self, queries: torch.Tensor) -> torch.Tensor:
         """Global insertion positions of per-curve queries (side='right')."""

@@ -44,20 +44,30 @@ Sums over tenants take one of two routes, split at 32 tenants:
 Every operation is an elementwise IEEE op or an exact reduction on one
 device, so the card and the CPU produce the same bits on both routes.
 ``two_level_solve`` runs the partitioner twice for the ETICA hierarchy,
-the second time on the residual curves.  The greedy breakpoint
-partitioner (``greedy_allocate``) is not ported yet.
+the second time on the residual curves.
+
+``greedy_allocate`` is the breakpoint greedy (Centaur's convex-hull
+walk): grant the jump with the best latency-reduction density
+(Δlatency / Δblocks) until the budget is spent.  ``method="heap"`` is
+the reference's one-pop-at-a-time loop, on the host (the oracle);
+``method="fast"`` the vectorized walk on the curves' device, whose grant
+order, and so its allocation, is bit-identical to the heap's: each
+tenant's chain of steps is reduced to its prefix-min density envelope,
+one stable sort merges the chains, and a prefix sum over Δc finds the
+budget cut and the partial grant.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import heapq
 
 import torch
 
 from repro_torch.core.mrc import BatchedHitRatioFunctions
 
-__all__ = ["PartitionResult", "aggregate_latency", "pgd_solve",
-           "two_level_solve"]
+__all__ = ["PartitionResult", "aggregate_latency", "greedy_allocate",
+           "pgd_solve", "two_level_solve"]
 
 _TABLE_PTS = 128
 # np.spacing(np.finfo(np.float32).eps): jnp.interp's zero-width guard
@@ -84,6 +94,186 @@ def aggregate_latency(hs, sizes, t_fast: float, t_slow: float,
          else torch.as_tensor(weights, dtype=torch.float64, device=dev))
     hr = b.evaluate(torch.as_tensor(sizes, device=dev))
     return float(torch.sum(w * (hr * t_fast + (1.0 - hr) * t_slow)))
+
+
+def greedy_allocate(hs, capacity: int, t_fast: float, t_slow: float,
+                    c_min: int = 0, weights=None,
+                    method: str = "fast") -> PartitionResult:
+    """Breakpoint-greedy partitioner (the discrete reference optimizer).
+
+    Feasible case (paper Alg. 1 line 8): the URD-based sizes all fit and
+    are granted outright.  Otherwise every tenant starts at
+    ``min(c_min, urd size)`` (scaled down when even those do not fit) and
+    the breakpoints are walked by best Δlatency/Δblocks until the budget
+    is exhausted, the first step past it granted partially.  ``"fast"``
+    walks on the curves' device, ``"heap"`` on the host; both give the
+    same sizes.  Sizes and hit ratios come back on the host.
+    """
+    if method == "device":
+        raise NotImplementedError(
+            "greedy_allocate(method='device') is not ported yet (ROADMAP: "
+            "modules queue, item 3, device and shard pipelines)")
+    if method not in ("fast", "heap"):
+        raise ValueError(f"method must be 'fast', 'heap' or 'device', got "
+                         f"{method!r}")
+    b = BatchedHitRatioFunctions.from_curves(hs)
+    n = len(b)
+    dev = b.edges.device
+    w = (torch.ones(n, dtype=torch.float64, device=dev) if weights is None
+         else torch.as_tensor(weights, dtype=torch.float64, device=dev))
+    urd_sizes = b.max_useful_sizes
+    if int(urd_sizes.sum()) <= capacity:
+        sizes = urd_sizes.clone()
+        return PartitionResult(
+            sizes.cpu(), True, aggregate_latency(b, sizes, t_fast, t_slow, w),
+            b.evaluate(sizes).cpu())
+    c_min_arr = torch.clamp(urd_sizes, max=int(c_min))
+    sizes = c_min_arr.clone()
+    budget = capacity - int(sizes.sum())
+    if budget < 0:  # even the minimums do not fit: scale the minimums down
+        den = torch.tensor(float(max(int(c_min_arr.sum()), 1)),
+                           dtype=torch.float64, device=dev)
+        sizes = torch.floor((c_min_arr * capacity).to(torch.float64) / den
+                            ).to(torch.int64)
+        budget = capacity - int(sizes.sum())
+    gain = t_slow - t_fast  # latency saved per unit hit-ratio
+    if method == "heap":
+        sizes = _greedy_walk_heap(b.to("cpu"), sizes.cpu(), budget,
+                                  w.cpu(), gain).to(dev)
+    else:
+        sizes = _greedy_walk_fast(b, sizes, budget, w, gain)
+    return PartitionResult(
+        sizes.cpu(), False, aggregate_latency(b, sizes, t_fast, t_slow, w),
+        b.evaluate(sizes).cpu())
+
+
+def _greedy_walk_heap(b: BatchedHitRatioFunctions, sizes: torch.Tensor,
+                      budget: int, w: torch.Tensor,
+                      gain: float) -> torch.Tensor:
+    """The reference's heap loop (the oracle): pop the densest next
+    breakpoint, grant it, push the tenant's following step.
+
+    The curves are read as Python lists, and ``HitRatioFunction``'s
+    ``marginal_gain`` is repeated on them (the same ``searchsorted``
+    positions, the same float64 subtraction), so each pop costs
+    microseconds.
+    """
+    n = len(b)
+    off = b.offsets.tolist()
+    edges_all, heights_all = b.edges.tolist(), b.heights.tolist()
+    edges = [edges_all[off[i]:off[i + 1]] for i in range(n)]
+    heights = [heights_all[off[i]:off[i + 1]] for i in range(n)]
+    urd_sizes = [e[-1] for e in edges]
+    wl = w.tolist()
+    sz = sizes.tolist()
+    heap: list[tuple[float, int, int, int, float]] = []
+
+    def marginal_gain(i: int, c: int) -> tuple[int, float]:
+        e, h = edges[i], heights[i]
+        k = bisect.bisect_right(e, c)
+        if k >= len(e):
+            return c, 0.0
+        cur = 0.0 if c <= 0 else h[min(max(k - 1, 0), len(h) - 1)]
+        return e[k], h[min(k, len(h) - 1)] - cur
+
+    def push(i: int) -> None:
+        nxt, dh = marginal_gain(i, sz[i])
+        dc = nxt - sz[i]
+        if dh > 0 and dc > 0 and nxt <= urd_sizes[i]:
+            density = wl[i] * dh * gain / dc
+            heapq.heappush(heap, (-density, i, nxt, dc, dh))
+
+    for i in range(n):
+        push(i)
+    while heap and budget > 0:
+        _, i, nxt, dc, _ = heapq.heappop(heap)
+        if nxt - sz[i] != dc:               # stale entry
+            push(i)
+            continue
+        if dc > budget:                     # partial grant: no hit-ratio
+            sz[i] += budget                 # step is crossed, but the
+            budget = 0                      # budget is spent (paper's
+            break                           # diff term)
+        sz[i] = nxt
+        budget -= dc
+        push(i)
+    return torch.tensor(sz, dtype=torch.int64)
+
+
+def _greedy_walk_fast(b: BatchedHitRatioFunctions, sizes: torch.Tensor,
+                      budget: int, w: torch.Tensor,
+                      gain: float) -> torch.Tensor:
+    """Vectorized replay of the heap walk (bit-identical grant order), on
+    the curves' device.
+
+    A tenant's chain of steps is consumed in curve order, so a step's
+    priority under "always pop the densest head" is the running minimum
+    of densities along its chain (its envelope); merging the chains by
+    (envelope desc, tenant, step) reproduces the heap's pops, ties
+    included.  The steps are laid out tenant by tenant and step by step,
+    so that order is one stable sort on the negated envelope (the
+    reference's ``np.lexsort((rank, st_tid, -e))``).  A prefix sum over
+    Δc then finds the budget cut and the partial-grant step.  The
+    densities are the heap's float64 operations in the heap's order.
+    """
+    n = len(b)
+    if budget <= 0 or n == 0:
+        return sizes
+    dev = b.edges.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    edges, heights, off = b.edges, b.heights, b.offsets
+    lens = torch.diff(off)
+    # first step per tenant: the first breakpoint above its current size
+    k0 = b._composite(sizes) - off[:-1]
+    n_steps = torch.clamp(lens - k0, min=0)
+    total = int(n_steps.sum())
+    if total == 0:
+        return sizes
+    st_tid = torch.repeat_interleave(torch.arange(n, **i64), n_steps)
+    seg0 = torch.repeat_interleave(torch.cumsum(n_steps, 0) - n_steps,
+                                   n_steps)
+    rank = torch.arange(total, **i64) - seg0
+    gk = off[st_tid] + k0[st_tid] + rank          # breakpoint per step
+    h_cur0 = b.evaluate(sizes)                    # h at the starting sizes
+    first = rank == 0
+    gprev = torch.clamp(gk - 1, min=0)
+    dh = heights[gk] - torch.where(first, h_cur0[st_tid], heights[gprev])
+    dc = edges[gk] - torch.where(first, sizes[st_tid], edges[gprev])
+    # the heap stops a chain at its first non-improving step
+    bad = (dh <= 0).to(torch.int64)
+    cbad = torch.cumsum(bad, 0)
+    valid = (cbad - cbad[seg0] + bad[seg0]) == 0
+    if not bool(valid.any()):
+        return sizes
+    st_tid, gk = st_tid[valid], gk[valid]
+    nxt_s, dc = edges[gk], dc[valid]
+    d = w[st_tid] * dh[valid] * gain / dc         # heap's density, same ops
+    # prefix-min envelope per chain (doubling scan: log K passes)
+    nv = d.shape[0]
+    idx = torch.arange(nv, **i64)
+    head = torch.ones(nv, dtype=torch.bool, device=dev)
+    head[1:] = st_tid[1:] != st_tid[:-1]
+    first_idx = torch.cummax(torch.where(head, idx, 0), 0).values
+    e = d.clone()
+    shift = 1
+    inf = torch.full((nv,), float("inf"), dtype=torch.float64, device=dev)
+    while shift < nv:
+        can = idx - shift >= first_idx
+        prev_e = torch.cat([inf[:shift], e[:-shift]])
+        e = torch.where(can, torch.minimum(e, prev_e), e)
+        shift *= 2
+    order = torch.sort(-e, stable=True).indices
+    cum = torch.cumsum(dc[order], 0)
+    n_full = int(torch.searchsorted(
+        cum, torch.tensor([budget], **i64), right=True)[0])
+    granted = order[:n_full]
+    sizes = sizes.clone()
+    sizes.scatter_reduce_(0, st_tid[granted], nxt_s[granted], "amax",
+                          include_self=True)
+    rem = budget - (int(cum[n_full - 1]) if n_full else 0)
+    if rem > 0 and n_full < nv:                   # partial-grant tail
+        sizes[st_tid[order[n_full]]] += rem
+    return sizes
 
 
 def two_level_solve(hs, capacity: int, capacity2: int, t_fast: float,
@@ -239,8 +429,10 @@ def _interp_tables(b: BatchedHitRatioFunctions
     n = len(b)
     lens = torch.diff(b.offsets)
     stop = torch.clamp(b.max_useful_sizes.to(torch.float64), min=1.0)
+    # the step divides by a tensor: CUDA multiplies by the reciprocal of
+    # a Python divisor, which is not np.linspace's correctly rounded step
     grid = torch.arange(_TABLE_PTS, **f64)[None, :] \
-        * (stop / (_TABLE_PTS - 1))[:, None]
+        * (stop / torch.tensor(_TABLE_PTS - 1.0, **f64))[:, None]
     grid[:, -1] = stop
     # curves as padded rows (+inf past each curve's end)
     k = int(lens.max())

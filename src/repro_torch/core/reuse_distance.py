@@ -4,7 +4,20 @@ Definitions (paper §4): a reuse-distance sample at access ``i`` with a
 previous access to the same address at ``p`` is the number of distinct
 addresses touched strictly between ``p`` and ``i``.  TRD samples every
 re-touch; URD only read re-touches (RAR, RAW).  The distances themselves
-come from the stack-distance count of ``repro_torch.core.batch_sim``.
+come from one of three exact engines, which give the same integers:
+
+  * ``reuse_distances``            — the Fenwick-tree oracle, O(n log n),
+                                     a host loop (the classic
+                                     Bennett–Kruskal / Olken formulation);
+  * ``reuse_distances_vectorized`` — dense masked counting on the
+                                     ``prev``/``nxt`` occurrence links,
+                                     ``urd_scan``'s plain version;
+  * ``batch_sim.reuse_distances_fast`` — the stack-distance count of the
+                                     batch engine (``cache_sim_scan`` on
+                                     the card, the merge tree on the CPU).
+
+The Analyzer's kernel route is ``kernels.urd_scan.ops.
+reuse_distances_accel``.
 
 SHARDS (Waldspurger et al., FAST'15) samples spatially: an address is
 kept when its salted multiplicative hash falls below ``rate``, every
@@ -22,9 +35,10 @@ import torch
 
 from repro_torch.core.trace import Trace, prev_next_occurrence
 from repro_torch.kernels.cache_sim.ops import stack_distances
+from repro_torch.kernels.urd_scan.ref import urd_scan_ref
 
-__all__ = ["RDResult", "auto_sample_rate", "max_rd",
-           "sampled_reuse_distances", "shards_hash", "shards_keep_mask",
+__all__ = ["RDResult", "auto_sample_rate", "max_rd", "reuse_distances",
+           "reuse_distances_vectorized", "sampled_reuse_distances", "shards_hash", "shards_keep_mask",
            "shards_salt", "shards_threshold", "urd_cache_blocks"]
 
 _MASK64 = (1 << 64) - 1
@@ -53,6 +67,80 @@ class RDResult:
     @property
     def samples(self) -> torch.Tensor:
         return self.distances[self.distances >= 0]
+
+    def histogram(self, max_bins: int | None = None) -> torch.Tensor:
+        """int64 counts of each distance (the last bin gathers everything
+        at or above ``max_bins - 1``); ``[0]`` when there are no samples."""
+        s = self.samples
+        if s.numel() == 0:
+            return torch.zeros(1, dtype=torch.int64,
+                               device=self.distances.device)
+        hi = int(s.max()) + 1 if max_bins is None else int(max_bins)
+        return torch.bincount(torch.clamp(s, max=hi - 1), minlength=hi)
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in ("trd", "urd"):
+        raise ValueError(f"kind must be 'trd' or 'urd', got {kind!r}")
+
+
+def reuse_distances(trace: Trace, kind: str = "urd") -> RDResult:
+    """Exact reuse distances via a Fenwick tree, O(n log n): the oracle.
+
+    The tree holds a 1 at the position of the last occurrence of every
+    address seen so far; the ones strictly between ``prev`` and the
+    current position are the distinct intervening addresses.  A host
+    loop over Python integers; the result lies on the trace's device.
+    """
+    _check_kind(kind)
+    n = len(trace)
+    addrs = trace.addrs.tolist()
+    reads = trace.is_read.to(torch.bool).tolist()
+    tree = [0] * (n + 1)
+    last: dict[int, int] = {}
+    out = [-1] * n
+    for i in range(n):
+        a = addrs[i]
+        p = last.get(a)
+        if p is not None:
+            if kind == "trd" or reads[i]:
+                s, k = 0, i                    # prefix(i) - prefix(p + 1)
+                while k > 0:
+                    s += tree[k]
+                    k -= k & -k
+                k = p + 1
+                while k > 0:
+                    s -= tree[k]
+                    k -= k & -k
+                out[i] = s
+            k = p + 1                          # add(p, -1)
+            while k <= n:
+                tree[k] -= 1
+                k += k & -k
+        k = i + 1                              # add(i, +1)
+        while k <= n:
+            tree[k] += 1
+            k += k & -k
+        last[a] = i
+    return RDResult(torch.tensor(out, dtype=torch.int64,
+                                 device=trace.addrs.device), kind)
+
+
+def reuse_distances_vectorized(trace: Trace, kind: str = "urd") -> RDResult:
+    """Exact reuse distances by dense masked counting, O(n²) tensor ops.
+
+    ``RD(i) = #{ j : prev[i] < j < i and nxt[j] >= i }``: each distinct
+    intervening address contributes exactly its last occurrence inside
+    the interval.  The count is ``urd_scan``'s plain version
+    (``kernels.urd_scan.ref.urd_scan_ref``), on the trace's device.
+    """
+    _check_kind(kind)
+    prev, nxt = prev_next_occurrence(trace.addrs)
+    mask = prev >= 0
+    if kind == "urd":
+        mask &= trace.is_read.to(torch.bool)
+    counts = urd_scan_ref(prev, nxt).to(torch.int64)
+    return RDResult(torch.where(mask, counts, -1), kind)
 
 
 def max_rd(result: RDResult, percentile: float = 100.0) -> int:
@@ -144,8 +232,7 @@ def sampled_reuse_distances(trace: Trace, kind: str = "urd",
     scaled values round half to even, as ``np.round`` does.  A window
     that keeps nothing returns no samples and an error bar of 1.0.
     """
-    if kind not in ("trd", "urd"):
-        raise ValueError(f"kind must be 'trd' or 'urd', got {kind!r}")
+    _check_kind(kind)
     if rate == "auto":
         rate = auto_sample_rate(len(trace), target_samples, min_samples)
     rate = float(rate)
@@ -165,8 +252,10 @@ def sampled_reuse_distances(trace: Trace, kind: str = "urd",
     sd = stack_distances(prev, nxt)
     if kind == "urd":
         sd = torch.where(trace.is_read[keep].to(torch.bool), sd, -1)
+    # a tensor divisor: CUDA would multiply by a Python number's reciprocal
+    r = torch.tensor(rate, dtype=torch.float64, device=dev)
     vals = torch.where(sd >= 0,
-                       torch.round(sd.to(torch.float64) / rate)
+                       torch.round(sd.to(torch.float64) / r)
                        .to(torch.int64), -1)
     scaled[keep] = vals
     distinct = int((prev < 0).sum())

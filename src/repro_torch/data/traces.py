@@ -32,7 +32,7 @@ from repro_torch.core.trace import Trace
 __all__ = ["WorkloadProfile", "MSR_PROFILES", "FILEBENCH_PROFILES",
            "generate_trace", "msr_trace", "filebench_trace",
            "sequential_then_random", "random_then_sequential",
-           "semi_sequential"]
+           "semi_sequential", "synthetic_mix"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,3 +238,19 @@ def semi_sequential(stride: int, repeats: int, seed: int = 0) -> Trace:
     base = np.arange(stride, dtype=np.int64)
     addrs = np.tile(base, repeats)
     return Trace(addrs, np.ones(len(addrs), bool), "semi-seq")
+
+
+def synthetic_mix(n_tenants: int, n: int, seed: int = 0) -> list[Trace]:
+    """Fast vectorized zipf-ish mixes for control-plane scale runs: the
+    draws of ``benchmarks/bench_monitor_scale.py``'s ``synthetic_mix``,
+    in the same order (trace realism is irrelevant to the control
+    plane's cost; the Table-3 workloads use the MSR profiles)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_tenants):
+        ws = int(rng.integers(300, 3000))
+        u = rng.random(n)
+        addrs = np.minimum((u ** 2.2) * ws, ws - 1).astype(np.int64)
+        is_read = rng.random(n) < float(rng.uniform(0.4, 0.9))
+        out.append(Trace(addrs, is_read, f"mix{i}"))
+    return out

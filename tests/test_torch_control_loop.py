@@ -1,9 +1,11 @@
 """The port's Δt control loop, as a whole, against the JAX reference.
 
-* The fig10/12/14/16 sections of ``tests/goldens/figs_small.json`` are
-  rebuilt from ``repro_torch`` on ``device="cpu"`` and compared with the
-  file: integers, policies and floats all exactly (the port repeats the
-  reference's float64 arithmetic; no field needs a tolerance).
+* Every section of ``tests/goldens/figs_small.json`` (fig10/12/14/16 and
+  the scenario suite: scan-flood isolation for ``eci`` and ``static``,
+  the event-driven churn log) is rebuilt from ``repro_torch`` on
+  ``device="cpu"`` and compared with the file: integers, policies and
+  floats all exactly (the port repeats the reference's float64
+  arithmetic; no field needs a tolerance).
 * A live differential runs ``ECICacheManager.run_window`` of both
   packages over several seeds at capacities where every window is
   infeasible (so ``pgd_solve`` runs) and write-heavy tenants go RO under
@@ -29,6 +31,8 @@ from repro.core import make_manager as make_manager_ref
 from repro.data.traces import msr_trace as msr_trace_ref
 from repro_torch.core import (make_manager, request_type_mix, write_ratio)
 from repro_torch.core.write_policy import assign_write_policy
+from repro_torch.data.scenarios import (churn, per_tenant_latency,
+                                        replay_scenario, scan_flood)
 from repro_torch.data.traces import msr_trace
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -104,8 +108,46 @@ def _fig16():
     return out
 
 
+def _scenarios():
+    flood = scan_flood(n_victims=2, n_windows=6, flood_at=2, n_victim=800,
+                       n_benign=400, cycle_base=400, cycle_step=100,
+                       seed=0)
+    isolation = {}
+    for scheme in ("eci", "static"):
+        def factory(names, _s=scheme):
+            return make_manager(_s, 1024, names, c_min=32,
+                                initial_blocks=32, engine="batch",
+                                device="cpu", **SIM)
+        m_full, im_full = replay_scenario(flood, factory)
+        m_solo, im_solo = replay_scenario(flood, factory,
+                                          exclude={flood.aggressor})
+        lat_full = per_tenant_latency(m_full, im_full)
+        lat_solo = per_tenant_latency(m_solo, im_solo)
+        degr = {str(v): float((lat_full[v] - lat_solo[v])
+                              / max(lat_solo[v], 1e-12))
+                for v in sorted(lat_solo) if v != flood.aggressor}
+        isolation[scheme] = {
+            "per_victim_degradation": degr,
+            "max_degradation": max(degr.values()),
+        }
+    run = churn(seed=0)
+    mgr, _ = replay_scenario(
+        run, lambda names: make_manager(
+            "eci", 2000, names, c_min=50, initial_blocks=50,
+            engine="batch", phase_detect=True, reconfig_interval=4,
+            device="cpu", **SIM))
+    return {
+        "isolation": isolation,
+        "churn_events": [[e.window, e.tenant, e.reason]
+                         for e in mgr.events],
+        "churn_windows_analyzed": int(mgr.windows_analyzed),
+        "churn_windows_run": int(mgr.windows_run),
+    }
+
+
 @pytest.mark.parametrize("fig,build", [("fig10", _fig10), ("fig12", _fig12),
-                                       ("fig14", _fig14), ("fig16", _fig16)])
+                                       ("fig14", _fig14), ("fig16", _fig16),
+                                       ("scenarios", _scenarios)])
 def test_port_reproduces_goldens(fig, build):
     want = json.loads(GOLDEN_PATH.read_text())[fig]
     got = json.loads(json.dumps(build()))          # normalize types

@@ -299,18 +299,13 @@ def test_lru_cache_state_and_resize():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(scheme="static"), "static"),
     (dict(pipeline="device"), "pipeline"),
-    (dict(scheme="reuse_intensity"), "reuse_intensity"),
-    (dict(phase_detect=True), "phase_detect"),
     (dict(fault_tolerant=True), "fault"),
     (dict(pipeline="sharded"), "pipeline"),
 ])
 def test_manager_refuses_knobs_off_the_slice(kw, match):
-    kw = dict(kw)
-    scheme = kw.pop("scheme", "eci")
     with pytest.raises(NotImplementedError, match=match):
-        make_manager(scheme, 100, NAMES, device="cpu", **kw)
+        make_manager("eci", 100, NAMES, device="cpu", **kw)
 
 
 def test_manager_retire_and_sampling_threshold():

@@ -5,21 +5,27 @@ run them on the card with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``.  They hold each kernel against its plain
 PyTorch version on the same inputs, exactly (the counts are integers),
 and run ``pgd_solve``, the 256-tenant SHARDS-sampled manager, two-level
-``simulate_many`` (through both residency routes) and the ``etica``
-manager on the card against the CPU.
+``simulate_many`` (through both residency routes), the ``etica``
+manager, ``reuse_distances_accel`` (``urd_scan``), the fast greedy walk,
+the ``static`` and ``reuse_intensity`` managers and an event-driven
+churn scenario on the card against the CPU.
 This module imports nothing of JAX, so it runs where JAX is absent.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (LRUCache, Trace, WritePolicy, make_manager,
-                              simulate_many)
+from repro_torch.core import (LRUCache, Trace, WritePolicy, analyze_windows,
+                              build_hit_ratio_function, greedy_allocate,
+                              make_manager, reuse_distances,
+                              sampled_reuse_distances, simulate_many)
 from repro_torch.core.batch_sim import (padded_segment_layout,
                                         padded_tape_links, segment_links)
 from repro_torch.core.mrc import build_hit_ratio_functions
+from repro_torch.core.reuse_distance import RDResult
 from repro_torch.core.partitioner import pgd_solve
-from repro_torch.data.traces import MSR_PROFILES, msr_trace
+from repro_torch.data.scenarios import churn, replay_scenario
+from repro_torch.data.traces import MSR_PROFILES, msr_trace, synthetic_mix
 from repro_torch.kernels import hopper_available
 from repro_torch.kernels.cache_sim.kernel import (cache_sim_levels_scan,
                                                   cache_sim_scan,
@@ -35,6 +41,9 @@ from repro_torch.kernels.cache_sim.ref import (cache_sim_levels_ref,
                                                live_counts_delta,
                                                live_counts_ref,
                                                stack_distances_tree)
+from repro_torch.kernels.urd_scan.kernel import urd_scan
+from repro_torch.kernels.urd_scan.ops import reuse_distances_accel
+from repro_torch.kernels.urd_scan.ref import urd_scan_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -367,3 +376,120 @@ def test_etica_manager_on_card_matches_cpu(card):
         for a, b in ((tg.cache, tc.cache), (tg.cache2, tc.cache2)):
             assert torch.equal(a.state_arrays()[0].cpu(), b.state_arrays()[0])
     assert g.summary() == c.summary()
+
+
+# --------------------------------------------------- urd_scan (slice 4)
+@pytest.mark.parametrize("n", [1, 31, 255, 256, 4097, 65536])
+def test_urd_scan_matches_ref_on_card(card, n):
+    prev, nxt, _ = _tape(n, n + 3, card, blocks=5)
+    p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
+    got = urd_scan(p32, n32)
+    want = urd_scan_ref(p32, n32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((got[prev < 0] == -1).all())
+
+
+def test_urd_scan_launch_counter_and_input_checks(card):
+    prev, nxt, _ = _tape(1000, 5, card)
+    p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
+    before = urd_scan.launches
+    got = urd_scan(p32, n32)
+    assert urd_scan.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.to(torch.int64), stack_distances_tree(prev, nxt))
+    with pytest.raises(ValueError):
+        urd_scan(prev, nxt)                               # int64
+    with pytest.raises(ValueError):
+        urd_scan(p32, n32.cpu())                          # two devices
+    assert urd_scan.launches == before + 1
+
+
+@pytest.mark.parametrize("kind", ["urd", "trd"])
+@pytest.mark.parametrize("name", ["prxy_0", "prn_1", "hm_1", "web_1"])
+def test_reuse_distances_accel_card_matches_cpu(card, name, kind):
+    tr = msr_trace(name, 20000, seed=3)
+    before = urd_scan.launches
+    got = reuse_distances_accel(tr, kind, device="cuda")
+    assert urd_scan.launches == before + 1
+    assert got.distances.device.type == "cuda"
+    want = reuse_distances(tr, kind).distances
+    assert torch.equal(got.distances.cpu(), want)
+    assert torch.equal(reuse_distances_accel(tr, kind, device="cpu")
+                       .distances, want)
+
+
+def test_curves_and_sampled_distances_card_match_cpu(card):
+    """Divisions by a Python number: CUDA multiplies by its reciprocal,
+    so the port divides by device tensors (3 / 5 != 3 * (1 / 5))."""
+    for i, n in enumerate((5, 777, 4999)):
+        tr = msr_trace("web_1", n, seed=i)
+        rd = reuse_distances(tr, "urd")
+        g = build_hit_ratio_function(RDResult(rd.distances.cuda(), "urd"))
+        c = build_hit_ratio_function(rd)
+        assert torch.equal(g.heights.cpu(), c.heights)
+        gs = sampled_reuse_distances(Trace(tr.addrs.cuda(), tr.is_read.cuda()),
+                                     "trd", rate=0.3, seed=i)
+        cs = sampled_reuse_distances(tr, "trd", rate=0.3, seed=i)
+        assert torch.equal(gs.distances.cpu(), cs.distances)
+
+
+def test_greedy_fast_on_card_matches_heap_on_cpu(card):
+    traces = synthetic_mix(256, 2000, seed=7)
+    curves = analyze_windows(traces, "urd", device="cuda").curves
+    host = curves.to("cpu")
+    cap = int(0.35 * int(host.max_useful_sizes.sum()))
+    for c_min in (0, 50, 400):                 # 400: the minimums rescale
+        g = greedy_allocate(curves, cap, 1.0, 20.0, c_min=c_min)
+        h = greedy_allocate(host, cap, 1.0, 20.0, c_min=c_min,
+                            method="heap")
+        assert g.sizes.tolist() == h.sizes.tolist()
+        assert g.hit_ratios.tolist() == h.hit_ratios.tolist()
+        assert g.feasible == h.feasible
+        assert g.latency == pytest.approx(h.latency, rel=1e-12)
+
+
+def _same_managers(g, c):
+    assert len(g.history) == len(c.history)
+    for dg, dc in zip(g.history, c.history):
+        assert dg.sizes.tolist() == dc.sizes.tolist()
+        assert dg.policies == dc.policies
+        assert [(e.window, e.tenant, e.reason) for e in dg.trigger] == \
+            [(e.window, e.tenant, e.reason) for e in dc.trigger]
+    for tg, tc in zip(g.tenants, c.tenants):
+        rg, rc = dict(vars(tg.result)), dict(vars(tc.result))
+        lg, lc = rg.pop("total_latency"), rc.pop("total_latency")
+        assert rg == rc
+        assert lg == pytest.approx(lc, rel=1e-12)
+        assert torch.equal(tg.cache.state_arrays()[0].cpu(),
+                           tc.cache.state_arrays()[0])
+
+
+@pytest.mark.parametrize("scheme", ["static", "reuse_intensity"])
+def test_scheme_window_on_card_matches_cpu(card, scheme):
+    names = list(MSR_PROFILES)
+    kw = dict(c_min=50, initial_blocks=100, t_fast=1.0, t_slow=20.0,
+              flush_cost=10.0)
+    g = make_manager(scheme, 3000, names, device="cuda", **kw)
+    c = make_manager(scheme, 3000, names, device="cpu", **kw)
+    before = live_count_scan.launches
+    traces = [msr_trace(nm, 4000, seed=i) for i, nm in enumerate(names)]
+    g.run_window(traces)
+    c.run_window(traces)
+    if scheme == "reuse_intensity":
+        assert live_count_scan.launches > before      # every tenant RO
+    _same_managers(g, c)
+
+
+def test_churn_scenario_on_card_matches_cpu(card):
+    run = churn(seed=0)
+    kw = dict(c_min=50, initial_blocks=50, phase_detect=True,
+              reconfig_interval=4, t_fast=1.0, t_slow=20.0, flush_cost=10.0)
+    g, _ = replay_scenario(run, lambda n: make_manager("eci", 2000, n,
+                                                       device="cuda", **kw))
+    c, _ = replay_scenario(run, lambda n: make_manager("eci", 2000, n,
+                                                       device="cpu", **kw))
+    assert [(e.window, e.tenant, e.reason, e.score) for e in g.events] == \
+        [(e.window, e.tenant, e.reason, e.score) for e in c.events]
+    assert g.windows_analyzed == c.windows_analyzed < g.windows_run
+    _same_managers(g, c)
