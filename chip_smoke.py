@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases:
   1. print the card (``nvidia-smi`` name and power limit, torch's name);
-  2. build the five CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
+  2. build the seven CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
      one ``nvcc`` per source, all started together;
   3. hold each kernel against its plain PyTorch version on the card,
      exactly: ``cache_sim_scan`` vs the dense ``cache_sim_ref`` at tape
@@ -20,7 +20,14 @@ Phases:
      at n = 1 .. 65,536 (ragged tenant blocks; cap1 = 0, cap1 = captot
      and varying rows; rows with nxt = -1, j and n); ``urd_scan`` vs the
      dense ``urd_scan_ref`` at n = 1 .. 65,536 (ragged tenant blocks,
-     severed links, cold rows);
+     severed links, cold rows); ``flash_attention`` vs the dense
+     ``attention_ref`` at the kernel's ``ref.SWEEP`` (tests/test_kernels.py's
+     sweep plus head dim 112, GQA 16/8, ragged ``Sq != Skv``,
+     ``window=96`` and ``Dv != D``), float32 (2e-5) and bfloat16 (2e-2);
+     ``mamba2_ssd`` vs the sequential ``mamba2_ssd_ref`` at
+     tests/test_kernels.py's sweep and vs the chunked form at its
+     ``ref.SWEEP`` (zamba2's chunk 256 with B/C shared by 112 heads
+     included; 3e-6 of the largest output);
   4. drive slice 1's path — ``make_manager("eci", 6000, ...)`` over 16
      tenants, three Δt windows of 65,536 accesses each — on the card with
      every kernel launch counter set to 0 just before each window and
@@ -71,13 +78,27 @@ Phases:
      ``phase_detect=True, reconfig_interval=10**9``, on the card and the
      CPU: event logs, ``windows_analyzed``, decisions and per-tenant
      latencies equal;
- 12. time each kernel at a full tape of its path (CUDA events) beside its
-     plain version and the bound of the function it computes (the larger
-     of its bytes at the memory rate and a tree count's operations at
-     the 32-bit rate), holding it against the plain version there too;
-     ``urd_scan`` at a 65,536-row Table-3 window and at the 1,048,576-row
-     16-tenant tape that times ``cache_sim_scan``;
- 13. print the kernels line, the card line and, last, the result line.
+ 12. the model layer, zamba2-7b at full width (``model_phase``): bf16
+     from seed 0, ``prefill`` on 4 prompts of 2048 tokens (81
+     ``mamba2_ssd`` and 13 ``flash_attention`` launches, counted), then 4
+     requests of 1024 prompt tokens teacher-forced through
+     ``decode_step`` and 32 greedy tokens (no launch); the same prefill
+     through the plain versions on the card, and in fp32 through both:
+     the fp32 last logits held to the kernels' run, the bf16 ones' greedy
+     tokens where bf16 cannot flip them; the kernels held to their plain
+     versions at the captured bf16 prefill inputs; at reduced depth in fp32
+     (3 layers, one group and a one-layer tail), prefill against
+     teacher-forced decode over 512 tokens and the card against the CPU;
+     each kernel timed at its full-width prefill shape beside its plain
+     version, its bound and, for attention,
+     ``scaled_dot_product_attention``;
+ 13. time each kernel of the earlier slices at a full tape of its path
+     (CUDA events) beside its plain version and the bound of the function
+     it computes (the larger of its bytes at the memory rate and a tree
+     count's operations at the 32-bit rate), holding it against the plain
+     version there too; ``urd_scan`` at a 65,536-row Table-3 window and at
+     the 1,048,576-row 16-tenant tape that times ``cache_sim_scan``;
+ 14. print the kernels line, the card line and, last, the result line.
 
 Exits non-zero, printing no result, when no card is visible or any
 phase fails.
@@ -129,6 +150,21 @@ SC_CAPACITY, SC_C_MIN = 8192, 256
 SEGMENT_LENS = {64: [64, 1, 33, 0, 64], 512: [512, 300, 257, 0],
                 4096: [4096, 2049, 3000], 8192: [8192, 5000, 4097],
                 16384: [16384, 9000]}   # 16384: wider than one stage
+# the model layer: zamba2-7b at full width in bf16 from seed 0; prefill
+# of PREFILL_SHAPE prompts (a multiple of the 256-token SSM chunk), then
+# DECODE_ROWS requests of DECODE_PROMPT tokens teacher-forced through
+# decode_step and DECODE_NEW greedy tokens
+MODEL_ARCH, MODEL_SEED = "zamba2_7b", 0
+PREFILL_SHAPE = (4, 2048)
+DECODE_ROWS, DECODE_PROMPT, DECODE_NEW = 4, 1024, 32
+# the reduced-depth fp32 config (full width): one hybrid group and a
+# one-layer tail; prompts of two chunks
+REDUCED = dict(n_layers=3, attn_every=2, dtype="float32")
+REDUCED_PROMPT, REDUCED_DECODE = 512, 4
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores, and
+# fp32 outside them (the SSD kernel's arithmetic)
+PEAK_BF16_PER_S = 989e12
+PEAK_F32_PER_S = 67e12
 T_START = time.perf_counter()
 
 
@@ -243,15 +279,19 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 KERNEL_NAMES = ("cache_sim_scan", "cache_sim_segments_scan",
-                "cache_sim_levels_scan", "live_count_scan", "urd_scan")
+                "cache_sim_levels_scan", "live_count_scan", "urd_scan",
+                "mamba2_ssd", "flash_attention")
 STAGES = ("tape", "ro_replay", "count", "replay", "monitor", "pgd")
 
 
 def kernel_wrappers() -> dict:
     """name -> the launching wrapper (its ``launches`` is the count)."""
     from repro_torch.kernels.cache_sim import kernel as cache_sim
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.mamba2_ssd import kernel as ssd
     from repro_torch.kernels.urd_scan import kernel as urd
-    return {name: getattr(urd if name == "urd_scan" else cache_sim, name)
+    home = {"urd_scan": urd, "mamba2_ssd": ssd, "flash_attention": fa}
+    return {name: getattr(home.get(name, cache_sim), name)
             for name in KERNEL_NAMES}
 
 
@@ -495,12 +535,13 @@ def drive(path: str, dev, windows, names, capacity, want=(), scheme="eci",
 
 class Recorder:
     """Wraps a module function: counts its calls and keeps the first
-    call's arguments (the wrapped function still runs)."""
+    call's positional and keyword arguments (the wrapped function still
+    runs)."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
-        self.calls, self.args = 0, None
+        self.calls, self.args, self.kwargs = 0, None, None
         self.by_device = collections.Counter()
 
     def __enter__(self):
@@ -508,7 +549,7 @@ class Recorder:
             self.calls += 1
             self.by_device[a[0].device.type] += 1
             if self.args is None:
-                self.args = a
+                self.args, self.kwargs = a, k
             return self.fn(*a, **k)
         setattr(self.module, self.name, wrapped)
         return self
@@ -805,6 +846,433 @@ def scenarios_phase(dev) -> collections.Counter:
     return launches
 
 
+def check_close(max_err: dict, name: str, what: str, got, want,
+                tol: float, scale: float = 1.0) -> float:
+    """Float kernels: |got - want| <= tol * scale everywhere; records the
+    largest absolute difference."""
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max()) \
+        if got.numel() else 0.0
+    assert got.shape == want.shape and err <= tol * scale, \
+        f"{name} {what}: max err {err} > {tol} x {scale}"
+    max_err[name] = max(max_err[name], err)
+    return err
+
+
+def model_kernel_checks(dev, max_err: dict) -> None:
+    """Phase 3 for the model layer's kernels: ``flash_attention`` against
+    the dense ``attention_ref`` (f32 2e-5, bf16 2e-2) and ``mamba2_ssd``
+    against the sequential ``mamba2_ssd_ref`` and the chunked form (3e-6
+    of the largest output), at the sweeps of tests/test_kernels.py and
+    the extra cases."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import SWEEP as ATTN_SWEEP
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd
+    from repro_torch.kernels.mamba2_ssd.ref import SWEEP as SSD_SWEEP
+    from repro_torch.kernels.mamba2_ssd.ref import (SEQUENTIAL_CASES,
+                                                    mamba2_ssd_chunked,
+                                                    mamba2_ssd_ref,
+                                                    seg_from_dA)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for case in ATTN_SWEEP:
+        b, hq, hkv, sq, skv, d, dv, causal, window = case
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            q = torch.randn((b, hq, sq, d), generator=gen, device=dev)
+            k = torch.randn((b, hkv, skv, d), generator=gen, device=dev)
+            v = torch.randn((b, hkv, skv, dv), generator=gen, device=dev)
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            check_close(max_err, "flash_attention", f"{case} {dtype}",
+                        flash_attention(q, k, v, causal=causal,
+                                        window=window),
+                        attention_ref(q, k, v, causal=causal, window=window),
+                        tol)
+    print(f"check: flash_attention == attention_ref at {len(ATTN_SWEEP)} "
+          f"shapes (tests/test_kernels.py's sweep, D 112, GQA 16/8, ragged, "
+          f"window 96, Dv != D) in float32 and bfloat16 (2e-5 / 2e-2); "
+          f"max err {max_err['flash_attention']:.3g}")
+    for i, (bh, s, p, n, chunk, groups) in enumerate(SSD_SWEEP):
+        x = torch.randn((bh, s, p), generator=gen, device=dev) * 0.5
+        B = torch.randn((groups, s, n), generator=gen, device=dev) * 0.5
+        C = torch.randn((groups, s, n), generator=gen, device=dev) * 0.5
+        dA = -torch.rand((bh, s), generator=gen, device=dev) * 0.5
+        seg = seg_from_dA(dA, chunk)
+        got = mamba2_ssd(x, B, C, seg, chunk=chunk)
+        # every case against the chunked form (the same sums in another
+        # order), the reference sweep's also against the sequential one
+        wants = [("mamba2_ssd_chunked", mamba2_ssd_chunked(x, B, C, seg,
+                                                           chunk=chunk))]
+        if i < SEQUENTIAL_CASES:
+            wants.append(("mamba2_ssd_ref", mamba2_ssd_ref(x, B, C, dA)))
+        for plain, want in wants:
+            scale = float(want.abs().max())
+            err = check_close(max_err, "mamba2_ssd", f"BH={bh} S={s} vs "
+                              f"{plain}", got, want, 3e-6, scale)
+            print(f"check: mamba2_ssd == {plain} at BH={bh} S={s} P={p} "
+                  f"N={n} chunk={chunk}, B/C shared by {bh // groups} rows: "
+                  f"max err {err:.3g} ({err / scale:.3g} of max |y|; bound "
+                  f"3e-6)")
+
+
+def _leaf_count(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_leaf_count(v) for v in tree.values())
+    return tree.numel()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want| (logits)."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def attention_work(q, k, v, causal: bool, window: int) -> tuple[int, int]:
+    """(bytes, FLOPs) flash attention needs at these inputs: q, k, v read
+    and the output written once; 2 (D + Dv) FLOPs per (query, seen key)
+    pair, counted from this run's masks."""
+    b, hq, sq, d = q.shape
+    skv, dv = k.shape[2], v.shape[-1]
+    qp = torch.arange(sq)[:, None]
+    kp = torch.arange(skv)[None, :]
+    seen = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        seen &= kp <= qp
+    if window > 0:
+        seen &= kp > qp - window
+    pairs = int(seen.sum()) * b * hq
+    nbytes = (q.numel() + k.numel() + v.numel() + b * hq * sq * dv) \
+        * q.element_size()
+    return nbytes, 2 * (d + dv) * pairs
+
+
+def ssd_work(x_dt, B, chunk: int) -> tuple[int, int]:
+    """(bytes, FLOPs) the SSD scan needs: x, B, C, seg read and y written
+    once (fp32); per row and chunk Q(Q+1)/2 * P multiply-adds for the
+    causal intra product and 2 Q N P for the inter term and the state,
+    per group and chunk Q(Q+1)/2 * N for the shared scores."""
+    bh, s, p = x_dt.shape
+    g, _, n = B.shape
+    nc, pairs = s // chunk, chunk * (chunk + 1) // 2
+    nbytes = 4 * (2 * bh * s * p + 2 * g * s * n + bh * s)
+    macs = bh * nc * (pairs * p + 2 * chunk * n * p) + g * nc * pairs * n
+    return nbytes, 2 * macs
+
+
+def model_phase(dev, max_err: dict) -> list[dict]:
+    """Phase 12: zamba2-7b at full width on the card.
+
+    (a) bf16 from seed 0: ``prefill`` on 4 prompts of 2048 tokens (one
+    warm-up call, then the counted one: 81 ``mamba2_ssd`` and 13
+    ``flash_attention`` launches), then 4 requests of 1024 prompt tokens
+    teacher-forced through ``decode_step`` and 32 greedy tokens (no
+    launch); (b) the same prefill through the plain versions on the card
+    (no launch), and the same model in fp32 (the bf16 parameters are its
+    rounding) through both: the fp32 last logits held to 1e-4 of max
+    |logit|; in bf16 the kernels' greedy tokens held to the plain run's
+    in every row where the fp32 top token leads by more than bf16 itself
+    moves the logits, and the distance printed beside the plain bf16
+    run's own from fp32; (c) the reduced-depth fp32 config (full width,
+    one group and a one-layer tail): prefill's last logits against
+    teacher-forced decode's at the last prompt token on 1 x 512 tokens,
+    and prefill plus 4 decode steps against the port's own CPU run; (d)
+    each kernel timed at its full-width shape (CUDA events) beside its
+    plain version, the library call where one exists, and its bound.
+    Returns the kernels' rows."""
+    import repro_torch.kernels.flash_attention.ops as fa_ops
+    import repro_torch.kernels.mamba2_ssd.ops as ssd_ops
+    import repro_torch.models.attention as attention
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         blockwise_attention)
+    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd
+    from repro_torch.kernels.mamba2_ssd.ref import mamba2_ssd_chunked
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(MODEL_ARCH)
+    n_groups, g, rem = M.hybrid_groups(cfg)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=MODEL_SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"model: {cfg.name} at full width ({cfg.n_layers} Mamba-2 layers, "
+          f"d {cfg.d_model}, d_inner {cfg.ssm_d_inner}, {cfg.ssm_n_heads} "
+          f"SSM heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}; shared attention+SwiGLU block of {cfg.n_heads} "
+          f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, after every {g} "
+          f"layers: {n_groups} times, {rem}-layer tail); n_params() "
+          f"{cfg.n_params():,}, {_leaf_count(params):,} in the tree "
+          f"(norms, conv and SSM scalars included), {cfg.dtype} from seed "
+          f"{MODEL_SEED} in {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------- (a) the main path, bf16
+    rng = np.random.default_rng(MODEL_SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, PREFILL_SHAPE),
+                              device=dev)
+    want_ssd, want_fa = cfg.n_layers, n_groups
+    with Recorder(fa_ops, "flash_attention") as fa_rec, \
+            Recorder(ssd_ops, "mamba2_ssd") as ssd_rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M.prefill(params, cfg, prompts)                      # warm-up
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        logits = M.prefill(params, cfg, prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre_launches = read_counts()
+    pre_peak = torch.cuda.max_memory_allocated()
+    assert pre_launches["mamba2_ssd"] == want_ssd and \
+        pre_launches["flash_attention"] == want_fa, \
+        f"prefill launches {pre_launches}, predicted {want_ssd} / {want_fa}"
+    assert sum(pre_launches.values()) == want_ssd + want_fa
+    assert logits.shape == (PREFILL_SHAPE[0], cfg.padded_vocab())
+    assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
+    ntok = PREFILL_SHAPE[0] * PREFILL_SHAPE[1]
+    print(f"prefill {PREFILL_SHAPE[0]} x {PREFILL_SHAPE[1]} bf16: "
+          f"{prefill_s * 1e3:.1f} ms ({ntok / prefill_s:.0f} tokens/s; "
+          f"warm-up call {warm_s * 1e3:.1f} ms); peak device memory "
+          f"{pre_peak / 2**30:.2f} GiB; launches {json.dumps(pre_launches)} "
+          f"== predicted (mamba2_ssd {want_ssd}, flash_attention {want_fa})")
+
+    cache = M.init_decode_cache(cfg, DECODE_ROWS, DECODE_PROMPT + DECODE_NEW,
+                                device=dev)
+    req = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (DECODE_ROWS, DECODE_PROMPT)),
+                          device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    for t in range(DECODE_PROMPT):
+        out, cache = M.decode_step(params, cfg, req[:, t], cache)
+    torch.cuda.synchronize()
+    forced_s = time.perf_counter() - t0
+    tok, new = out.argmax(-1), []
+    t0 = time.perf_counter()
+    for _ in range(DECODE_NEW):
+        new.append(tok)
+        out, cache = M.decode_step(params, cfg, tok, cache)
+        tok = out.argmax(-1)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    dec_launches = read_counts()
+    dec_peak = torch.cuda.max_memory_allocated()
+    new = torch.stack(new, 1)
+    assert not any(dec_launches.values()), f"decode launched {dec_launches}"
+    assert bool(torch.isfinite(out[:, :cfg.vocab_size]).all())
+    assert bool((out[:, cfg.vocab_size:] == -1e30).all())
+    assert cache["len"].tolist() == [DECODE_PROMPT + DECODE_NEW] * DECODE_ROWS
+    assert bool(((new >= 0) & (new < cfg.vocab_size)).all())
+    steps = DECODE_PROMPT + DECODE_NEW
+    print(f"decode: {DECODE_ROWS} requests x ({DECODE_PROMPT} teacher-forced "
+          f"+ {DECODE_NEW} greedy) bf16: {forced_s / DECODE_PROMPT * 1e3:.2f} "
+          f"ms a teacher-forced step, {greedy_s / DECODE_NEW * 1e3:.2f} ms a "
+          f"greedy step ({DECODE_ROWS * steps / (forced_s + greedy_s):.1f} "
+          f"tokens/s over {steps} steps of {DECODE_ROWS} rows); peak device "
+          f"memory {dec_peak / 2**30:.2f} GiB; launches "
+          f"{json.dumps(dec_launches)} (none predicted); first request's "
+          f"greedy tokens {new[0, :8].tolist()}...")
+
+    # ---------------- (b) the same prefill through the plain versions
+    def plain_prefill(prm):
+        """``prefill`` with the plain versions in the kernels' places
+        (swapped here only; the port has no switch): no launch."""
+        saved = (attention.prefill_attention, ssd_ops.mamba2_ssd)
+        attention.prefill_attention, ssd_ops.mamba2_ssd = \
+            blockwise_attention, mamba2_ssd_chunked
+        try:
+            zero_counts()
+            out = M.prefill(prm, cfg, prompts)
+            torch.cuda.synchronize()
+            assert not any(read_counts().values()), "the plain run launched"
+        finally:
+            attention.prefill_attention, ssd_ops.mamba2_ssd = saved
+        return out
+
+    t0 = time.perf_counter()
+    plain_logits = plain_prefill(params)
+    plain_s = time.perf_counter() - t0
+    del params, cache
+    # the same model in fp32: the bf16 parameters are these rounded (one
+    # generator, the same draws), so the fp32 runs show what bf16 itself
+    # moves and hold the kernels to the plain versions without it
+    params32 = M.init_params(dataclasses.replace(cfg, dtype="float32"),
+                             seed=MODEL_SEED, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    logits32 = M.prefill(params32, cfg, prompts)
+    torch.cuda.synchronize()
+    k32_s = time.perf_counter() - t0
+    got = read_counts()
+    assert (got["mamba2_ssd"], got["flash_attention"]) == (want_ssd, want_fa)
+    plain32 = plain_prefill(params32)
+    del params32
+    rel32 = _rel(logits32, plain32)
+    noise = _rel(plain_logits, plain32)
+    rel = _rel(logits, plain_logits)
+
+    nv = cfg.vocab_size
+
+    def greedy(a) -> list[int]:
+        return a[:, :nv].argmax(-1).tolist()
+
+    top2 = plain32[:, :nv].topk(2, dim=-1).values
+    lead = ((top2[:, 0] - top2[:, 1]) / plain32[:, :nv].abs().max()).tolist()
+    # fp32: only the order of the sums differs (about 1e-6 relative an
+    # operation, TF32 off), so a wrong kernel stands out by orders of
+    # magnitude above 1e-4 of max |logit|
+    assert rel32 <= 1e-4, f"fp32 kernels vs plain prefill: {rel32}"
+    assert greedy(logits32) == greedy(plain32)
+    # bf16: the kernels' arithmetic is held above (fp32) and their bf16
+    # loads and stores at the captured inputs in (d); here each row's
+    # greedy token must be the plain bf16 run's.  The distance in max
+    # |logit| is a reading: bf16 rounding alone moves the plain run about
+    # as far from fp32
+    assert greedy(logits) == greedy(plain_logits), \
+        f"bf16 greedy tokens: kernels {greedy(logits)}, plain " \
+        f"{greedy(plain_logits)} (fp32 top-1 leads {lead})"
+    print(f"check: full-width prefill {PREFILL_SHAPE[0]} x "
+          f"{PREFILL_SHAPE[1]}, kernels vs plain versions on the card: fp32 "
+          f"last logits within {rel32:.3g} of max |logit| (tolerance 1e-4: "
+          f"summation order only), same greedy tokens; bf16: same greedy "
+          f"tokens {greedy(logits)} (plain fp32 {greedy(plain32)}; fp32 "
+          f"top-1 leads its runner-up by "
+          f"{', '.join(f'{x:.3g}' for x in lead)} of max |logit|), last "
+          f"logits {rel:.3g} of max |logit| apart (a reading: the plain "
+          f"bf16 run lies {noise:.3g} from the plain fp32 run); plain bf16 "
+          f"prefill {plain_s * 1e3:.1f} ms, fp32 kernels prefill "
+          f"{k32_s * 1e3:.1f} ms")
+    rows_in = ((fa_rec.args, fa_rec.kwargs),
+               (ssd_rec.args, ssd_rec.kwargs))
+    del plain_logits, logits32, plain32
+
+    # --------------------- (c) reduced depth, fp32, full width
+    rcfg = dataclasses.replace(cfg, **REDUCED)
+    rp = M.init_params(rcfg, seed=MODEL_SEED, device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (1, REDUCED_PROMPT)), device=dev)
+    zero_counts()
+    pre = M.prefill(rp, rcfg, toks)
+    got = read_counts()
+    assert (got["mamba2_ssd"], got["flash_attention"]) == (3, 1), got
+    rc = M.init_decode_cache(rcfg, 1, REDUCED_PROMPT, device=dev)
+    for t in range(REDUCED_PROMPT):
+        out, rc = M.decode_step(rp, rcfg, toks[:, t], rc)
+    v = rcfg.vocab_size
+    rel = _rel(out[:, :v], pre[:, :v])
+    assert rel <= 2e-4, f"prefill vs decode (fp32): {rel}"
+    print(f"check: reduced depth ({rcfg.n_layers} layers, attn_every "
+          f"{rcfg.attn_every}) fp32 at full width: prefill's last logits vs "
+          f"teacher-forced decode's at token {REDUCED_PROMPT}: within "
+          f"{rel:.3g} of max |logit| (tolerance 2e-4, the reference's "
+          f"prefill/decode bound, tests/test_models.py:78)")
+    t0 = time.perf_counter()
+    cp = _to(rp, "cpu")
+    cpu_pre = M.prefill(cp, rcfg, toks.cpu())
+    rel_pre = _rel(pre.cpu(), cpu_pre)
+    gc = M.init_decode_cache(rcfg, 1, REDUCED_DECODE, device=dev)
+    cc = M.init_decode_cache(rcfg, 1, REDUCED_DECODE, device="cpu")
+    rel_dec = 0.0
+    for t in range(REDUCED_DECODE):
+        lg, gc = M.decode_step(rp, rcfg, toks[:, t], gc)
+        lc, cc = M.decode_step(cp, rcfg, toks[:, t].cpu(), cc)
+        rel_dec = max(rel_dec, _rel(lg[:, :v].cpu(), lc[:, :v]))
+    # fp32 on both sides (TF32 off; the conv is a sum of shifted products,
+    # no cuDNN): only the order of the sums differs, about 1e-6 relative
+    assert rel_pre <= 1e-4 and rel_dec <= 1e-4, (rel_pre, rel_dec)
+    print(f"check: reduced-depth fp32 card vs CPU ({time.perf_counter() - t0:.1f}"
+          f" s on the host): prefill 1 x {REDUCED_PROMPT} last logits within "
+          f"{rel_pre:.3g}, {REDUCED_DECODE} decode steps within {rel_dec:.3g} "
+          f"of max |logit| (tolerance 1e-4)")
+    del rp, cp, rc, gc, cc
+
+    # -------------------- (d) the kernels at their full-width shapes
+    rows = []
+    # the model hands the wrapper [B, H, S, D] views: copy them once, so
+    # that the times below are the kernel's alone
+    q, k, v = (t.contiguous() for t in rows_in[0][0])
+    fa_kw = dict(causal=cfg.causal, window=cfg.window)
+    got = flash_attention(q, k, v, **fa_kw)
+    want = attention_ref(q, k, v, **fa_kw)
+    want32, diff = want.float(), (got.float() - want.float()).abs()
+    top, typical = float(want32.abs().max()), float(want32.abs().mean())
+    # both round an fp32 result to bf16: one bf16 step (2^-7 of a value)
+    # each way apart at most, plus the fp32 summation order (about 1e-6
+    # of max |out|); held element by element to two steps of the value
+    # plus 1e-4 of max |out|
+    limit = 2.0 ** -6 * want32.abs() + 1e-4 * top
+    worst = float((diff / limit).max())
+    err = float(diff.max())
+    assert got.shape == want.shape and worst <= 1.0, \
+        f"flash_attention at the captured inputs: {worst} of its limit"
+    max_err["flash_attention"] = max(max_err["flash_attention"], err)
+    print(f"check: flash_attention == attention_ref at the captured bf16 "
+          f"prefill inputs {list(q.shape)}: max err {err:.3g} (max |out| "
+          f"{top:.3g}, mean |out| {typical:.3g}); the worst element at "
+          f"{worst:.3g} of its limit 2^-6 |out| + 1e-4 max |out|")
+    ms = cuda_ms(lambda: flash_attention(q, k, v, **fa_kw), REPS)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **fa_kw), REPS // 4)
+    blk_ms = cuda_ms(lambda: blockwise_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **fa_kw),
+        REPS // 4)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True), REPS)
+    nbytes, flops = attention_work(q, k, v, **fa_kw)
+    bnd, by = max((nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+                  (flops / PEAK_BF16_PER_S * 1e3, "operations"))
+    print(f"flash_attention at {list(q.shape)} {q.dtype} (captured prefill "
+          f"inputs): {ms:.3f} ms, attention_ref {plain_ms:.3f} ms, "
+          f"blockwise_attention {blk_ms:.3f} ms, scaled_dot_product_attention "
+          f"{lib_ms:.3f} ms; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB: "
+          f"bound {bnd:.4f} ms by {by}; kernel / bound = {ms / bnd:.1f}")
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
+        "launches": pre_launches["flash_attention"],
+        "max_abs_err": max_err["flash_attention"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+        "library_ms": lib_ms})
+    (x_dt, B, C, seg), kw = rows_in[1]
+    chunk = kw["chunk"]
+    want = mamba2_ssd_chunked(x_dt, B, C, seg, chunk=chunk)
+    check_close(max_err, "mamba2_ssd", "full-width prefill inputs",
+                mamba2_ssd(x_dt, B, C, seg, chunk=chunk), want, 3e-6,
+                float(want.abs().max()))
+    ms = cuda_ms(lambda: mamba2_ssd(x_dt, B, C, seg, chunk=chunk), REPS)
+    plain_ms = cuda_ms(lambda: mamba2_ssd_chunked(x_dt, B, C, seg,
+                                                  chunk=chunk), REPS // 4)
+    nbytes, flops = ssd_work(x_dt, B, chunk)
+    bnd, by = max((nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+                  (flops / PEAK_F32_PER_S * 1e3, "operations"))
+    print(f"mamba2_ssd at x_dt {list(x_dt.shape)}, B/C {list(B.shape)}, "
+          f"chunk {chunk} (captured layer-0 prefill inputs): {ms:.3f} ms, "
+          f"mamba2_ssd_chunked {plain_ms:.3f} ms; {flops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB: bound {bnd:.4f} ms by {by}; kernel / "
+          f"bound = {ms / bnd:.1f}")
+    rows.append({
+        "name": "mamba2_ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
+        "replaces": "src/repro/kernels/mamba2_ssd/kernel.py:68",
+        "launches": pre_launches["mamba2_ssd"],
+        "max_abs_err": max_err["mamba2_ssd"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -831,6 +1299,10 @@ def main() -> int:
                                                    live_counts_delta,
                                                    live_counts_ref,
                                                    stack_distances_tree)
+    from repro_torch.kernels.flash_attention.kernel import \
+        LIBRARIES as FA_LIBRARIES
+    from repro_torch.kernels.mamba2_ssd.kernel import \
+        LIBRARIES as SSD_LIBRARIES
     from repro_torch.kernels.urd_scan.kernel import LIBRARIES as URD_LIBRARIES
     from repro_torch.kernels.urd_scan.kernel import urd_scan
     from repro_torch.kernels.urd_scan.ref import urd_scan_ref
@@ -844,7 +1316,7 @@ def main() -> int:
 
     # ----------------------------------------- 2. build, one nvcc a source
     t0 = time.perf_counter()
-    libraries = LIBRARIES + URD_LIBRARIES
+    libraries = LIBRARIES + URD_LIBRARIES + SSD_LIBRARIES + FA_LIBRARIES
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as ex:
         builds = {name: ex.submit(build_library, name, srcs)
                   for name, srcs in libraries}
@@ -934,6 +1406,7 @@ def main() -> int:
         assert bool((got[prev < 0] == -1).all()), "cold rows must be -1"
         print(f"check: urd_scan == urd_scan_ref at n={n} (ragged tenant "
               f"blocks, severed links; {int((prev < 0).sum())} cold rows)")
+    model_kernel_checks(dev, max_err)
     print(f"phase seconds: build and kernel checks done at "
           f"{time.perf_counter() - T_START:.1f} s")
 
@@ -1036,7 +1509,12 @@ def main() -> int:
     launches_sc = scenarios_phase(dev)
     print(f"phase seconds: scenarios {time.perf_counter() - t0:.1f} s")
 
-    # ------------- 12a. full window tape: cache_sim_scan vs its merge tree
+    # ------------------------------------ 12. the model layer, zamba2-7b
+    t0 = time.perf_counter()
+    model_rows = model_phase(dev, max_err)
+    print(f"phase seconds: model layer {time.perf_counter() - t0:.1f} s")
+
+    # ------------- 13a. full window tape: cache_sim_scan vs its merge tree
     tr0 = windows[0]
     addrs = torch.cat([t.addrs for t in tr0]).to(dev)
     lens = torch.tensor([len(t) for t in tr0], device=dev)
@@ -1070,7 +1548,7 @@ def main() -> int:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": bnd_by,
         "library_ms": None}]
 
-    # ---- 12b. urd_scan at the same 16-tenant tape and at a Table-3 window
+    # ---- 13b. urd_scan at the same 16-tenant tape and at a Table-3 window
     got = urd_scan(p32, n32)
     check("urd_scan", "full tape vs merge tree", got,
           stack_distances_tree(prev, nxt_c))
@@ -1109,7 +1587,7 @@ def main() -> int:
           f"{launches_cp['urd_scan']}; on the scenario path "
           f"{launches_sc['urd_scan']}")
 
-    # ---- 12c. full sampled tape: cache_sim_segments_scan vs its tree
+    # ---- 13c. full sampled tape: cache_sim_segments_scan vs its tree
     str0 = swindows[0]
     rates = [auto_sample_rate(len(t)) for t in str0]
     addrs_s, _, kept = shards_subtape(str0, rates, 0,
@@ -1152,7 +1630,7 @@ def main() -> int:
         "bound_by": bnd_by, "library_ms": None})
     del swindows, args, gprev, gnxt, gocc
 
-    # ---- 12d. the last ETICA window's tape: cache_sim_levels_scan vs the
+    # ---- 13d. the last ETICA window's tape: cache_sim_levels_scan vs the
     # merge tree's distances compared with the two thresholds
     prev, nxt_c, cap1_of, captot_of = routes.args[:4]
     p32, n32 = prev.to(torch.int32), nxt_c.to(torch.int32)
@@ -1190,7 +1668,7 @@ def main() -> int:
         "ms": lv_ms, "plain_ms": lv_plain, "bound_ms": bnd,
         "bound_by": bnd_by, "library_ms": None})
 
-    # ---- 12e. the pressure path's first guard tape: live_count_scan vs
+    # ---- 13e. the pressure path's first guard tape: live_count_scan vs
     # the O(n) delta form
     nxt_l, occ_l = live_rec.args
     n32 = nxt_l.to(torch.int32).contiguous()
@@ -1218,6 +1696,7 @@ def main() -> int:
         "ms": lc_ms, "plain_ms": lc_plain, "bound_ms": bnd,
         "bound_by": bnd_by, "library_ms": None})
     rows.append(urd_row)
+    rows.extend(model_rows)
     print(f"cache_sim_scan launches on the 256-tenant path: "
           f"{launches256['cache_sim_scan']}; total run "
           f"{time.perf_counter() - T_START:.1f} s")

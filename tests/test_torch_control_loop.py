@@ -260,9 +260,11 @@ def test_simulate_many_without_window_rd():
 
 # ------------------------------------------------ import isolation
 def test_port_imports_without_jax_and_defaults_to_the_card():
-    """``repro_torch`` imports with ``jax``, ``triton`` and ``repro``
-    blocked, and an entry point without ``device`` asks for the card:
-    with none visible it raises naming ``device='cpu'``."""
+    """``repro_torch`` (the control loop, the configs, the model layer and
+    its kernels' dispatch) imports with ``jax``, ``triton`` and ``repro``
+    blocked, and an entry point without ``device`` (the manager,
+    ``init_params``, ``init_decode_cache``) asks for the card: with none
+    visible it raises naming ``device='cpu'``."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -271,22 +273,35 @@ def test_port_imports_without_jax_and_defaults_to_the_card():
         import torch
         import repro_torch.core, repro_torch.kernels.cache_sim.ops
         import repro_torch.data.traces
+        import repro_torch.configs, repro_torch.models.model
+        import repro_torch.kernels.flash_attention.ops
+        import repro_torch.kernels.mamba2_ssd.ops
+        from repro_torch.configs import get_smoke_config
         from repro_torch.core import make_manager
-        if torch.cuda.is_available():
-            print("card", make_manager("eci", 10, ["a"]).device)
-        else:
-            try:
-                make_manager("eci", 10, ["a"])
-            except RuntimeError as e:
-                print("raised", e)
+        from repro_torch.models.model import init_decode_cache, init_params
+        cfg = get_smoke_config("zamba2_7b")
+        calls = (lambda: make_manager("eci", 10, ["a"]).device,
+                 lambda: init_params(cfg)["embed"].device,
+                 lambda: init_decode_cache(cfg, 1, 4)["len"].device)
+        for call in calls:
+            if torch.cuda.is_available():
+                print("card", call())
+            else:
+                try:
+                    call()
+                except RuntimeError as e:
+                    print("raised", e)
     """)
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=True).stdout
-    if torch.cuda.is_available():
-        assert out.startswith("card cuda")
-    else:
-        assert out.startswith("raised") and "device='cpu'" in out
+    lines = out.splitlines()
+    assert len(lines) == 3
+    for line in lines:
+        if torch.cuda.is_available():
+            assert line.startswith("card cuda")
+        else:
+            assert line.startswith("raised") and "device='cpu'" in line
 
 
 def test_port_sources_name_no_jax_or_reference_package():

@@ -8,7 +8,9 @@ and run ``pgd_solve``, the 256-tenant SHARDS-sampled manager, two-level
 ``simulate_many`` (through both residency routes), the ``etica``
 manager, ``reuse_distances_accel`` (``urd_scan``), the fast greedy walk,
 the ``static`` and ``reuse_intensity`` managers and an event-driven
-churn scenario on the card against the CPU.
+churn scenario on the card against the CPU; the prefill attention and
+SSD kernels against their plain versions, and the smoke zamba2 model
+through ``prefill`` and ``decode_step``, card against CPU.
 This module imports nothing of JAX, so it runs where JAX is absent.
 """
 import numpy as np
@@ -44,6 +46,19 @@ from repro_torch.kernels.cache_sim.ref import (cache_sim_levels_ref,
 from repro_torch.kernels.urd_scan.kernel import urd_scan
 from repro_torch.kernels.urd_scan.ops import reuse_distances_accel
 from repro_torch.kernels.urd_scan.ref import urd_scan_ref
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.ref import SWEEP as ATTN_SWEEP
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     blockwise_attention)
+from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd
+from repro_torch.kernels.mamba2_ssd.ref import SWEEP as SSD_SWEEP
+from repro_torch.kernels.mamba2_ssd.ref import (SEQUENTIAL_CASES,
+                                                mamba2_ssd_chunked,
+                                                mamba2_ssd_ref, seg_from_dA)
+from repro_torch.models.model import (decode_step, hybrid_groups,
+                                      init_decode_cache, init_params,
+                                      params_from_jax, prefill)
 
 pytestmark = pytest.mark.gpu
 
@@ -493,3 +508,98 @@ def test_churn_scenario_on_card_matches_cpu(card):
         [(e.window, e.tenant, e.reason, e.score) for e in c.events]
     assert g.windows_analyzed == c.windows_analyzed < g.windows_run
     _same_managers(g, c)
+
+
+# ------------------------------------------- slice 5: the model layer
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_SWEEP)
+def test_flash_attention_matches_plain_on_card(card, case, dtype):
+    """The kernel against the dense ``attention_ref`` and the blockwise
+    CPU route on the same card inputs, at tests/test_kernels.py's
+    tolerances (f32 2e-5, bf16 2e-2)."""
+    b, hq, hkv, sq, skv, d, dv, causal, window = case
+    gen = torch.Generator(device=card).manual_seed(sq + d)
+    q = torch.randn((b, hq, sq, d), generator=gen, device=card).to(dtype)
+    k = torch.randn((b, hkv, skv, d), generator=gen, device=card).to(dtype)
+    v = torch.randn((b, hkv, skv, dv), generator=gen, device=card).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == (b, hq, sq, dv) and got.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for want in (attention_ref(q, k, v, causal=causal, window=window),
+                 blockwise_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=causal,
+                                     window=window).transpose(1, 2)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("case", SSD_SWEEP)
+def test_mamba2_ssd_matches_plain_on_card(card, case):
+    """The kernel against the chunked form and, at tests/test_kernels.py's
+    sweep (chunks up to 64), the sequential ``mamba2_ssd_ref`` on the same
+    card inputs, 3e-6 after scaling by the largest output
+    (tests/test_kernels.py:88).  At chunk 256 the chunked form is the
+    yardstick: the sequential recurrence carries its own fp32 rounding
+    over hundreds of steps there."""
+    bh, s, p, n, chunk, groups = case
+    gen = torch.Generator(device=card).manual_seed(bh + s)
+    x = torch.randn((bh, s, p), generator=gen, device=card) * 0.5
+    B = torch.randn((groups, s, n), generator=gen, device=card) * 0.5
+    C = torch.randn((groups, s, n), generator=gen, device=card) * 0.5
+    dA = -torch.rand((bh, s), generator=gen, device=card) * 0.5
+    seg = seg_from_dA(dA, chunk)
+    before = mamba2_ssd.launches
+    got = mamba2_ssd(x, B, C, seg, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mamba2_ssd.launches == before + 1
+    wants = [mamba2_ssd_chunked(x, B, C, seg, chunk=chunk)]
+    if SSD_SWEEP.index(case) < SEQUENTIAL_CASES:
+        wants.append(mamba2_ssd_ref(x, B, C, dA))
+    for want in wants:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got / scale, want / scale, rtol=0,
+                                   atol=3e-6)
+
+
+def test_zamba2_smoke_on_card_matches_cpu(card):
+    """The smoke zamba2 config (float32) through ``prefill`` and four
+    ``decode_step``s on the card against the port's CPU run on the same
+    parameters: every Mamba-2 layer's prefill launches ``mamba2_ssd`` and
+    every shared-block application ``flash_attention``; decode launches
+    neither."""
+    import dataclasses
+    cfg = dataclasses.replace(get_smoke_config("zamba2_7b"), dtype="float32")
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = params_from_jax(_tree_numpy(cpu), "cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)))
+    counts = (mamba2_ssd.launches, flash_attention.launches)
+    got = prefill(gpu, cfg, toks.to(card))
+    torch.cuda.synchronize()
+    assert (mamba2_ssd.launches - counts[0],
+            flash_attention.launches - counts[1]) == (
+        cfg.n_layers, hybrid_groups(cfg)[0])
+    want = prefill(cpu, cfg, toks)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    gc = init_decode_cache(cfg, 2, 8, device=card)
+    cc = init_decode_cache(cfg, 2, 8, device="cpu")
+    counts = (mamba2_ssd.launches, flash_attention.launches)
+    for t in range(4):
+        lg, gc = decode_step(gpu, cfg, toks[:, t].to(card), gc)
+        lc, cc = decode_step(cpu, cfg, toks[:, t], cc)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for name in ("conv", "ssm"):
+        torch.testing.assert_close(gc["ssm"][name].cpu(), cc["ssm"][name],
+                                   rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gc["kv"]["k"].cpu(), cc["kv"]["k"],
+                               rtol=1e-4, atol=1e-4)
+    assert (mamba2_ssd.launches, flash_attention.launches) == counts
+
+
+def _tree_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_numpy(v) for k, v in tree.items()}
+    return tree.numpy()
