@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases:
   1. print the card (``nvidia-smi`` name and power limit, torch's name);
-  2. build the seven CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
+  2. build the eight CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
      one ``nvcc`` per source, all started together;
   3. hold each kernel against its plain PyTorch version on the card,
      exactly: ``cache_sim_scan`` vs the dense ``cache_sim_ref`` at tape
@@ -27,7 +27,11 @@ Phases:
      ``mamba2_ssd`` vs the sequential ``mamba2_ssd_ref`` at
      tests/test_kernels.py's sweep and vs the chunked form at its
      ``ref.SWEEP`` (zamba2's chunk 256 with B/C shared by 112 heads
-     included; 3e-6 of the largest output);
+     included; 3e-6 of the largest output); ``paged_attention`` vs
+     ``paged_attention_ref`` at its ``ref.SWEEP`` (tests/test_kernels.py's
+     sweep plus qwen3's 16/8 heads of 128 at page 8, 16 and 32; random
+     tables, lengths 1, mid-page and on a page edge), float32 (2e-5) and
+     bfloat16 (2e-2);
   4. drive slice 1's path — ``make_manager("eci", 6000, ...)`` over 16
      tenants, three Δt windows of 65,536 accesses each — on the card with
      every kernel launch counter set to 0 just before each window and
@@ -82,7 +86,8 @@ Phases:
      from seed 0, ``prefill`` on 4 prompts of 2048 tokens (81
      ``mamba2_ssd`` and 13 ``flash_attention`` launches, counted), then 4
      requests of 1024 prompt tokens teacher-forced through
-     ``decode_step`` and 32 greedy tokens (no launch); the same prefill
+     ``decode_step`` and 32 greedy tokens (no launch; the prompt was
+     1024 tokens until the serving phase took its time); the same prefill
      through the plain versions on the card, and in fp32 through both:
      the fp32 last logits held to the kernels' run, the bf16 ones' greedy
      tokens where bf16 cannot flip them; the kernels held to their plain
@@ -92,13 +97,28 @@ Phases:
      each kernel timed at its full-width prefill shape beside its plain
      version, its bound and, for attention,
      ``scaled_dot_product_attention``;
- 13. time each kernel of the earlier slices at a full tape of its path
+ 13. the serving path (``serving_phase``): qwen3-0.6b at full width in
+     bf16 from seed 0 over a 14 GiB pool of 8192 16-token pages, the ECI
+     manager partitioning 4096 of them between a "chat" tenant (a shared
+     1536-token system prompt + 512 unique tokens) and a "batchjob"
+     tenant (2048 unique tokens), 16 requests each, 32 new tokens, through
+     ``MultiTenantEngine.run``: 896 ``flash_attention`` launches in
+     prefill and 868 ``paged_attention`` launches in 31 decode steps
+     (counted), no page-0 fallback; the same traffic through the plain
+     versions on the card and in fp32 through both: summaries, pool
+     stats, quotas, policies and decisions exactly equal, fp32 tokens
+     equal and last logits within 1e-4 of max |logit|, bf16 tokens held
+     where the fp32 top token leads by more than bf16 moves the logits;
+     the kernel at the captured decode inputs element by element, timed
+     beside ``paged_attention_ref``, ``_merge_self`` and its bound; 2
+     layers at full width in fp32, the card against the CPU;
+ 14. time each kernel of the earlier slices at a full tape of its path
      (CUDA events) beside its plain version and the bound of the function
      it computes (the larger of its bytes at the memory rate and a tree
      count's operations at the 32-bit rate), holding it against the plain
      version there too; ``urd_scan`` at a 65,536-row Table-3 window and at
      the 1,048,576-row 16-tenant tape that times ``cache_sim_scan``;
- 14. print the kernels line, the card line and, last, the result line.
+ 15. print the kernels line, the card line and, last, the result line.
 
 Exits non-zero, printing no result, when no card is visible or any
 phase fails.
@@ -108,6 +128,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import multiprocessing
@@ -156,7 +177,8 @@ SEGMENT_LENS = {64: [64, 1, 33, 0, 64], 512: [512, 300, 257, 0],
 # decode_step and DECODE_NEW greedy tokens
 MODEL_ARCH, MODEL_SEED = "zamba2_7b", 0
 PREFILL_SHAPE = (4, 2048)
-DECODE_ROWS, DECODE_PROMPT, DECODE_NEW = 4, 1024, 32
+# DECODE_PROMPT was 1024 until the serving phase took its time
+DECODE_ROWS, DECODE_PROMPT, DECODE_NEW = 4, 128, 32
 # the reduced-depth fp32 config (full width): one hybrid group and a
 # one-layer tail; prompts of two chunks
 REDUCED = dict(n_layers=3, attn_every=2, dtype="float32")
@@ -165,6 +187,24 @@ REDUCED_PROMPT, REDUCED_DECODE = 512, 4
 # fp32 outside them (the SSD kernel's arithmetic)
 PEAK_BF16_PER_S = 989e12
 PEAK_F32_PER_S = 67e12
+# the serving path: qwen3-0.6b at full width in bf16 from seed 0 over a
+# 14 GiB pool of 16-token pages; the manager partitions 4096 of its pages
+# between two tenants after bench_serving_cache.py's: "chat" (a shared
+# 1536-token system prompt + 512 unique tokens) and "batchjob" (2048
+# unique tokens), 16 requests each, submitted in turn; every fourth prompt
+# of each ends mid-page (CHAT_SHORT / BATCH_SHORT tokens short)
+SERVE_ARCH, SERVE_SEED, SERVE_PAGE, SERVE_POOL = "qwen3_0_6b", 0, 16, 8192
+SERVE_CAPACITY, SERVE_C_MIN, SERVE_INITIAL = 4096, 64, 2048
+SERVE_WINDOW, SERVE_MAX_PAGES = 1024, 136
+SERVE_PER_TENANT, SYS_PROMPT, CHAT_UNIQUE, BATCH_PROMPT = 16, 1536, 512, 2048
+CHAT_SHORT, BATCH_SHORT, SERVE_NEW = 7, 9, 32
+# the reduced-depth card-vs-CPU check: 2 layers at full width in fp32,
+# 4 requests a tenant of a quarter the lengths, 8 new tokens, a 1024-page
+# pool of which the manager partitions 256 (c_min 8, 128 each at first),
+# rebalancing every 64 events
+SERVE_REDUCED_LAYERS, SERVE_REDUCED_SCALE, SERVE_REDUCED_NEW = 2, 4, 8
+SERVE_REDUCED = dict(n_pages=1024, capacity=256, c_min=8, initial=128,
+                     window=64)
 T_START = time.perf_counter()
 
 
@@ -280,7 +320,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 KERNEL_NAMES = ("cache_sim_scan", "cache_sim_segments_scan",
                 "cache_sim_levels_scan", "live_count_scan", "urd_scan",
-                "mamba2_ssd", "flash_attention")
+                "mamba2_ssd", "flash_attention", "paged_attention")
 STAGES = ("tape", "ro_replay", "count", "replay", "monitor", "pgd")
 
 
@@ -289,8 +329,10 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.cache_sim import kernel as cache_sim
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.mamba2_ssd import kernel as ssd
+    from repro_torch.kernels.paged_attention import kernel as pa
     from repro_torch.kernels.urd_scan import kernel as urd
-    home = {"urd_scan": urd, "mamba2_ssd": ssd, "flash_attention": fa}
+    home = {"urd_scan": urd, "mamba2_ssd": ssd, "flash_attention": fa,
+            "paged_attention": pa}
     return {name: getattr(home.get(name, cache_sim), name)
             for name in KERNEL_NAMES}
 
@@ -1273,6 +1315,465 @@ def model_phase(dev, max_err: dict) -> list[dict]:
     return rows
 
 
+PAGED_NAMES = ("q", "k_pages", "v_pages", "block_tables", "seq_lens")
+
+
+def paged_kernel_checks(dev, max_err: dict) -> None:
+    """Phase 3 for the serving kernel: ``paged_attention`` against
+    ``paged_attention_ref`` at the kernel's ``ref.SWEEP`` (tests/
+    test_kernels.py's three shapes, then qwen3-0.6b's heads at page 8, 16
+    and 32; random tables, lengths mid-page, on a page edge and at 1),
+    float32 (2e-5) and bfloat16 (2e-2)."""
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.kernels.paged_attention.ref import (SWEEP,
+                                                         paged_attention_ref,
+                                                         sweep_arrays)
+    for i, case in enumerate(SWEEP):
+        a = sweep_arrays(case, seed=i)
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            args = [torch.from_numpy(a[n]).to(dev) for n in PAGED_NAMES]
+            args[:3] = [t.to(dtype) for t in args[:3]]
+            check_close(max_err, "paged_attention", f"{case} {dtype}",
+                        paged_attention(*args), paged_attention_ref(*args),
+                        tol)
+    print(f"check: paged_attention == paged_attention_ref at {len(SWEEP)} "
+          f"shapes (tests/test_kernels.py's sweep, qwen3's 16/8 heads of 128 "
+          f"at page 8, 16, 32; lengths 1, mid-page, page edge) in float32 "
+          f"and bfloat16 (2e-5 / 2e-2); max err "
+          f"{max_err['paged_attention']:.3g}")
+
+
+def serve_traffic(vocab: int, scale: int = 1,
+                  per_tenant: int = SERVE_PER_TENANT) -> list:
+    """(tenant, prompt) in submission order: chat and batchjob in turn;
+    every fourth prompt of each tenant ends mid-page.  ``scale`` divides
+    the lengths (the reduced-depth check)."""
+    rng = np.random.default_rng(SERVE_SEED)
+    sys_prompt = rng.integers(0, vocab, SYS_PROMPT // scale).astype(np.int32)
+    out = []
+    for i in range(2 * per_tenant):
+        short = (i // 2) % 4 == 3
+        if i % 2 == 0:
+            n = CHAT_UNIQUE // scale - (CHAT_SHORT if short else 0)
+            tail = rng.integers(0, vocab, n).astype(np.int32)
+            out.append((0, np.concatenate([sys_prompt, tail])))
+        else:
+            n = BATCH_PROMPT // scale - (BATCH_SHORT if short else 0)
+            out.append((1, rng.integers(0, vocab, n).astype(np.int32)))
+    return out
+
+
+class Tap:
+    """Wraps ``serve.engine``'s ``prefill_with_kv`` and ``_decode_step``
+    (both still run) and keeps, per call, each row's fp32 logits over the
+    vocabulary: the prefill ones whole, the decode ones as greedy token and
+    top-1 lead over the runner-up in max |logit| (the last call's whole)."""
+
+    def __init__(self, engine_mod, vocab: int):
+        self.mod, self.vocab = engine_mod, vocab
+        self.prefill, self.leads, self.last = [], [], None
+
+    @staticmethod
+    def lead(lg):
+        top = lg.topk(2, dim=-1).values
+        return (top[:, 0] - top[:, 1]) / lg.abs().amax(dim=-1)
+
+    def __enter__(self):
+        self.saved = (self.mod.prefill_with_kv, self.mod._decode_step)
+        pre, dec = self.saved
+
+        def prefill_with_kv(*a, **k):
+            out = pre(*a, **k)
+            self.prefill.append(out[0][:, :self.vocab])
+            return out
+
+        def decode_step(*a, **k):
+            out = dec(*a, **k)
+            self.last = out[0][:, :self.vocab]
+            self.leads.append(self.lead(self.last))
+            return out
+        self.mod.prefill_with_kv, self.mod._decode_step = \
+            prefill_with_kv, decode_step
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.prefill_with_kv, self.mod._decode_step = self.saved
+
+    def request_leads(self) -> list[list[float]]:
+        """Per request (rid order), its fp32 top-1 lead at every token:
+        the prefill's, then each decode step's (all requests decode in
+        lockstep, row i being rid i)."""
+        pre = torch.cat(self.prefill)
+        steps = torch.stack([self.lead(pre)] + self.leads, 1)
+        return steps.cpu().tolist()
+
+
+def free_cards() -> None:
+    """Release a finished engine's pool: the engine, its pool and the
+    wrappers around their methods hold one another, so only the cycle
+    collector frees them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_engine(cfg, params, dev, n_pages, capacity, c_min, initial,
+                 window):
+    """The deployment: pool, manager, tiered cache and engine; the pool's
+    ``allocate`` counts the engine's page-0 fallbacks (an unmanaged,
+    tenant -2, allocation that returns None)."""
+    from repro_torch.cache import BlockPool, TieredKVCache
+    from repro_torch.core import ECICacheManager
+    from repro_torch.serve.engine import MultiTenantEngine
+    pool = BlockPool(n_pages, SERVE_PAGE, cfg.n_layers, cfg.n_kv_heads,
+                     cfg.head_dim, dtype=getattr(torch, cfg.dtype),
+                     device=dev)
+    mgr = ECICacheManager(capacity, ["chat", "batchjob"], c_min=c_min,
+                          initial_blocks=initial, device=dev)
+    tiered = TieredKVCache(pool, mgr, window_events=window)
+    eng = MultiTenantEngine(cfg, params, tiered, page_size=SERVE_PAGE,
+                            max_pages_per_seq=SERVE_MAX_PAGES)
+    eng.fallbacks = 0
+    alloc = pool.allocate
+
+    def allocate(tenant, *a, **k):
+        pid, evicted = alloc(tenant, *a, **k)
+        eng.fallbacks += tenant == -2 and pid is None
+        return pid, evicted
+    pool.allocate = allocate
+    return eng
+
+
+def serve_run(eng, traffic, new_tokens: int) -> dict:
+    """Submit the traffic and run the engine to the end, timing each
+    prefill and decode step (host clock between synchronizes).  Returns
+    what the runs are compared on and the times."""
+    from repro_torch.serve.engine import Request
+    times = {"prefill": [], "decode": []}
+    sync = (torch.cuda.synchronize if eng.device.type == "cuda"
+            else (lambda: None))
+
+    def timed(name, fn):
+        def run(*a):
+            sync()
+            t0 = time.perf_counter()
+            fn(*a)
+            sync()
+            times[name].append(time.perf_counter() - t0)
+        return run
+    eng._prefill_one = timed("prefill", eng._prefill_one)
+    eng._decode_batch = timed("decode", eng._decode_batch)
+    for tenant, prompt in traffic:
+        eng.submit(Request(tenant=tenant, prompt=prompt,
+                           max_new_tokens=new_tokens))
+    sync()
+    t0 = time.perf_counter()
+    eng.run(4 * new_tokens)
+    sync()
+    wall = time.perf_counter() - t0
+    tiered, mgr = eng.tiered, eng.tiered.manager
+    summary = dict(tiered.summary())
+    rebalance_s = summary.pop("rebalance_seconds")
+    assert len(eng.completed) == len(traffic) and not eng.waiting
+    return {
+        "tokens": [r.generated for r in sorted(eng.completed,
+                                               key=lambda r: r.rid)],
+        "summary": summary, "pool_stats": dict(eng.pool.stats),
+        "decisions": [(d.sizes.tolist(), [p.value for p in d.policies],
+                       bool(d.feasible), d.sizes2.tolist(),
+                       [p.value for p in d.policies2], d.guard)
+                      for d in mgr.history],
+        "fallbacks": eng.fallbacks, "wall": wall, "times": times,
+        "rebalance_s": rebalance_s, "rebalances": len(mgr.history),
+        "prompt_tokens": sum(len(p) for _, p in traffic),
+        "pages_written": len(eng.pool.meta),
+        "pages_unmanaged": sum(m.tenant < 0
+                               for m in eng.pool.meta.values())}
+
+
+def compare_serving(what: str, got: dict, want: dict) -> None:
+    """Summaries (without ``rebalance_seconds``), pool stats, quotas,
+    policies and decisions exactly equal: the page keys depend on the
+    prompts, rids and lengths only, never on generated tokens."""
+    for key in ("summary", "pool_stats", "decisions"):
+        assert got[key] == want[key], f"{what}: {key} differ"
+
+
+def held_tokens(kern: dict, plain: dict, ref32: dict, leads32: list,
+                noise: float) -> tuple[int, int]:
+    """The model phase's bf16 rule along each request's tokens: while
+    the bf16 kernels run, the bf16 plain run and the fp32 plain run have
+    the same history (so their logits are at the same inputs), a token
+    whose fp32 top-1 lead exceeds ``noise`` (what bf16 moves the logits)
+    must be the same in both bf16 runs.  Returns (tokens held, near ties
+    let go)."""
+    held = ties = 0
+    for k, p, f, lead in zip(kern["tokens"], plain["tokens"],
+                             ref32["tokens"], leads32):
+        for t in range(len(p)):
+            if k[:t] != p[:t] or p[:t] != f[:t]:
+                break
+            if lead[t] > noise:
+                assert k[t] == p[t], \
+                    f"bf16 token {t}: kernels {k[t]}, plain {p[t]} (fp32 " \
+                    f"lead {lead[t]:.3g} > {noise:.3g})"
+                held += 1
+            else:
+                ties += 1
+    return held, ties
+
+
+def serving_phase(dev, max_err: dict) -> dict:
+    """Phase 13: the multi-tenant serving path, qwen3-0.6b at full width.
+
+    (a) bf16 from seed 0 over the 14 GiB pool: the two tenants' 32
+    requests through ``MultiTenantEngine.run`` (counters 0 just before,
+    read just after): 32 x 28 ``flash_attention`` launches in prefill and
+    31 decode steps x 28 ``paged_attention``; no page-0 fallback; prefill
+    and decode times, peak memory, the rebalances and the tiered summary.
+    (b) ``paged_attention`` at the captured layer-0 decode inputs against
+    ``paged_attention_ref`` element by element (two bf16 steps plus 1e-4
+    of max |out|), timed beside the plain version, ``_merge_self``, the
+    gather + ``scaled_dot_product_attention`` reading and its bound.  (c)
+    the same traffic through the plain versions on the card (neither
+    kernel launched): summaries, pool stats, quotas, policies and
+    decisions exactly equal; then the model in fp32 through both (tokens
+    equal, last logits within 1e-4 of max |logit|) and the bf16 tokens
+    held by the model phase's rule.  (d) 2 layers at full width in fp32,
+    reduced traffic: the card against the port's CPU engine, exactly,
+    logits within 1e-5.  Returns the kernel's row."""
+    import torch.nn.functional as F
+
+    import repro_torch.models.attention as attention
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import blockwise_attention
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.kernels.paged_attention.ref import (gather_pages,
+                                                         paged_attention_ref)
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(SERVE_ARCH)
+    L, V = cfg.n_layers, cfg.vocab_size
+    full = dict(n_pages=SERVE_POOL, capacity=SERVE_CAPACITY,
+                c_min=SERVE_C_MIN, initial=SERVE_INITIAL,
+                window=SERVE_WINDOW)
+    traffic = serve_traffic(V)
+    n_req = len(traffic)
+    page_bytes = L * SERVE_PAGE * cfg.n_kv_heads * cfg.head_dim * 2 * 2
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=SERVE_SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"serving: {cfg.name} at full width ({L} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} query / {cfg.n_kv_heads} KV heads "
+          f"of {cfg.head_dim}, qk-norm, d_ff {cfg.d_ff}, vocab {V}); "
+          f"n_params() {cfg.n_params():,}, {cfg.dtype} from seed "
+          f"{SERVE_SEED} in {time.perf_counter() - t0:.1f} s; pool "
+          f"{SERVE_POOL} pages of {SERVE_PAGE} tokens ({page_bytes / 2**20:.2f}"
+          f" MiB a page, {SERVE_POOL * page_bytes / 2**30:.2f} GiB); manager "
+          f"capacity {SERVE_CAPACITY}, c_min {SERVE_C_MIN}, initial "
+          f"{SERVE_INITIAL}, window {SERVE_WINDOW} events; {n_req} requests "
+          f"(prompt lengths {sorted({len(p) for _, p in traffic})}), "
+          f"{SERVE_NEW} new tokens each")
+
+    # ------------------------------------ (a) the main path, bf16
+    want_fa, want_pa = n_req * L, (SERVE_NEW - 1) * L
+    eng = serve_engine(cfg, params, dev, **full)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Tap(engine_mod, V) as tap, \
+            Recorder(engine_mod, "paged_attention") as pa_rec, \
+            Recorder(engine_mod, "_merge_self") as merge_rec:
+        zero_counts()
+        run = serve_run(eng, traffic, SERVE_NEW)
+        launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert launches["flash_attention"] == want_fa and \
+        launches["paged_attention"] == want_pa, \
+        f"serving launches {launches}, predicted flash_attention " \
+        f"{want_fa}, paged_attention {want_pa}"
+    assert run["fallbacks"] == 0, f"{run['fallbacks']} page-0 fallbacks"
+    assert all(len(t) == SERVE_NEW and all(0 <= x < V for x in t)
+               for t in run["tokens"])
+    assert bool(torch.isfinite(tap.last).all())
+    pre, dec = run["times"]["prefill"], run["times"]["decode"]
+    step_ms = float(np.median(dec)) * 1e3
+    s = run["summary"]
+    print(f"serving bf16 (kernels): {run['wall']:.2f} s; prefill "
+          f"{sum(pre) * 1e3:.1f} ms for {n_req} requests (median "
+          f"{np.median(pre) * 1e3:.2f} ms a request, "
+          f"{run['prompt_tokens'] / sum(pre):.0f} tokens/s); decode "
+          f"{len(dec)} steps at B {n_req}: median {step_ms:.2f} ms a step "
+          f"(min {min(dec) * 1e3:.2f}, max {max(dec) * 1e3:.2f}; "
+          f"{n_req / np.median(dec):.0f} tokens/s); peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)} "
+          f"(flash_attention {want_fa}, paged_attention {want_pa} "
+          f"predicted); page-0 fallbacks 0")
+    print(f"serving tiered summary: hbm_hit_ratio {s['hbm_hit_ratio']:.4f}, "
+          f"hbm_writes {s['hbm_writes']}, bypassed_writes "
+          f"{s['bypassed_writes']}, promotions {s['promotions']}, "
+          f"resident_pages {s['resident_pages']}, quotas {s['quotas']}, "
+          f"policies {s['policies']}; pool stats {run['pool_stats']}; "
+          f"{run['rebalances']} rebalances in {run['rebalance_s']:.3f} s "
+          f"({run['rebalance_s'] / max(run['rebalances'], 1) * 1e3:.1f} ms "
+          f"each)")
+    print(f"serving pool fill: {run['pages_written']} of {SERVE_POOL} pages "
+          f"written ({run['pages_written'] / SERVE_POOL:.1%}; the rest is "
+          f"allocated and never touched), {s['resident_pages']} under the "
+          f"manager (capacity {SERVE_CAPACITY}), {run['pages_unmanaged']} "
+          f"staged unmanaged (tenant -2, outside every quota); "
+          f"{run['pool_stats']['evicted']} evictions")
+
+    # ------------- (b) the kernel at the captured layer-0 decode inputs
+    q, kp, vp, tables, lens = pa_rec.args
+    got = paged_attention(q, kp, vp, tables, lens)
+    want = paged_attention_ref(q, kp, vp, tables, lens)
+    want32, diff = want.float(), (got.float() - want.float()).abs()
+    top, typical = float(want32.abs().max()), float(want32.abs().mean())
+    worst = float((diff / (2.0 ** -6 * want32.abs() + 1e-4 * top)).max())
+    err = float(diff.max())
+    assert got.shape == want.shape and worst <= 1.0, \
+        f"paged_attention at the captured inputs: {worst} of its limit"
+    max_err["paged_attention"] = max(max_err["paged_attention"], err)
+    print(f"check: paged_attention == paged_attention_ref at the captured "
+          f"bf16 decode inputs (q {list(q.shape)}, pages {list(kp.shape)}, "
+          f"tables {list(tables.shape)}, lengths {lens.min().item()}.."
+          f"{lens.max().item()}): max err {err:.3g} (max |out| {top:.3g}, "
+          f"mean |out| {typical:.3g}); the worst element at {worst:.3g} of "
+          f"its limit 2^-6 |out| + 1e-4 max |out|")
+    ms = cuda_ms(lambda: paged_attention(q, kp, vp, tables, lens), REPS)
+    plain_ms = cuda_ms(lambda: paged_attention_ref(q, kp, vp, tables, lens),
+                       REPS // 4)
+    margs = merge_rec.args
+    merge_ms = cuda_ms(lambda: engine_mod._merge_self(*margs), REPS // 4)
+    b, hq, d = q.shape
+    seq = torch.arange(tables.shape[1] * SERVE_PAGE, device=q.device)
+    mask = (seq[None, :] < lens[:, None])[:, None, None, :]
+
+    def gather_sdpa():
+        k = gather_pages(kp, tables).transpose(1, 2)
+        v = gather_pages(vp, tables).transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                              attn_mask=mask, enable_gqa=True)
+    lib_err = float((gather_sdpa()[:, :, 0].float() - want32).abs().max())
+    lib_ms = cuda_ms(gather_sdpa, REPS)
+    seen = int(lens.clamp(max=tables.shape[1] * SERVE_PAGE).sum())
+    esize = q.element_size()
+    nbytes = (seen * cfg.n_kv_heads * d * 2 * esize + 2 * q.numel() * esize
+              + 4 * (tables.numel() + lens.numel()))
+    flops = 4 * hq * d * seen
+    bnd, by = max((nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+                  (flops / PEAK_BF16_PER_S * 1e3, "operations"))
+    print(f"paged_attention at the decode shape (B {b}, {seen} positions "
+          f"seen): {ms:.4f} ms, paged_attention_ref {plain_ms:.3f} ms, "
+          f"_merge_self {merge_ms:.3f} ms; a reading: gather + "
+          f"scaled_dot_product_attention (two calls) {lib_ms:.3f} ms (max "
+          f"diff {lib_err:.3g}); {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+          f"GFLOP: bound {bnd:.4f} ms by {by}; kernel / bound = "
+          f"{ms / bnd:.1f}; of a {step_ms:.2f} ms decode step, {L} kernel "
+          f"launches are {L * ms / step_ms:.1%} and {L} _merge_self "
+          f"{L * merge_ms / step_ms:.1%}")
+    row = {"name": "paged_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                     "paged_attention.cu",
+           "replaces": "src/repro/kernels/paged_attention/kernel.py:76",
+           "launches": launches["paged_attention"], "max_abs_err": None,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+           "library_ms": None}
+    del eng, q, kp, vp, tables, lens, margs, got, want, want32, diff, mask
+    pa_rec.args = merge_rec.args = None
+    free_cards()
+
+    # ---- (c) the plain versions on the card; the model in fp32 as well
+    def plain(prm, c):
+        """The same traffic with ``paged_attention_ref`` and
+        ``blockwise_attention`` in the kernels' places (swapped here only;
+        the port has no switch): no launch of either kernel."""
+        saved = (engine_mod.paged_attention, attention.prefill_attention)
+        engine_mod.paged_attention = paged_attention_ref
+        attention.prefill_attention = blockwise_attention
+        try:
+            with Tap(engine_mod, V) as t:
+                zero_counts()
+                out = serve_run(serve_engine(c, prm, dev, **full), traffic,
+                                SERVE_NEW)
+                got = read_counts()
+            # the manager's monitor still counts on cache_sim_scan
+            assert got["flash_attention"] == got["paged_attention"] == 0, \
+                f"the plain run launched {got}"
+        finally:
+            engine_mod.paged_attention, attention.prefill_attention = saved
+        free_cards()
+        return out, t
+
+    plain16, ptap16 = plain(params, cfg)
+    compare_serving("bf16 plain vs kernels", plain16, run)
+    del params
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = M.init_params(cfg32, seed=SERVE_SEED, device=dev)
+    with Tap(engine_mod, V) as ktap32:
+        kern32 = serve_run(serve_engine(cfg32, params32, dev, **full),
+                           traffic, SERVE_NEW)
+    free_cards()
+    plain32, ptap32 = plain(params32, cfg32)
+    del params32
+    compare_serving("fp32 kernels vs bf16 kernels", kern32, run)
+    compare_serving("fp32 plain vs fp32 kernels", plain32, kern32)
+    rel32 = _rel(ktap32.last, ptap32.last)
+    assert kern32["tokens"] == plain32["tokens"], "fp32 tokens differ"
+    # fp32: only the order of the sums differs (TF32 off)
+    assert rel32 <= 1e-4, f"fp32 kernels vs plain last logits: {rel32}"
+    noise = _rel(torch.cat(ptap16.prefill), torch.cat(ptap32.prefill))
+    held, ties = held_tokens(run, plain16, plain32,
+                             ptap32.request_leads(), noise)
+    same16 = sum(a == b for a, b in zip(run["tokens"], plain16["tokens"]))
+    print(f"check: serving, kernels vs plain versions on the card over all "
+          f"{n_req} requests (fp32 run: all {n_req} too): summaries, pool "
+          f"stats, quotas, policies and decisions equal in bf16 and fp32; "
+          f"fp32 tokens equal, last logits within {rel32:.3g} of max |logit| "
+          f"(tolerance 1e-4); bf16: {held} tokens held, {ties} near ties "
+          f"let go (fp32 lead <= {noise:.3g} of max |logit|, what bf16 moves "
+          f"the prefill logits), {same16} of {n_req} requests' tokens "
+          f"identical; bf16 plain {plain16['wall']:.2f} s, fp32 kernels "
+          f"{kern32['wall']:.2f} s, fp32 plain {plain32['wall']:.2f} s")
+
+    # ------------- (d) reduced depth, full width, fp32: card vs CPU
+    rcfg = dataclasses.replace(cfg, n_layers=SERVE_REDUCED_LAYERS,
+                               dtype="float32")
+    rp = M.init_params(rcfg, seed=SERVE_SEED, device=dev)
+    small = serve_traffic(V, scale=SERVE_REDUCED_SCALE,
+                          per_tenant=SERVE_PER_TENANT // SERVE_REDUCED_SCALE)
+    out = {}
+    for where, prm in ((dev, rp), (torch.device("cpu"), _to(rp, "cpu"))):
+        t0 = time.perf_counter()
+        with Tap(engine_mod, V) as t:
+            zero_counts()
+            r = serve_run(serve_engine(rcfg, prm, where, **SERVE_REDUCED),
+                          small, SERVE_REDUCED_NEW)
+            got = read_counts()
+        out[where.type] = (r, t, got, time.perf_counter() - t0)
+    (g, gt, glaunch, gs), (c, ct, _, cs) = out[dev.type], out["cpu"]
+    assert (glaunch["flash_attention"], glaunch["paged_attention"]) == (
+        len(small) * SERVE_REDUCED_LAYERS,
+        (SERVE_REDUCED_NEW - 1) * SERVE_REDUCED_LAYERS), glaunch
+    compare_serving("reduced depth card vs CPU", g, c)
+    assert g["tokens"] == c["tokens"], "reduced depth: tokens differ"
+    assert g["rebalances"] >= 2, g["rebalances"]
+    rel_pre = _rel(torch.cat(gt.prefill).cpu(), torch.cat(ct.prefill))
+    rel_dec = _rel(gt.last.cpu(), ct.last)
+    # fp32 on both sides, TF32 off: only the order of the sums differs
+    assert rel_pre <= 1e-5 and rel_dec <= 1e-5, (rel_pre, rel_dec)
+    print(f"check: reduced depth ({SERVE_REDUCED_LAYERS} layers, full width, "
+          f"fp32; {len(small)} requests of {sorted({len(p) for _, p in small})}"
+          f" tokens, {SERVE_REDUCED_NEW} new each; {g['rebalances']} "
+          f"rebalances) card ({gs:.1f} s) vs CPU ({cs:.1f} s): tokens, "
+          f"summaries, pool stats and decisions equal; prefill logits within "
+          f"{rel_pre:.3g}, last decode logits within {rel_dec:.3g} of max "
+          f"|logit| (tolerance 1e-5)")
+    row["max_abs_err"] = max_err["paged_attention"]
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1303,6 +1804,8 @@ def main() -> int:
         LIBRARIES as FA_LIBRARIES
     from repro_torch.kernels.mamba2_ssd.kernel import \
         LIBRARIES as SSD_LIBRARIES
+    from repro_torch.kernels.paged_attention.kernel import \
+        LIBRARIES as PA_LIBRARIES
     from repro_torch.kernels.urd_scan.kernel import LIBRARIES as URD_LIBRARIES
     from repro_torch.kernels.urd_scan.kernel import urd_scan
     from repro_torch.kernels.urd_scan.ref import urd_scan_ref
@@ -1316,7 +1819,8 @@ def main() -> int:
 
     # ----------------------------------------- 2. build, one nvcc a source
     t0 = time.perf_counter()
-    libraries = LIBRARIES + URD_LIBRARIES + SSD_LIBRARIES + FA_LIBRARIES
+    libraries = (LIBRARIES + URD_LIBRARIES + SSD_LIBRARIES + FA_LIBRARIES
+                 + PA_LIBRARIES)
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as ex:
         builds = {name: ex.submit(build_library, name, srcs)
                   for name, srcs in libraries}
@@ -1407,6 +1911,7 @@ def main() -> int:
         print(f"check: urd_scan == urd_scan_ref at n={n} (ragged tenant "
               f"blocks, severed links; {int((prev < 0).sum())} cold rows)")
     model_kernel_checks(dev, max_err)
+    paged_kernel_checks(dev, max_err)
     print(f"phase seconds: build and kernel checks done at "
           f"{time.perf_counter() - T_START:.1f} s")
 
@@ -1514,7 +2019,12 @@ def main() -> int:
     model_rows = model_phase(dev, max_err)
     print(f"phase seconds: model layer {time.perf_counter() - t0:.1f} s")
 
-    # ------------- 13a. full window tape: cache_sim_scan vs its merge tree
+    # ---------------------------- 13. the serving path, qwen3-0.6b
+    t0 = time.perf_counter()
+    serve_row = serving_phase(dev, max_err)
+    print(f"phase seconds: serving {time.perf_counter() - t0:.1f} s")
+
+    # ------------- 14a. full window tape: cache_sim_scan vs its merge tree
     tr0 = windows[0]
     addrs = torch.cat([t.addrs for t in tr0]).to(dev)
     lens = torch.tensor([len(t) for t in tr0], device=dev)
@@ -1548,7 +2058,7 @@ def main() -> int:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": bnd_by,
         "library_ms": None}]
 
-    # ---- 13b. urd_scan at the same 16-tenant tape and at a Table-3 window
+    # ---- 14b. urd_scan at the same 16-tenant tape and at a Table-3 window
     got = urd_scan(p32, n32)
     check("urd_scan", "full tape vs merge tree", got,
           stack_distances_tree(prev, nxt_c))
@@ -1587,7 +2097,7 @@ def main() -> int:
           f"{launches_cp['urd_scan']}; on the scenario path "
           f"{launches_sc['urd_scan']}")
 
-    # ---- 13c. full sampled tape: cache_sim_segments_scan vs its tree
+    # ---- 14c. full sampled tape: cache_sim_segments_scan vs its tree
     str0 = swindows[0]
     rates = [auto_sample_rate(len(t)) for t in str0]
     addrs_s, _, kept = shards_subtape(str0, rates, 0,
@@ -1630,7 +2140,7 @@ def main() -> int:
         "bound_by": bnd_by, "library_ms": None})
     del swindows, args, gprev, gnxt, gocc
 
-    # ---- 13d. the last ETICA window's tape: cache_sim_levels_scan vs the
+    # ---- 14d. the last ETICA window's tape: cache_sim_levels_scan vs the
     # merge tree's distances compared with the two thresholds
     prev, nxt_c, cap1_of, captot_of = routes.args[:4]
     p32, n32 = prev.to(torch.int32), nxt_c.to(torch.int32)
@@ -1668,7 +2178,7 @@ def main() -> int:
         "ms": lv_ms, "plain_ms": lv_plain, "bound_ms": bnd,
         "bound_by": bnd_by, "library_ms": None})
 
-    # ---- 13e. the pressure path's first guard tape: live_count_scan vs
+    # ---- 14e. the pressure path's first guard tape: live_count_scan vs
     # the O(n) delta form
     nxt_l, occ_l = live_rec.args
     n32 = nxt_l.to(torch.int32).contiguous()
@@ -1697,6 +2207,7 @@ def main() -> int:
         "bound_by": bnd_by, "library_ms": None})
     rows.append(urd_row)
     rows.extend(model_rows)
+    rows.append(serve_row)
     print(f"cache_sim_scan launches on the 256-tenant path: "
           f"{launches256['cache_sim_scan']}; total run "
           f"{time.perf_counter() - T_START:.1f} s")

@@ -3,7 +3,8 @@ from repro_torch.core.baselines import SCHEMES, GlobalLRUManager, make_manager
 from repro_torch.core.batch_sim import (padded_segment_layout,
                                         padded_tape_links,
                                         reuse_distances_fast, segment_links,
-                                        simulate_batch, simulate_many)
+                                        simulate_batch, simulate_many,
+                                        stack_distances)
 from repro_torch.core.characterize import (PhaseDetector, PhaseEvent,
                                            WindowFeatures,
                                            characterize_trace,
@@ -29,8 +30,8 @@ from repro_torch.core.simulator import (LRUCache, SimResult,
                                        rebalance_levels, simulate)
 from repro_torch.core.trace import (AccessClass, Trace, TraceError,
                                     classify_accesses, prev_next_occurrence,
-                                    request_type_mix, validate_trace,
-                                    validate_trace_arrays)
+                                    request_type_mix, total_cache_writes_wb,
+                                    validate_trace, validate_trace_arrays)
 from repro_torch.core.write_policy import (WritePolicy, assign_write_policy,
                                            assign_write_policy_levels,
                                            write_ratio)
@@ -52,6 +53,7 @@ __all__ = [
     "reuse_distances_fast", "reuse_distances_vectorized",
     "sampled_reuse_distances", "segment_links", "shards_keep_mask",
     "shards_salt", "simulate", "simulate_batch", "simulate_many",
-    "two_level_solve", "urd_cache_blocks", "validate_decision",
-    "validate_trace", "validate_trace_arrays", "write_ratio",
+    "stack_distances", "total_cache_writes_wb", "two_level_solve",
+    "urd_cache_blocks", "validate_decision", "validate_trace",
+    "validate_trace_arrays", "write_ratio",
 ]

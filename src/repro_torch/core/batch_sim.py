@@ -62,13 +62,12 @@ from repro_torch.core.simulator import (LRUCache, SimResult,
 from repro_torch.core.trace import Trace, prev_next_occurrence
 from repro_torch.core.write_policy import WritePolicy
 from repro_torch.device import resolve_device
-from repro_torch.kernels.cache_sim.ops import (residency_levels,
-                                               ro_live_counts,
-                                               stack_distances)
+from repro_torch.kernels.cache_sim.ops import (
+    residency_levels, ro_live_counts, stack_distances as _link_distances)
 
 __all__ = ["padded_segment_layout", "padded_tape_links",
            "reuse_distances_fast", "segment_links", "simulate_batch",
-           "simulate_many"]
+           "simulate_many", "stack_distances"]
 
 _POLICY_CODE = {WritePolicy.WB: 0, WritePolicy.WT: 1, WritePolicy.RO: 2}
 # every padded segment width is a power of two and at least this wide
@@ -103,13 +102,22 @@ def segment_links(addrs: torch.Tensor, tid: torch.Tensor,
     return prev, torch.minimum(nxt, end_of), order, same
 
 
+def stack_distances(trace: Trace) -> torch.Tensor:
+    """Per-access LRU stack distances (TRD samples at every re-touch, -1
+    at cold accesses), int64 on the trace's device: the hand-written
+    ``cache_sim_scan`` on the card, the merge-tree route on the CPU (the
+    reference's ``batch_sim.stack_distances``, whose ``backend`` string
+    the trace's device replaces)."""
+    prev, nxt = prev_next_occurrence(trace.addrs.to(torch.int64))
+    return _link_distances(prev, nxt)
+
+
 def reuse_distances_fast(trace: Trace, kind: str = "urd") -> RDResult:
     """Reuse distances of one trace from the stack-distance count
-    (``ops.stack_distances``, on the trace's device): the same integers
-    as the Fenwick oracle, with no per-access loop."""
+    (``stack_distances``, on the trace's device): the same integers as
+    the Fenwick oracle, with no per-access loop."""
     _check_kind(kind)
-    prev, nxt = prev_next_occurrence(trace.addrs.to(torch.int64))
-    sd = stack_distances(prev, nxt)
+    sd = stack_distances(trace)
     if kind == "urd":
         sd = torch.where(trace.is_read.to(torch.bool), sd, -1)
     return RDResult(sd, kind)
@@ -525,7 +533,7 @@ def simulate_many(traces: list[Trace], capacities=None, policies=None, *,
             res_l1_sd, res_un_sd = residency_levels(prev, nxt_c, cap1_of,
                                                     captot_of)
         else:
-            sd = stack_distances(prev, nxt_c)
+            sd = _link_distances(prev, nxt_c)
             res_l1_sd = hot & (sd < cap1_of) & (sd >= 0)
             res_un_sd = hot & (sd < captot_of) & (sd >= 0)
 

@@ -25,6 +25,7 @@ __all__ = [
     "classify_accesses",
     "prev_next_occurrence",
     "request_type_mix",
+    "total_cache_writes_wb",
     "validate_trace",
     "validate_trace_arrays",
 ]
@@ -169,3 +170,15 @@ def request_type_mix(trace: Trace) -> dict[str, float]:
     n = max(len(trace), 1)
     return {c.name: float(counts[c]) / n for c in AccessClass}
 
+
+def total_cache_writes_wb(trace: Trace) -> int:
+    """Paper Eq. 3: TotalWrites = CR + CW + WAR + WAW under the WB policy.
+
+    Every cold access installs a block (1 SSD write); every write re-touch
+    modifies a cached block (1 SSD write).  RAR/RAW re-touches are pure
+    reads.
+    """
+    codes = classify_accesses(trace)
+    writes = torch.tensor([AccessClass.CR, AccessClass.CW, AccessClass.WAR,
+                           AccessClass.WAW], device=codes.device)
+    return int(torch.isin(codes, writes).sum())

@@ -260,11 +260,12 @@ def test_simulate_many_without_window_rd():
 
 # ------------------------------------------------ import isolation
 def test_port_imports_without_jax_and_defaults_to_the_card():
-    """``repro_torch`` (the control loop, the configs, the model layer and
-    its kernels' dispatch) imports with ``jax``, ``triton`` and ``repro``
-    blocked, and an entry point without ``device`` (the manager,
-    ``init_params``, ``init_decode_cache``) asks for the card: with none
-    visible it raises naming ``device='cpu'``."""
+    """``repro_torch`` (the control loop, the configs, the model layer, the
+    serving side and its launcher, and the kernels' dispatch) imports with
+    ``jax``, ``triton`` and ``repro`` blocked, and an entry point without
+    ``device`` (the manager, ``init_params``, ``init_decode_cache``, the
+    engine's ``BlockPool`` and the serving launcher) asks for the card:
+    with none visible it raises naming ``device='cpu'``."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -276,13 +277,20 @@ def test_port_imports_without_jax_and_defaults_to_the_card():
         import repro_torch.configs, repro_torch.models.model
         import repro_torch.kernels.flash_attention.ops
         import repro_torch.kernels.mamba2_ssd.ops
+        import repro_torch.kernels.paged_attention.kernel
+        import repro_torch.cache, repro_torch.serve.engine
+        import repro_torch.launch.serve
+        from repro_torch.cache import BlockPool
         from repro_torch.configs import get_smoke_config
         from repro_torch.core import make_manager
+        from repro_torch.launch.serve import main as serve_main
         from repro_torch.models.model import init_decode_cache, init_params
         cfg = get_smoke_config("zamba2_7b")
         calls = (lambda: make_manager("eci", 10, ["a"]).device,
                  lambda: init_params(cfg)["embed"].device,
-                 lambda: init_decode_cache(cfg, 1, 4)["len"].device)
+                 lambda: init_decode_cache(cfg, 1, 4)["len"].device,
+                 lambda: BlockPool(8, 4, 1, 1, 4).k_pages.device,
+                 lambda: serve_main(["--requests", "1"]))
         for call in calls:
             if torch.cuda.is_available():
                 print("card", call())
@@ -295,11 +303,14 @@ def test_port_imports_without_jax_and_defaults_to_the_card():
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=True).stdout
-    lines = out.splitlines()
-    assert len(lines) == 3
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith(("card", "raised"))]
+    assert len(lines) == 5
     for line in lines:
         if torch.cuda.is_available():
-            assert line.startswith("card cuda")
+            # the launcher prints its own lines and returns None
+            assert line.startswith("card cuda") or line == lines[4] == \
+                "card None"
         else:
             assert line.startswith("raised") and "device='cpu'" in line
 

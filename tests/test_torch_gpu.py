@@ -10,7 +10,9 @@ manager, ``reuse_distances_accel`` (``urd_scan``), the fast greedy walk,
 the ``static`` and ``reuse_intensity`` managers and an event-driven
 churn scenario on the card against the CPU; the prefill attention and
 SSD kernels against their plain versions, and the smoke zamba2 model
-through ``prefill`` and ``decode_step``, card against CPU.
+through ``prefill`` and ``decode_step``, card against CPU; the paged
+decode attention against its plain version, and the serving engine on
+the smoke qwen3 config, card against CPU.
 This module imports nothing of JAX, so it runs where JAX is absent.
 """
 import numpy as np
@@ -59,6 +61,13 @@ from repro_torch.kernels.mamba2_ssd.ref import (SEQUENTIAL_CASES,
 from repro_torch.models.model import (decode_step, hybrid_groups,
                                       init_decode_cache, init_params,
                                       params_from_jax, prefill)
+from repro_torch.cache import BlockPool, TieredKVCache
+from repro_torch.core import ECICacheManager
+from repro_torch.kernels.paged_attention.kernel import paged_attention
+from repro_torch.kernels.paged_attention.ref import SWEEP as PAGED_SWEEP
+from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                     sweep_arrays)
+from repro_torch.serve.engine import MultiTenantEngine, Request
 
 pytestmark = pytest.mark.gpu
 
@@ -603,3 +612,105 @@ def _tree_numpy(tree):
     if isinstance(tree, dict):
         return {k: _tree_numpy(v) for k, v in tree.items()}
     return tree.numpy()
+
+
+# ------------------------------------------- slice 6: the serving side
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_SWEEP)
+def test_paged_attention_matches_plain_on_card(card, case, dtype):
+    """The kernel against ``paged_attention_ref`` on the same card inputs
+    at tests/test_kernels.py's tolerances (f32 2e-5, bf16 2e-2)."""
+    a = sweep_arrays(case, seed=3)
+    args = [torch.from_numpy(a[n]).to(card) for n in
+            ("q", "k_pages", "v_pages", "block_tables", "seq_lens")]
+    args[:3] = [t.to(dtype) for t in args[:3]]
+    before = paged_attention.launches
+    got = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    assert got.shape == args[0].shape and got.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(),
+                               paged_attention_ref(*args).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_paged_attention_launch_counter_and_input_checks(card):
+    """A length of 0 gives 0 (as the Pallas kernel); inputs the kernel
+    does not take raise before any launch."""
+    a = sweep_arrays(PAGED_SWEEP[0], seed=4)
+    q, kp, vp, tables, lens = (torch.from_numpy(a[n]).to(card) for n in
+                               ("q", "k_pages", "v_pages", "block_tables",
+                                "seq_lens"))
+    before = paged_attention.launches
+    out = paged_attention(q, kp, vp, tables, torch.zeros_like(lens))
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    assert not bool(out.any())
+    bad = [
+        (q, kp, vp, tables.long(), lens),                 # int64 tables
+        (q, kp, vp, tables, lens.long()),                 # int64 lengths
+        (q.double(), kp.double(), vp.double(), tables, lens),
+        (q, kp.transpose(1, 2), vp.transpose(1, 2), tables, lens),
+        (q, kp, vp, tables.cpu(), lens),                  # two devices
+        (q[..., :30], kp[..., :30].contiguous(), vp[..., :30].contiguous(),
+         tables, lens),                                   # D % 4 != 0
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            paged_attention(*args)
+    assert paged_attention.launches == before + 1
+
+
+def _qwen3_engine(device, params, capacity2):
+    import dataclasses
+    cfg = dataclasses.replace(get_smoke_config("qwen3_0_6b"),
+                              dtype="float32")
+    pool = BlockPool(96, 8, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
+                     dtype=torch.float32, device=device)
+    mgr = ECICacheManager(24, ["chat", "batch"], c_min=4,
+                          initial_blocks=16, capacity2=capacity2,
+                          device=device)
+    tiered = TieredKVCache(pool, mgr, window_events=10)
+    eng = MultiTenantEngine(cfg, params, tiered, page_size=8,
+                            max_pages_per_seq=8)
+    rng = np.random.default_rng(7)
+    shared = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+    for i, n in enumerate((24, 29, 16, 29, 16, 24)):
+        tail = rng.integers(0, cfg.vocab_size, n - 16).astype(np.int32)
+        eng.submit(Request(tenant=i % 2, prompt=np.concatenate([shared,
+                                                                tail]),
+                           max_new_tokens=5))
+    eng.run(64)
+    return eng, pool, tiered, mgr
+
+
+@pytest.mark.parametrize("capacity2", [0, 48])
+def test_qwen3_smoke_engine_on_card_matches_cpu(card, capacity2):
+    """The serving engine on the smoke qwen3 config (float32) on the card
+    against the port's CPU run on the same parameters: tokens, tiered
+    summaries, pool stats and decisions equal, pages within 1e-5; every
+    decode layer launches ``paged_attention`` and every prefill layer
+    ``flash_attention``."""
+    import dataclasses
+    cfg = dataclasses.replace(get_smoke_config("qwen3_0_6b"),
+                              dtype="float32")
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = params_from_jax(_tree_numpy(cpu), "cuda")
+    counts = (paged_attention.launches, flash_attention.launches)
+    g = _qwen3_engine(card, gpu, capacity2)
+    torch.cuda.synchronize()
+    c = _qwen3_engine("cpu", cpu, capacity2)
+    steps = 4            # 5 new tokens: one from prefill, 4 decode steps
+    assert (paged_attention.launches - counts[0],
+            flash_attention.launches - counts[1]) == (
+        steps * cfg.n_layers, 6 * cfg.n_layers)
+    assert sorted((r.rid, r.generated) for r in g[0].completed) == \
+        sorted((r.rid, r.generated) for r in c[0].completed)
+    sg, sc = g[2].summary(), c[2].summary()
+    sg.pop("rebalance_seconds"), sc.pop("rebalance_seconds")
+    assert sg == sc and g[1].stats == c[1].stats
+    assert [(d.sizes.tolist(), d.policies) for d in g[3].history] == \
+        [(d.sizes.tolist(), d.policies) for d in c[3].history]
+    torch.testing.assert_close(g[1].k_pages.cpu(), c[1].k_pages,
+                               rtol=1e-5, atol=1e-5)
