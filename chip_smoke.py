@@ -27,7 +27,9 @@ Phases:
      ``mamba2_ssd`` vs the sequential ``mamba2_ssd_ref`` at
      tests/test_kernels.py's sweep and vs the chunked form at its
      ``ref.SWEEP`` (zamba2's chunk 256 with B/C shared by 112 heads
-     included; 3e-6 of the largest output); ``paged_attention`` vs
+     included; 3e-6 of the largest output), and each of its three passes
+     (``chunk_state``, ``state_pass``, ``chunk_scan``) vs its plain
+     version there; ``paged_attention`` vs
      ``paged_attention_ref`` at its ``ref.SWEEP`` (tests/test_kernels.py's
      sweep plus qwen3's 16/8 heads of 128 at page 8, 16 and 32; random
      tables, lengths 1, mid-page and on a page edge), float32 (2e-5) and
@@ -95,8 +97,11 @@ Phases:
      (3 layers, one group and a one-layer tail), prefill against
      teacher-forced decode over 512 tokens and the card against the CPU;
      each kernel timed at its full-width prefill shape beside its plain
-     version, its bound and, for attention,
-     ``scaled_dot_product_attention``;
+     version, its bound and its time before the redesign; attention on
+     the model's own ``[B, H, S, D]`` views, beside the layout copies
+     those views save and ``scaled_dot_product_attention`` called for
+     the same function (``is_causal`` as the config, ``enable_gqa`` where
+     the KV heads are fewer, none when a window is set);
  13. the serving path (``serving_phase``): qwen3-0.6b at full width in
      bf16 from seed 0 over a 14 GiB pool of 8192 16-token pages, the ECI
      manager partitioning 4096 of them between a "chat" tenant (a shared
@@ -110,8 +115,10 @@ Phases:
      equal and last logits within 1e-4 of max |logit|, bf16 tokens held
      where the fp32 top token leads by more than bf16 moves the logits;
      the kernel at the captured decode inputs element by element, timed
-     beside ``paged_attention_ref``, ``_merge_self`` and its bound; 2
-     layers at full width in fp32, the card against the CPU;
+     beside ``paged_attention_ref``, ``_merge_self`` and its bound;
+     ``flash_attention`` at the captured prefill inputs the same way as in
+     phase 12, and its share of a request's prefill; 2 layers at full
+     width in fp32, the card against the CPU;
  14. time each kernel of the earlier slices at a full tape of its path
      (CUDA events) beside its plain version and the bound of the function
      it computes (the larger of its bytes at the memory rate and a tree
@@ -184,9 +191,16 @@ DECODE_ROWS, DECODE_PROMPT, DECODE_NEW = 4, 128, 32
 REDUCED = dict(n_layers=3, attn_every=2, dtype="float32")
 REDUCED_PROMPT, REDUCED_DECODE = 512, 4
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores, and
-# fp32 outside them (the SSD kernel's arithmetic)
+# fp32 outside them (the function the SSD kernel computes); TF32 on the
+# tensor cores, which the SSD kernel's 3xTF32 takes three times
 PEAK_BF16_PER_S = 989e12
 PEAK_F32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12
+# the model kernels' times before their redesign, printed beside the new
+# ones and kept out of the kernels line, which carries this run's numbers
+# only: flash_attention at zamba2-7b's prefill and mamba2_ssd at its layer
+# (this script on NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
+PREV_MS = {"flash_attention": 6.387, "mamba2_ssd": 5.658}
 # the serving path: qwen3-0.6b at full width in bf16 from seed 0 over a
 # 14 GiB pool of 16-token pages; the manager partitions 4096 of its pages
 # between two tenants after bench_serving_cache.py's: "chat" (a shared
@@ -910,12 +924,18 @@ def model_kernel_checks(dev, max_err: dict) -> None:
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.flash_attention.ref import SWEEP as ATTN_SWEEP
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd
+    from repro_torch.kernels.mamba2_ssd.kernel import (chunk_scan,
+                                                       chunk_state,
+                                                       mamba2_ssd,
+                                                       state_pass)
     from repro_torch.kernels.mamba2_ssd.ref import SWEEP as SSD_SWEEP
     from repro_torch.kernels.mamba2_ssd.ref import (SEQUENTIAL_CASES,
+                                                    chunk_scan_ref,
+                                                    chunk_state_ref,
                                                     mamba2_ssd_chunked,
                                                     mamba2_ssd_ref,
-                                                    seg_from_dA)
+                                                    seg_from_dA,
+                                                    state_pass_ref)
     gen = torch.Generator(device=dev).manual_seed(0)
     for case in ATTN_SWEEP:
         b, hq, hkv, sq, skv, d, dv, causal, window = case
@@ -954,6 +974,23 @@ def model_kernel_checks(dev, max_err: dict) -> None:
                   f"N={n} chunk={chunk}, B/C shared by {bh // groups} rows: "
                   f"max err {err:.3g} ({err / scale:.3g} of max |y|; bound "
                   f"3e-6)")
+        # each pass against its plain version, from the plain version of
+        # the pass before it (launches of the passes alone count none)
+        s_want = chunk_state_ref(x, B, seg, chunk=chunk)
+        h_want = state_pass_ref(s_want, seg, chunk=chunk)
+        pairs = [("chunk_scan", chunk_scan(x, B, C, seg, h_want, chunk=chunk),
+                  chunk_scan_ref(x, B, C, seg, h_want, chunk=chunk))]
+        if s_want.numel():
+            pairs += [("chunk_state", chunk_state(x, B, seg, chunk=chunk),
+                       s_want),
+                      ("state_pass", state_pass(s_want.clone(), seg,
+                                                chunk=chunk), h_want)]
+        for name, got_p, want_p in pairs:
+            check_close(max_err, "mamba2_ssd", f"{name} BH={bh} S={s}",
+                        got_p, want_p, 3e-6, float(want_p.abs().max()))
+        names = ", ".join(name for name, _, _ in pairs)
+        print(f"check: mamba2_ssd's passes ({names}) == their plain "
+              f"versions at BH={bh} S={s} (3e-6 of the largest output)")
 
 
 def _leaf_count(tree) -> int:
@@ -1006,6 +1043,84 @@ def ssd_work(x_dt, B, chunk: int) -> tuple[int, int]:
     return nbytes, 2 * macs
 
 
+def attention_row(what: str, q, k, v, fa_kw: dict, launches: int,
+                  prev_ms: float | None, max_err: dict) -> dict:
+    """``flash_attention`` at inputs captured from a main path (the
+    model's ``[B, H, S, D]`` views of its ``[B, S, H, D]`` projections,
+    read in place): every element within 2^-6 |out| + 1e-4 max |out| of
+    ``attention_ref``, then timed beside ``attention_ref``,
+    ``blockwise_attention``, the layout copies the views save, one
+    ``scaled_dot_product_attention`` call computing the same function
+    (none when a window is set) and its bound.  Returns the kernel's
+    row."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         blockwise_attention)
+    F = torch.nn.functional
+    got = flash_attention(q, k, v, **fa_kw)
+    want = attention_ref(q, k, v, **fa_kw)
+    want32, diff = want.float(), (got.float() - want.float()).abs()
+    top, typical = float(want32.abs().max()), float(want32.abs().mean())
+    # both round an fp32 result to bf16: one bf16 step (2^-7 of a value)
+    # each way apart at most, plus the fp32 summation order (about 1e-6
+    # of max |out|); held element by element to two steps of the value
+    # plus 1e-4 of max |out|
+    limit = 2.0 ** -6 * want32.abs() + 1e-4 * top
+    worst = float((diff / limit).max())
+    err = float(diff.max())
+    assert got.shape == want.shape and worst <= 1.0, \
+        f"flash_attention at the captured {what} inputs: {worst} of its limit"
+    max_err["flash_attention"] = max(max_err["flash_attention"], err)
+    print(f"check: flash_attention == attention_ref at the captured bf16 "
+          f"{what} inputs q {list(q.shape)}, k/v {list(k.shape)} (strides "
+          f"{list(q.stride())}): max err {err:.3g} (max |out| {top:.3g}, "
+          f"mean |out| {typical:.3g}); the worst element at {worst:.3g} of "
+          f"its limit 2^-6 |out| + 1e-4 max |out|")
+    del got, want, want32, diff, limit
+    ms = cuda_ms(lambda: flash_attention(q, k, v, **fa_kw), REPS)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **fa_kw), REPS // 4)
+    blk_ms = cuda_ms(lambda: blockwise_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **fa_kw),
+        REPS // 4)
+    # what the port copied around the kernel before it took strides: q, k
+    # and v to [B, H, S, D], the output (written [B, H, S, Dv]) back to
+    # [B, S, H, Dv]
+    out = torch.empty((*q.shape[:-1], v.shape[-1]), dtype=q.dtype,
+                      device=q.device)
+    copy_ms = cuda_ms(lambda: (q.contiguous(), k.contiguous(),
+                               v.contiguous(),
+                               out.transpose(1, 2).contiguous()), REPS)
+    if fa_kw["window"] > 0:
+        lib_ms, lib = None, "no single PyTorch call computes a window"
+    else:
+        gqa = k.shape[1] < q.shape[1]
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=fa_kw["causal"], enable_gqa=gqa), REPS)
+        lib = (f"scaled_dot_product_attention (is_causal={fa_kw['causal']},"
+               f" enable_gqa={gqa}) {lib_ms:.3f} ms: kernel / library = "
+               f"{ms / lib_ms:.2f}")
+    nbytes, flops = attention_work(q, k, v, **fa_kw)
+    bnd, by = max((nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+                  (flops / PEAK_BF16_PER_S * 1e3, "operations"))
+    prev = "" if prev_ms is None else f" (before its redesign {prev_ms} ms)"
+    print(f"flash_attention at {list(q.shape)} {q.dtype} ({what}, the "
+          f"model's own views): {ms:.3f} ms{prev}, attention_ref "
+          f"{plain_ms:.3f} ms, "
+          f"blockwise_attention {blk_ms:.3f} ms; {lib}; the layout copies "
+          f"the views save {copy_ms:.3f} ms a call; {flops / 1e9:.1f} "
+          f"GFLOP, {nbytes / 1e6:.1f} MB: bound {bnd:.4f} ms by {by}; "
+          f"kernel / bound = {ms / bnd:.1f}")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
+        "shape": what, "launches": launches,
+        "max_abs_err": max_err["flash_attention"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+        "library_ms": lib_ms}
+
+
 def model_phase(dev, max_err: dict) -> list[dict]:
     """Phase 12: zamba2-7b at full width on the card.
 
@@ -1030,10 +1145,11 @@ def model_phase(dev, max_err: dict) -> list[dict]:
     import repro_torch.kernels.mamba2_ssd.ops as ssd_ops
     import repro_torch.models.attention as attention
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
-    from repro_torch.kernels.flash_attention.ref import (attention_ref,
-                                                         blockwise_attention)
-    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd
+    from repro_torch.kernels.flash_attention.ref import blockwise_attention
+    from repro_torch.kernels.mamba2_ssd.kernel import (chunk_scan,
+                                                       chunk_state,
+                                                       mamba2_ssd,
+                                                       state_pass)
     from repro_torch.kernels.mamba2_ssd.ref import mamba2_ssd_chunked
     from repro_torch.models import model as M
 
@@ -1240,53 +1356,13 @@ def model_phase(dev, max_err: dict) -> list[dict]:
     del rp, cp, rc, gc, cc
 
     # -------------------- (d) the kernels at their full-width shapes
-    rows = []
-    # the model hands the wrapper [B, H, S, D] views: copy them once, so
-    # that the times below are the kernel's alone
-    q, k, v = (t.contiguous() for t in rows_in[0][0])
-    fa_kw = dict(causal=cfg.causal, window=cfg.window)
-    got = flash_attention(q, k, v, **fa_kw)
-    want = attention_ref(q, k, v, **fa_kw)
-    want32, diff = want.float(), (got.float() - want.float()).abs()
-    top, typical = float(want32.abs().max()), float(want32.abs().mean())
-    # both round an fp32 result to bf16: one bf16 step (2^-7 of a value)
-    # each way apart at most, plus the fp32 summation order (about 1e-6
-    # of max |out|); held element by element to two steps of the value
-    # plus 1e-4 of max |out|
-    limit = 2.0 ** -6 * want32.abs() + 1e-4 * top
-    worst = float((diff / limit).max())
-    err = float(diff.max())
-    assert got.shape == want.shape and worst <= 1.0, \
-        f"flash_attention at the captured inputs: {worst} of its limit"
-    max_err["flash_attention"] = max(max_err["flash_attention"], err)
-    print(f"check: flash_attention == attention_ref at the captured bf16 "
-          f"prefill inputs {list(q.shape)}: max err {err:.3g} (max |out| "
-          f"{top:.3g}, mean |out| {typical:.3g}); the worst element at "
-          f"{worst:.3g} of its limit 2^-6 |out| + 1e-4 max |out|")
-    ms = cuda_ms(lambda: flash_attention(q, k, v, **fa_kw), REPS)
-    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **fa_kw), REPS // 4)
-    blk_ms = cuda_ms(lambda: blockwise_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **fa_kw),
-        REPS // 4)
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True), REPS)
-    nbytes, flops = attention_work(q, k, v, **fa_kw)
-    bnd, by = max((nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
-                  (flops / PEAK_BF16_PER_S * 1e3, "operations"))
-    print(f"flash_attention at {list(q.shape)} {q.dtype} (captured prefill "
-          f"inputs): {ms:.3f} ms, attention_ref {plain_ms:.3f} ms, "
-          f"blockwise_attention {blk_ms:.3f} ms, scaled_dot_product_attention "
-          f"{lib_ms:.3f} ms; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB: "
-          f"bound {bnd:.4f} ms by {by}; kernel / bound = {ms / bnd:.1f}")
-    rows.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
-        "launches": pre_launches["flash_attention"],
-        "max_abs_err": max_err["flash_attention"], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-        "library_ms": lib_ms})
+    q, k, v = rows_in[0][0]
+    rows = [attention_row(
+        "zamba2-7b prefill", q, k, v,
+        dict(causal=cfg.causal, window=cfg.window),
+        pre_launches["flash_attention"], PREV_MS["flash_attention"],
+        max_err)]
+    del q, k, v
     (x_dt, B, C, seg), kw = rows_in[1]
     chunk = kw["chunk"]
     want = mamba2_ssd_chunked(x_dt, B, C, seg, chunk=chunk)
@@ -1299,11 +1375,25 @@ def model_phase(dev, max_err: dict) -> list[dict]:
     nbytes, flops = ssd_work(x_dt, B, chunk)
     bnd, by = max((nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
                   (flops / PEAK_F32_PER_S * 1e3, "operations"))
+    # the kernel's 3xTF32 does three tensor-core products for each one
+    bnd3 = max(nbytes / PEAK_BYTES_PER_S, 3 * flops / PEAK_TF32_PER_S) * 1e3
+    # each pass alone, on the previous pass's output (state_pass in place,
+    # on states it has already passed over: its time is what is kept)
+    states = chunk_state(x_dt, B, seg, chunk=chunk)
+    h_in = state_pass(states.clone(), seg, chunk=chunk)
+    pass_ms = [cuda_ms(lambda: chunk_state(x_dt, B, seg, chunk=chunk), REPS),
+               cuda_ms(lambda: state_pass(states, seg, chunk=chunk), REPS),
+               cuda_ms(lambda: chunk_scan(x_dt, B, C, seg, h_in,
+                                          chunk=chunk), REPS)]
+    del states, h_in
     print(f"mamba2_ssd at x_dt {list(x_dt.shape)}, B/C {list(B.shape)}, "
-          f"chunk {chunk} (captured layer-0 prefill inputs): {ms:.3f} ms, "
-          f"mamba2_ssd_chunked {plain_ms:.3f} ms; {flops / 1e9:.1f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB: bound {bnd:.4f} ms by {by}; kernel / "
-          f"bound = {ms / bnd:.1f}")
+          f"chunk {chunk} (captured layer-0 prefill inputs): {ms:.3f} ms "
+          f"(before its redesign {PREV_MS['mamba2_ssd']} ms; chunk_state "
+          f"{pass_ms[0]:.3f} + state_pass {pass_ms[1]:.3f} + chunk_scan "
+          f"{pass_ms[2]:.3f} ms alone), mamba2_ssd_chunked {plain_ms:.3f} "
+          f"ms; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB: bound "
+          f"{bnd:.4f} ms by {by} at fp32's 67 TFLOP/s, {bnd3:.4f} ms at a "
+          f"third of TF32's 495; kernel / bound = {ms / bnd:.1f}")
     rows.append({
         "name": "mamba2_ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
@@ -1522,7 +1612,7 @@ def held_tokens(kern: dict, plain: dict, ref32: dict, leads32: list,
     return held, ties
 
 
-def serving_phase(dev, max_err: dict) -> dict:
+def serving_phase(dev, max_err: dict) -> list[dict]:
     """Phase 13: the multi-tenant serving path, qwen3-0.6b at full width.
 
     (a) bf16 from seed 0 over the 14 GiB pool: the two tenants' 32
@@ -1540,9 +1630,11 @@ def serving_phase(dev, max_err: dict) -> dict:
     equal, last logits within 1e-4 of max |logit|) and the bf16 tokens
     held by the model phase's rule.  (d) 2 layers at full width in fp32,
     reduced traffic: the card against the port's CPU engine, exactly,
-    logits within 1e-5.  Returns the kernel's row."""
+    logits within 1e-5.  Also ``flash_attention`` at the captured layer-0
+    prefill inputs (``attention_row``).  Returns the two kernels' rows."""
     import torch.nn.functional as F
 
+    import repro_torch.kernels.flash_attention.ops as fa_ops
     import repro_torch.models.attention as attention
     import repro_torch.serve.engine as engine_mod
     from repro_torch.configs import get_config
@@ -1583,7 +1675,8 @@ def serving_phase(dev, max_err: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with Tap(engine_mod, V) as tap, \
             Recorder(engine_mod, "paged_attention") as pa_rec, \
-            Recorder(engine_mod, "_merge_self") as merge_rec:
+            Recorder(engine_mod, "_merge_self") as merge_rec, \
+            Recorder(fa_ops, "flash_attention") as fa_rec:
         zero_counts()
         run = serve_run(eng, traffic, SERVE_NEW)
         launches = read_counts()
@@ -1624,7 +1717,17 @@ def serving_phase(dev, max_err: dict) -> dict:
           f"staged unmanaged (tenant -2, outside every quota); "
           f"{run['pool_stats']['evicted']} evictions")
 
-    # ------------- (b) the kernel at the captured layer-0 decode inputs
+    # ------ (b) the kernels at the captured layer-0 prefill and decode
+    # inputs
+    fa_row = attention_row(
+        "qwen3-0.6b serving prefill", *fa_rec.args[:3],
+        dict(causal=fa_rec.kwargs["causal"], window=fa_rec.kwargs["window"]),
+        launches["flash_attention"], None, max_err)
+    fa_rec.args = None
+    print(f"serving prefill: {sum(pre) * 1e3 / n_req:.2f} ms a request "
+          f"(median {np.median(pre) * 1e3:.2f} ms), {L} flash_attention "
+          f"launches a request at {fa_row['ms']:.3f} ms each: "
+          f"{L * fa_row['ms'] / (np.median(pre) * 1e3):.1%} of a request")
     q, kp, vp, tables, lens = pa_rec.args
     got = paged_attention(q, kp, vp, tables, lens)
     want = paged_attention_ref(q, kp, vp, tables, lens)
@@ -1771,7 +1874,8 @@ def serving_phase(dev, max_err: dict) -> dict:
           f"{rel_pre:.3g}, last decode logits within {rel_dec:.3g} of max "
           f"|logit| (tolerance 1e-5)")
     row["max_abs_err"] = max_err["paged_attention"]
-    return row
+    fa_row["max_abs_err"] = max_err["flash_attention"]
+    return [row, fa_row]
 
 
 def main() -> int:
@@ -2021,7 +2125,7 @@ def main() -> int:
 
     # ---------------------------- 13. the serving path, qwen3-0.6b
     t0 = time.perf_counter()
-    serve_row = serving_phase(dev, max_err)
+    serve_rows = serving_phase(dev, max_err)
     print(f"phase seconds: serving {time.perf_counter() - t0:.1f} s")
 
     # ------------- 14a. full window tape: cache_sim_scan vs its merge tree
@@ -2207,7 +2311,7 @@ def main() -> int:
         "bound_by": bnd_by, "library_ms": None})
     rows.append(urd_row)
     rows.extend(model_rows)
-    rows.append(serve_row)
+    rows.extend(serve_rows)
     print(f"cache_sim_scan launches on the 256-tenant path: "
           f"{launches256['cache_sim_scan']}; total run "
           f"{time.perf_counter() - T_START:.1f} s")

@@ -3,12 +3,16 @@
 ``flash_attention`` (``csrc/flash_attention.cu``) replaces the
 reference's Pallas TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py:98``: causal and
-sliding-window attention with an fp32 online softmax, one CTA per
-(batch, head, 32-row query tile) looping over the key tiles the band can
-reach, query head h reading KV head ``h // (Hq / Hkv)``.  The source says
-what bounds it on the card.  On a CPU tensor the wrapper returns the
-reference's own prefill, ``ref.blockwise_attention``; the dense
-``ref.attention_ref`` is the definition both are held against.
+sliding-window attention with an fp32 online softmax, one CTA per (batch,
+head, query tile) looping over the key tiles the band can reach, query
+head h reading KV head ``h // (Hq / Hkv)``.  bf16 runs on the tensor cores
+(``wgmma`` fed by TMA from a producer warp, 128 query rows a CTA in two
+consumer warpgroups, P as bf16 hi + lo), fp32 on the CUDA cores (32-row
+tiles).  The kernel takes element strides, so it reads the model's
+``[B, S, H, D]`` projections through ``[B, H, S, D]`` views in place.  The
+source says what bounds it on the card.  On a CPU tensor the wrapper
+returns the reference's own prefill, ``ref.blockwise_attention``; the
+dense ``ref.attention_ref`` is the definition both are held against.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import math
 import pathlib
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import load_library
 from repro_torch.kernels.flash_attention.ref import blockwise_attention
@@ -34,11 +39,31 @@ MAX_HEAD_DIM = 128
 def _lib() -> ctypes.CDLL:
     lib = load_library("flash_attention", SOURCES)
     fn = lib.flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
+
+
+def _strides(t: torch.Tensor) -> tuple[int, ...]:
+    """Element strides of the batch, head and sequence axes (0 where the
+    axis has one element: its stride is never used)."""
+    return tuple(st if n > 1 else 0 for n, st in zip(t.shape[:3],
+                                                       t.stride()[:3]))
+
+
+def _readable(t: torch.Tensor, cols: int) -> torch.Tensor:
+    """``t`` itself when the kernel can read it in place, else a contiguous
+    copy with its last axis zero-padded to ``cols``.  In place means: last
+    axis contiguous and ``cols`` long, the other strides multiples of 4
+    elements for float32 (the fp32 body's 16-byte loads) and of 8 for
+    bfloat16 (TMA's 16-byte strides), a 16-byte aligned base."""
+    step = 4 if t.dtype == torch.float32 else 8
+    if t.shape[-1] == cols and t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
+            and not any(st % step for st in _strides(t)):
+        return t
+    return F.pad(t, (0, cols - t.shape[-1])).contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -48,10 +73,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``1 / sqrt(D)``.
 
     On CUDA tensors (float32 or bfloat16; D and Dv multiples of 4 up to
-    128) this launches the kernel on the current stream, after copying a
-    strided view to the contiguous layout it reads, and raises if it
-    cannot; on CPU tensors it returns ``blockwise_attention`` on views,
-    without a copy.  ``flash_attention.launches`` counts launches.
+    128) this launches the kernel on the current stream and raises if it
+    cannot.  The kernel reads any layout whose last axis is contiguous,
+    with the other strides multiples of 4 elements (8 in bfloat16, whose
+    head dims must also be multiples of 8) and a 16-byte aligned base: the
+    model's ``[B, S, H, D]`` projections seen as ``[B, H, S, D]``.  Only a
+    tensor it cannot read is copied (zero-padded to the next multiple of 8
+    in bfloat16).  The output takes q's layout: when q's head stride is
+    below its sequence stride it is a ``[B, H, S, Dv]`` view of a
+    contiguous ``[B, S, H, Dv]`` tensor.  On CPU tensors it
+    returns ``blockwise_attention`` on views, without a copy.
+    ``flash_attention.launches`` counts launches.
     """
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
@@ -70,29 +102,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return blockwise_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window).transpose(1, 2)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype not in DTYPES or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be a 16-byte "
-                             f"aligned float32 or bfloat16 tensor, got "
-                             f"{t.dtype}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"flash_attention: q, k and v must be float32 or "
+                         f"bfloat16, got {q.dtype}")
     for name, n in (("D", d), ("Dv", dv)):
         if n % 4 or not 0 < n <= MAX_HEAD_DIM:
             raise ValueError(f"flash_attention: head dim {name} = {n} must "
                              f"be a multiple of 4 up to {MAX_HEAD_DIM}")
-    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    # bfloat16 head dims go to the tensor cores as multiples of 8 (the
+    # padding is zeros: the scores and the output are unchanged)
+    step = 8 if q.dtype == torch.bfloat16 else 1
+    dp, dvp = -(-d // step) * step, -(-dv // step) * step
+    q, k, v = _readable(q, dp), _readable(k, dp), _readable(v, dvp)
+    if q.stride(1) < q.stride(2):              # the model's [B, S, H, D]
+        out = torch.empty((b, sq, hq, dvp), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+    else:
+        out = torch.empty((b, hq, sq, dvp), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
-        return out
+        return out[..., :dv]
+    strides = (ctypes.c_longlong * 12)(
+        *(st for t in (q, k, v, out) for st in _strides(t)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        sq, skv, d, dv, 1.0 / math.sqrt(d), int(causal), int(window),
-        DTYPES[q.dtype], stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b,
+        hq, hkv, sq, skv, dp, dvp, 1.0 / math.sqrt(d), int(causal),
+        int(window), DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed (cudaError "
                            f"{err})")
     flash_attention.launches += 1
-    return out
+    return out[..., :dv]
 
 
 flash_attention.launches = 0

@@ -3,9 +3,11 @@
 ``prefill_attention`` takes the model's ``[B, S, H, D]`` layout with
 grouped KV heads (the reference's ``blockwise_attention`` signature)
 and hands ``kernel.flash_attention`` its ``[B, H, S, D]`` views: the
-hand-written kernel on a CUDA tensor (which copies them to that layout),
-the reference's blockwise prefill on a CPU tensor (which takes the
-views back, with no copy).  It stands where the reference's
+hand-written kernel on a CUDA tensor (which reads them in place through
+their strides and writes a contiguous ``[B, S, Hq, Dv]`` output, so the
+caller's reshape to ``[B, S, Hq * Dv]`` moves nothing), the reference's
+blockwise prefill on a CPU tensor (which takes the views back, with no
+copy).  It stands where the reference's
 ``src/repro/kernels/flash_attention/ops.py:25`` does; the device replaces
 its ``use_kernel`` switch, and the KV heads are not repeated.
 """

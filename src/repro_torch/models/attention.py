@@ -3,9 +3,11 @@
 The port of the GQA branches of the reference's
 ``src/repro/models/attention.py``.  ``attention_train`` hands the
 attention itself to ``kernels.flash_attention.ops.prefill_attention``:
-the hand-written ``flash_attention`` kernel on a CUDA tensor (layout moved
-to ``[B, H, S, D]``, KV heads read in place), the reference's
-``blockwise_attention`` on a CPU tensor.  ``attention_decode`` is the
+the hand-written ``flash_attention`` kernel on a CUDA tensor (the
+``[B, S, H, D]`` projections and the grouped KV heads read in place, the
+output written as a contiguous ``[B, S, Hq, D]``, so the reshape before
+``wo`` moves nothing), the reference's ``blockwise_attention`` on a CPU
+tensor.  ``attention_decode`` is the
 reference's ``update_cache=True`` path; it writes the new token's K and V
 into the caller's cache tensors in place (the reference returns updated
 copies), which spares a copy of the whole cache every step.  MLA and

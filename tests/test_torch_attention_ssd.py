@@ -15,6 +15,10 @@
   ``tests/test_kernels.py``'s sweep at its tolerance (3e-6 after scaling by
   the largest output), B and C per row or shared by a group of rows;
   ``ops.mamba2_ssd_op`` against the reference's ``mamba2_ssd_op``.
+* the plain versions of the SSD kernel's three passes, composed, against
+  the reference's Pallas kernel in interpret mode (jitted) at the
+  kernel's whole ``ref.SWEEP``; ``prefill_attention`` on the model's
+  ``[B, S, H, D]`` tensors against both dense definitions there too;
 * ``slow``: the reference's Pallas kernels in interpret mode against the
   port's wrappers on the CPU.
 
@@ -37,11 +41,15 @@ from repro.kernels.mamba2_ssd.ref import seg_from_dA as seg_from_dA_jax
 from repro.models.layers import blockwise_attention as blockwise_jax
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ops import prefill_attention
+from repro_torch.kernels.flash_attention.ref import SWEEP as ATTN_SWEEP
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      blockwise_attention)
-from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd
+from repro_torch.kernels.mamba2_ssd.kernel import (chunk_scan, chunk_state,
+                                                   mamba2_ssd, state_pass)
 from repro_torch.kernels.mamba2_ssd.ops import mamba2_ssd_op
+from repro_torch.kernels.mamba2_ssd.ref import SWEEP as SSD_SWEEP
 from repro_torch.kernels.mamba2_ssd.ref import (mamba2_ssd_chunked,
+                                                mamba2_ssd_passes,
                                                 mamba2_ssd_ref, seg_from_dA)
 
 # the reference's oracles, jitted once per shape (eager dispatch compiles
@@ -52,6 +60,12 @@ blockwise_jax = jax.jit(blockwise_jax, static_argnames=(
     "causal", "window", "block_q", "block_kv"))
 mamba2_ssd_ref_jax = jax.jit(mamba2_ssd_ref_jax)
 seg_from_dA_jax = jax.jit(seg_from_dA_jax, static_argnums=1)
+# the reference's Pallas SSD kernel in interpret mode, jitted (one XLA loop
+# over its grid: seconds where the eager interpreter takes minutes)
+mamba2_ssd_tpu_jit = jax.jit(
+    lambda x, B, C, seg, chunk: mamba2_ssd_tpu(x, B, C, seg, chunk=chunk,
+                                               interpret=True),
+    static_argnames=("chunk",))
 
 # tests/test_kernels.py:37-43, then head dim 112, GQA 16/8, ragged, window
 ATTN_CASES = [
@@ -134,6 +148,33 @@ def test_blockwise_matches_reference_and_dense(case):
         rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("case", ATTN_SWEEP)
+def test_prefill_attention_strided_matches_reference(case):
+    """``prefill_attention`` on the model's ``[B, S, H, D]`` tensors (the
+    wrapper sees ``[B, H, S, D]`` views, as the kernel reads them on the
+    card) against the dense ``attention_ref`` and the reference's own,
+    over the kernel's ``ref.SWEEP`` (float32, 2e-5); the output comes back
+    as a contiguous ``[B, S, Hq, Dv]``, so the model's reshape moves
+    nothing."""
+    b, hq, hkv, sq, skv, d, dv, causal, window = case
+    rng = np.random.default_rng(sq + d)
+    arrays = (rng.standard_normal((b, sq, hq, d), np.float32),
+              rng.standard_normal((b, skv, hkv, d), np.float32),
+              rng.standard_normal((b, skv, hkv, dv), np.float32))
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    got = prefill_attention(q, k, v, causal=causal, window=window)
+    assert got.shape == (b, sq, hq, dv) and got.is_contiguous()
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    np.testing.assert_allclose(
+        _np(got), _np(t(attention_ref(t(q), t(k), t(v), causal=causal,
+                                      window=window))), rtol=2e-5, atol=2e-5)
+    jq, jk, jv = (jnp.swapaxes(jnp.asarray(a), 1, 2) for a in arrays)
+    want = attention_ref_jax(jq, _repeat(jk, hq // hkv), _repeat(jv, hq // hkv),
+                             causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), np.swapaxes(_np(want), 1, 2),
+                               rtol=2e-5, atol=2e-5)
+
+
 def test_flash_attention_wrapper_checks_shapes():
     q = torch.zeros((1, 3, 8, 16))
     with pytest.raises(ValueError, match="Hkv dividing Hq"):
@@ -198,6 +239,36 @@ def test_ssd_shared_B_C_equal_repeated(groups):
     t = [torch.from_numpy(a) for a in (x, B, C, dA)]
     _scaled_close(mamba2_ssd_op(*t, chunk=chunk), want)
     _scaled_close(mamba2_ssd_ref(*t), want)
+
+
+@pytest.mark.parametrize("case", SSD_SWEEP)
+def test_ssd_passes_match_reference_kernel(case):
+    """The plain versions of the kernel's three passes, composed (and the
+    wrapper's per-pass launchers on the CPU, which route to them), against
+    the reference's Pallas kernel in interpret mode on the same inputs
+    (x, B and C from a numpy seed, seg from the reference's
+    ``seg_from_dA``; B and C repeated per row, as the reference takes
+    them) at every ``ref.SWEEP`` case, to 3e-6 of the largest output; and
+    against the port's chunked form.  The chunked form is sensitive to seg
+    itself at chunk 256 (differences of cumsums near -60 in fp32), so both
+    sides get the same seg."""
+    bh, s, p, n, chunk, groups = case
+    x, B, C, dA = _ssd_inputs(bh, s, p, n, seed=bh + s, groups=groups)
+    seg = np.asarray(seg_from_dA_jax(jnp.asarray(dA), chunk))
+    rep = bh // groups
+    want = mamba2_ssd_tpu_jit(jnp.asarray(x),
+                              jnp.asarray(np.repeat(B, rep, axis=0)),
+                              jnp.asarray(np.repeat(C, rep, axis=0)),
+                              jnp.asarray(seg), chunk=chunk)
+    t = [torch.from_numpy(np.array(a)) for a in (x, B, C, seg)]
+    got = mamba2_ssd_passes(*t, chunk=chunk)
+    _scaled_close(got, want)
+    states = state_pass(chunk_state(t[0], t[1], t[3], chunk=chunk), t[3],
+                        chunk=chunk)
+    assert states.shape == (bh, s // chunk - 1, n, p)
+    np.testing.assert_array_equal(
+        chunk_scan(*t, states, chunk=chunk).numpy(), got.numpy())
+    _scaled_close(got, mamba2_ssd_chunked(*t, chunk=chunk))
 
 
 def test_ssd_wrapper_checks_shapes():

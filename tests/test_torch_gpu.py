@@ -53,11 +53,15 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ref import SWEEP as ATTN_SWEEP
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      blockwise_attention)
-from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd
+from repro_torch.kernels.mamba2_ssd.kernel import (chunk_scan, chunk_state,
+                                                   mamba2_ssd, state_pass)
 from repro_torch.kernels.mamba2_ssd.ref import SWEEP as SSD_SWEEP
 from repro_torch.kernels.mamba2_ssd.ref import (SEQUENTIAL_CASES,
+                                                chunk_scan_ref,
+                                                chunk_state_ref,
                                                 mamba2_ssd_chunked,
-                                                mamba2_ssd_ref, seg_from_dA)
+                                                mamba2_ssd_ref, seg_from_dA,
+                                                state_pass_ref)
 from repro_torch.models.model import (decode_step, hybrid_groups,
                                       init_decode_cache, init_params,
                                       params_from_jax, prefill)
@@ -520,22 +524,39 @@ def test_churn_scenario_on_card_matches_cpu(card):
 
 
 # ------------------------------------------- slice 5: the model layer
+# the sweep, then zamba2's and qwen3's prefill heads at full width and a
+# reduced length
+ATTN_CARD_CASES = ATTN_SWEEP + [(1, 32, 32, 1024, 1024, 112, 112, True, 0),
+                                (1, 16, 8, 1024, 1024, 128, 128, True, 0)]
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ATTN_SWEEP)
-def test_flash_attention_matches_plain_on_card(card, case, dtype):
+@pytest.mark.parametrize("case", ATTN_CARD_CASES)
+def test_flash_attention_matches_plain_on_card(card, case, dtype, layout):
     """The kernel against the dense ``attention_ref`` and the blockwise
     CPU route on the same card inputs, at tests/test_kernels.py's
-    tolerances (f32 2e-5, bf16 2e-2)."""
+    tolerances (f32 2e-5, bf16 2e-2), on contiguous ``[B, H, S, D]``
+    tensors and on ``[B, H, S, D]`` views of the model's ``[B, S, H, D]``
+    (read in place through their strides; the output is then a view of a
+    contiguous ``[B, S, Hq, Dv]`` tensor)."""
     b, hq, hkv, sq, skv, d, dv, causal, window = case
     gen = torch.Generator(device=card).manual_seed(sq + d)
-    q = torch.randn((b, hq, sq, d), generator=gen, device=card).to(dtype)
-    k = torch.randn((b, hkv, skv, d), generator=gen, device=card).to(dtype)
-    v = torch.randn((b, hkv, skv, dv), generator=gen, device=card).to(dtype)
+
+    def make(h, s, dim):
+        if layout == "bhsd":
+            return torch.randn((b, h, s, dim), generator=gen, device=card)
+        return torch.randn((b, s, h, dim), generator=gen,
+                           device=card).transpose(1, 2)
+    q, k, v = (make(hq, sq, d).to(dtype), make(hkv, skv, d).to(dtype),
+               make(hkv, skv, dv).to(dtype))
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert got.shape == (b, hq, sq, dv) and got.dtype == dtype
+    if layout == "bshd":
+        assert got.transpose(1, 2).is_contiguous()
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     for want in (attention_ref(q, k, v, causal=causal, window=window),
                  blockwise_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -545,6 +566,21 @@ def test_flash_attention_matches_plain_on_card(card, case, dtype):
                                    atol=tol)
 
 
+def _ssd_card_inputs(case, card):
+    bh, s, p, n, chunk, groups = case
+    gen = torch.Generator(device=card).manual_seed(bh + s)
+    x = torch.randn((bh, s, p), generator=gen, device=card) * 0.5
+    B = torch.randn((groups, s, n), generator=gen, device=card) * 0.5
+    C = torch.randn((groups, s, n), generator=gen, device=card) * 0.5
+    dA = -torch.rand((bh, s), generator=gen, device=card) * 0.5
+    return x, B, C, dA, seg_from_dA(dA, chunk)
+
+
+def _scaled_close_card(got, want):
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=3e-6)
+
+
 @pytest.mark.parametrize("case", SSD_SWEEP)
 def test_mamba2_ssd_matches_plain_on_card(card, case):
     """The kernel against the chunked form and, at tests/test_kernels.py's
@@ -552,14 +588,12 @@ def test_mamba2_ssd_matches_plain_on_card(card, case):
     card inputs, 3e-6 after scaling by the largest output
     (tests/test_kernels.py:88).  At chunk 256 the chunked form is the
     yardstick: the sequential recurrence carries its own fp32 rounding
-    over hundreds of steps there."""
-    bh, s, p, n, chunk, groups = case
-    gen = torch.Generator(device=card).manual_seed(bh + s)
-    x = torch.randn((bh, s, p), generator=gen, device=card) * 0.5
-    B = torch.randn((groups, s, n), generator=gen, device=card) * 0.5
-    C = torch.randn((groups, s, n), generator=gen, device=card) * 0.5
-    dA = -torch.rand((bh, s), generator=gen, device=card) * 0.5
-    seg = seg_from_dA(dA, chunk)
+    over hundreds of steps there.  Then each of its three passes against
+    its plain version on the same inputs: the chunk states, the states
+    entering each chunk (from the plain chunk states) and the output
+    (from the plain entering states)."""
+    x, B, C, dA, seg = _ssd_card_inputs(case, card)
+    chunk = case[4]
     before = mamba2_ssd.launches
     got = mamba2_ssd(x, B, C, seg, chunk=chunk)
     torch.cuda.synchronize()
@@ -568,9 +602,16 @@ def test_mamba2_ssd_matches_plain_on_card(card, case):
     if SSD_SWEEP.index(case) < SEQUENTIAL_CASES:
         wants.append(mamba2_ssd_ref(x, B, C, dA))
     for want in wants:
-        scale = float(want.abs().max())
-        torch.testing.assert_close(got / scale, want / scale, rtol=0,
-                                   atol=3e-6)
+        _scaled_close_card(got, want)
+    s_want = chunk_state_ref(x, B, seg, chunk=chunk)
+    h_want = state_pass_ref(s_want, seg, chunk=chunk)
+    if s_want.numel():
+        _scaled_close_card(chunk_state(x, B, seg, chunk=chunk), s_want)
+        _scaled_close_card(state_pass(s_want.clone(), seg, chunk=chunk),
+                           h_want)
+    _scaled_close_card(chunk_scan(x, B, C, seg, h_want, chunk=chunk),
+                       chunk_scan_ref(x, B, C, seg, h_want, chunk=chunk))
+    assert mamba2_ssd.launches == before + 1   # the passes alone count none
 
 
 def test_zamba2_smoke_on_card_matches_cpu(card):
