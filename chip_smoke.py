@@ -12,7 +12,8 @@ Phases:
   3. hold each kernel against its plain PyTorch version on the card,
      exactly: ``cache_sim_scan`` vs the dense ``cache_sim_ref`` at tape
      lengths 1 .. 32768 (multi-tenant severed links, cold rows,
-     ``occ = 1`` and ``occ = is_read``); ``cache_sim_segments_scan`` vs
+     ``occ = 1`` and ``occ = is_read``; tile edges at 255, 256, 257);
+     ``cache_sim_segments_scan`` vs
      the dense ``cache_sim_segments_ref`` on padded multi-tenant tapes of
      widths 64 .. 8192 and 16384 (wider than one shared-memory stage);
      ``cache_sim_levels_scan`` vs ``cache_sim_levels_ref`` and
@@ -32,8 +33,10 @@ Phases:
      version there; ``paged_attention`` vs
      ``paged_attention_ref`` at its ``ref.SWEEP`` (tests/test_kernels.py's
      sweep plus qwen3's 16/8 heads of 128 at page 8, 16 and 32; random
-     tables, lengths 1, mid-page and on a page edge), float32 (2e-5) and
-     bfloat16 (2e-2);
+     tables, lengths 1, mid-page and on a page edge) and ``ref.LONG_ROWS``
+     (B 1 and 4, about 2048 positions, a row of length 0 that must be 0),
+     float32 (2e-5) and bfloat16 (2e-2), and equal bit for bit from
+     call to call (the splits merge in a fixed order);
   4. drive slice 1's path — ``make_manager("eci", 6000, ...)`` over 16
      tenants, three Δt windows of 65,536 accesses each — on the card with
      every kernel launch counter set to 0 just before each window and
@@ -115,7 +118,9 @@ Phases:
      equal and last logits within 1e-4 of max |logit|, bf16 tokens held
      where the fp32 top token leads by more than bf16 moves the logits;
      the kernel at the captured decode inputs element by element, timed
-     beside ``paged_attention_ref``, ``_merge_self`` and its bound;
+     beside ``paged_attention_ref``, ``_merge_self`` and its bound, a call
+     and the kernels alone (a CUDA graph of the calls), with its split
+     count, and at the first 1 and 4 captured rows;
      ``flash_attention`` at the captured prefill inputs the same way as in
      phase 12, and its share of a request's prefill; 2 layers at full
      width in fp32, the card against the CPU;
@@ -123,8 +128,12 @@ Phases:
      (CUDA events) beside its plain version and the bound of the function
      it computes (the larger of its bytes at the memory rate and a tree
      count's operations at the 32-bit rate), holding it against the plain
-     version there too; ``urd_scan`` at a 65,536-row Table-3 window and at
-     the 1,048,576-row 16-tenant tape that times ``cache_sim_scan``;
+     version there too; ``cache_sim_scan`` a call and alone, with its
+     direct compares and tile searches beside the positions the previous
+     design walked, and at the 256-tenant path's first tape (16.8 M rows)
+     against the merge tree; ``urd_scan`` at a 65,536-row
+     Table-3 window and at the 1,048,576-row 16-tenant tape that times
+     ``cache_sim_scan``;
  15. print the kernels line, the card line and, last, the result line.
 
 Exits non-zero, printing no result, when no card is visible or any
@@ -196,11 +205,14 @@ REDUCED_PROMPT, REDUCED_DECODE = 512, 4
 PEAK_BF16_PER_S = 989e12
 PEAK_F32_PER_S = 67e12
 PEAK_TF32_PER_S = 495e12
-# the model kernels' times before their redesign, printed beside the new
-# ones and kept out of the kernels line, which carries this run's numbers
-# only: flash_attention at zamba2-7b's prefill and mamba2_ssd at its layer
-# (this script on NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
-PREV_MS = {"flash_attention": 6.387, "mamba2_ssd": 5.658}
+# the kernels' times before their redesign, printed beside the new ones
+# and kept out of the kernels line, which carries this run's numbers only:
+# flash_attention at zamba2-7b's prefill, mamba2_ssd at its layer,
+# paged_attention at qwen3-0.6b's serving decode and cache_sim_scan at
+# the 16-tenant window tape (this script on NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md §6)
+PREV_MS = {"flash_attention": 6.387, "mamba2_ssd": 5.658,
+           "paged_attention": 0.2815, "cache_sim_scan": 0.564}
 # the serving path: qwen3-0.6b at full width in bf16 from seed 0 over a
 # 14 GiB pool of 16-token pages; the manager partitions 4096 of its pages
 # between two tenants after bench_serving_cache.py's: "chat" (a shared
@@ -327,6 +339,32 @@ def cuda_ms(fn, reps: int) -> float:
     t0.record()
     for _ in range(reps):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """The kernels alone: ``reps`` calls captured in one CUDA graph and
+    replayed between two events, so the host's launch time is left out."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
@@ -1412,24 +1450,33 @@ def paged_kernel_checks(dev, max_err: dict) -> None:
     """Phase 3 for the serving kernel: ``paged_attention`` against
     ``paged_attention_ref`` at the kernel's ``ref.SWEEP`` (tests/
     test_kernels.py's three shapes, then qwen3-0.6b's heads at page 8, 16
-    and 32; random tables, lengths mid-page, on a page edge and at 1),
-    float32 (2e-5) and bfloat16 (2e-2)."""
+    and 32; random tables, lengths mid-page, on a page edge and at 1) and
+    ``ref.LONG_ROWS`` (rows of about 2048 positions at B 1 and 4, many
+    splits; a row of length 0 must be 0), float32 (2e-5) and bfloat16
+    (2e-2), and a second call giving the same bits (the splits merge in
+    a fixed order)."""
     from repro_torch.kernels.paged_attention.kernel import paged_attention
-    from repro_torch.kernels.paged_attention.ref import (SWEEP,
+    from repro_torch.kernels.paged_attention.ref import (LONG_ROWS, SWEEP,
                                                          paged_attention_ref,
                                                          sweep_arrays)
-    for i, case in enumerate(SWEEP):
+    for i, case in enumerate(SWEEP + LONG_ROWS):
         a = sweep_arrays(case, seed=i)
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
             args = [torch.from_numpy(a[n]).to(dev) for n in PAGED_NAMES]
             args[:3] = [t.to(dtype) for t in args[:3]]
+            live = args[4] > 0
+            got = paged_attention(*args)
             check_close(max_err, "paged_attention", f"{case} {dtype}",
-                        paged_attention(*args), paged_attention_ref(*args),
-                        tol)
+                        got[live], paged_attention_ref(*args)[live], tol)
+            assert not bool(got[~live].any()), f"{case}: length 0 not 0"
+            assert torch.equal(got, paged_attention(*args)), \
+                f"{case} {dtype}: two calls differ"
     print(f"check: paged_attention == paged_attention_ref at {len(SWEEP)} "
           f"shapes (tests/test_kernels.py's sweep, qwen3's 16/8 heads of 128 "
-          f"at page 8, 16, 32; lengths 1, mid-page, page edge) in float32 "
-          f"and bfloat16 (2e-5 / 2e-2); max err "
+          f"at page 8, 16, 32; lengths 1, mid-page, page edge) and "
+          f"{len(LONG_ROWS)} long-row cases (B 1 and 4, about 2048 "
+          f"positions, a length-0 row written 0) in float32 and bfloat16 "
+          f"(2e-5 / 2e-2), two calls bit-equal; max err "
           f"{max_err['paged_attention']:.3g}")
 
 
@@ -1639,7 +1686,9 @@ def serving_phase(dev, max_err: dict) -> list[dict]:
     import repro_torch.serve.engine as engine_mod
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ref import blockwise_attention
-    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.kernels.paged_attention.kernel import (TILE,
+                                                            paged_attention,
+                                                            split_count)
     from repro_torch.kernels.paged_attention.ref import (gather_pages,
                                                          paged_attention_ref)
     from repro_torch.models import model as M
@@ -1776,6 +1825,38 @@ def serving_phase(dev, max_err: dict) -> list[dict]:
           f"{ms / bnd:.1f}; of a {step_ms:.2f} ms decode step, {L} kernel "
           f"launches are {L * ms / step_ms:.1%} and {L} _merge_self "
           f"{L * merge_ms / step_ms:.1%}")
+    # the split count chosen, the kernels alone (a CUDA graph of the
+    # calls), and the first 1 and 4 rows of the same captured inputs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pps = tables.shape[1]
+    n_split, per = split_count(b, cfg.n_kv_heads, pps, SERVE_PAGE,
+                               TILE[q.dtype], sms)
+    alone = graph_ms(lambda: paged_attention(q, kp, vp, tables, lens), REPS)
+    print(f"paged_attention at B {b}: {n_split} splits of {per} pages "
+          f"({b * cfg.n_kv_heads * n_split} CTAs on {sms} SMs); per call "
+          f"{ms:.4f} ms (before its redesign {PREV_MS['paged_attention']} ms),"
+          f" the kernels alone (a CUDA graph of {REPS} calls) {alone:.4f} "
+          f"ms")
+    for rows in (1, 4):
+        sub = (q[:rows].contiguous(), kp, vp, tables[:rows].contiguous(),
+               lens[:rows].contiguous())
+        got_s = paged_attention(*sub).float()
+        want_s = paged_attention_ref(*sub).float()
+        lim = 2.0 ** -6 * want_s.abs() + 1e-4 * float(want_s.abs().max())
+        assert bool(((got_s - want_s).abs() <= lim).all()), \
+            f"paged_attention at the first {rows} captured rows"
+        ns, ps = split_count(rows, cfg.n_kv_heads, pps, SERVE_PAGE,
+                             TILE[q.dtype], sms)
+        seen_s = int(sub[4].clamp(max=pps * SERVE_PAGE).sum())
+        bytes_s = (seen_s * cfg.n_kv_heads * d * 2 * esize
+                   + 2 * sub[0].numel() * esize
+                   + 4 * (sub[3].numel() + sub[4].numel()))
+        print(f"paged_attention at the first {rows} captured row(s) ({seen_s}"
+              f" positions; {ns} splits of {ps} pages, "
+              f"{rows * cfg.n_kv_heads * ns} CTAs; within its element limit): "
+              f"{cuda_ms(lambda: paged_attention(*sub), REPS):.4f} ms a call, "
+              f"{graph_ms(lambda: paged_attention(*sub), REPS):.4f} ms alone; "
+              f"bound {bytes_s / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes")
     row = {"name": "paged_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/paged_attention/csrc/"
                      "paged_attention.cu",
@@ -1891,7 +1972,7 @@ def main() -> int:
     from repro_torch.kernels import build_library
     from repro_torch.core.trace import prev_next_occurrence
     from repro_torch.data.traces import msr_trace
-    from repro_torch.kernels.cache_sim.kernel import (LIBRARIES,
+    from repro_torch.kernels.cache_sim.kernel import (LIBRARIES, TILE,
                                                       cache_sim_levels_scan,
                                                       cache_sim_scan,
                                                       cache_sim_segments_scan,
@@ -1956,7 +2037,8 @@ def main() -> int:
                   cache_sim_ref(p32, n32, occ))
             assert bool((got[prev < 0] == -1).all()), "cold rows must be -1"
         print(f"check: cache_sim_scan == cache_sim_ref at n={n} "
-              f"(occ=1, occ=is_read; {int((prev < 0).sum())} cold rows)")
+              f"(occ=1, occ=is_read; tile {TILE}; "
+              f"{int((prev < 0).sum())} cold rows)")
     for w, lens in SEGMENT_LENS.items():
         gprev, gnxt, gocc, reads, groups = padded_tape(lens, w, dev)
         for gw, lo, hi in groups:
@@ -2034,10 +2116,12 @@ def main() -> int:
     print(f"traces: {SHARDS_WINDOWS} windows x {len(SHARDS_NAMES)} tenants "
           f"x {ACCESSES} accesses generated in "
           f"{time.perf_counter() - t0:.1f} s (outside the timed region)")
-    launches256, _, _ = drive("256-tenant", dev, swindows, SHARDS_NAMES,
-                              SHARDS_CAPACITY,
-                              want=("cache_sim_segments_scan",),
-                              cpu_budget=True)
+    import repro_torch.kernels.cache_sim.ops as cs_ops
+    with Recorder(cs_ops, "cache_sim_scan") as tape256:
+        launches256, _, _ = drive("256-tenant", dev, swindows, SHARDS_NAMES,
+                                  SHARDS_CAPACITY,
+                                  want=("cache_sim_segments_scan",),
+                                  cpu_budget=True)
 
     # ------------------------- 6. the ETICA path, with its residency routes
     routes = RouteReplays(dev)
@@ -2143,16 +2227,42 @@ def main() -> int:
     m = int(prev.shape[0])
     hot = prev >= 0
     pos = torch.arange(m, device=dev)
-    compares = int((pos[hot] - prev[hot] - 1).sum())    # this kernel's work
+    # the previous design's work: every position of every hot interval
+    walked = int((pos[hot] - prev[hot] - 1).sum())
+    lo, hi = prev[hot] + 1, pos[hot]
+    # the kernel's work: direct compares over an interval inside its row's
+    # tile or over a head; a search a whole tile; tails come from the
+    # tile's coverage count
+    start = hi // TILE * TILE
+    edge = torch.minimum(-(-lo // TILE) * TILE, start)
+    direct = int(torch.where(lo > start, hi - lo, edge - lo).sum())
+    searches = int((start // TILE - edge // TILE).clamp(min=0).sum())
     ms = cuda_ms(lambda: cache_sim_scan(p32, n32, ones), REPS)
+    print(f"full tape, tile {TILE}: {direct} direct compares and {searches}"
+          f" tile searches, tails by coverage (the previous design walked "
+          f"{walked} positions); {ms:.4f} ms a call, "
+          f"{graph_ms(lambda: cache_sim_scan(p32, n32, ones), REPS):.4f} ms "
+          f"alone")
     plain_ms = cuda_ms(lambda: stack_distances_tree(prev, nxt_c), REPS // 4)
     # the function's floor: read prev, nxt, occ and write SD once; a
     # Fenwick-tree count needs n * ceil(log2 n) operations
     bnd, bnd_by = bound_ms(16 * m, m * math.ceil(math.log2(max(m, 2))))
-    print(f"full tape: {m} accesses; cache_sim_scan {ms:.3f} ms "
-          f"({compares} compares of its own), merge-tree route "
-          f"{plain_ms:.3f} ms, bound {bnd:.6f} ms by {bnd_by}; kernel / "
-          f"bound = {ms / bnd:.1f}")
+    print(f"full tape: {m} accesses; cache_sim_scan {ms:.4f} ms at tile "
+          f"{TILE} (before its redesign {PREV_MS['cache_sim_scan']} ms), "
+          f"merge-tree route {plain_ms:.3f} ms, bound {bnd:.6f} ms by "
+          f"{bnd_by}; kernel / bound = {ms / bnd:.1f}")
+    # the 256-tenant path's window-0 tape (its first launch)
+    p256, n256, o256 = tape256.args
+    check("cache_sim_scan", "256-tenant tape vs merge tree",
+          cache_sim_scan(p256, n256, o256),
+          stack_distances_tree(p256.long(), n256.long()))
+    m256 = int(p256.shape[0])
+    bnd256, _ = bound_ms(16 * m256, m256 * math.ceil(math.log2(m256)))
+    print(f"256-tenant window-0 tape: {m256} accesses; cache_sim_scan "
+          f"{cuda_ms(lambda: cache_sim_scan(p256, n256, o256), REPS):.4f} ms "
+          f"a call at tile {TILE}, bound {bnd256:.6f} ms by bytes")
+    del p256, n256, o256
+    tape256.args = None
     rows = [{
         "name": "cache_sim_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/cache_sim/csrc/cache_sim.cu",

@@ -1,8 +1,11 @@
 """Launchers of the hand-written CUDA stack-distance kernels.
 
 * ``cache_sim_scan`` (``csrc/cache_sim.cu``) replaces the reference's
-  Pallas TPU kernel ``src/repro/kernels/cache_sim/kernel.py:63``: one
-  warp walks each row's own reuse interval.
+  Pallas TPU kernel ``src/repro/kernels/cache_sim/kernel.py:63``: a tiled
+  count in two kernels, the tape's tiles sorted first, then each row's
+  interval counted as a head by direct compares, a search in each whole
+  tile after it, and a tail from its own tile's coverage count
+  (``ref.cache_sim_tiled_ref`` is the decomposition in plain torch).
 * ``cache_sim_segments_scan`` (``csrc/cache_sim_segments.cu``) replaces
   ``kernel.py:136``: the same count on a padded, self-aligned
   multi-tenant tape, j restricted to the row's ``seg_width`` block; a
@@ -39,7 +42,9 @@ LIBRARIES = (("cache_sim", SOURCES), ("cache_sim_segments", SEGMENTS_SOURCES),
              ("cache_sim_levels", LEVELS_SOURCES),
              ("live_count", LIVE_SOURCES))
 _LIVE_TILE = 8192                   # live_count.cu's kTile
-_MAX_N = 2**31 - 32                 # the kernel's j + 32 stays in int32
+TILE = 256                          # cache_sim.cu's kTile
+_SAMPLE = 16                        # sorted keys per sample
+_MAX_N = 2**31 - 32                 # the contract's bound: n, i in int32
 _MAX_LEVELS_N = 2**31 - 128         # cache_sim_levels.cu reads 128 ahead
 _MAX_M = 2**31 - 2**14              # every chunk end stays in int32
 
@@ -47,7 +52,7 @@ _MAX_M = 2**31 - 2**14              # every chunk end stays in int32
 def _lib() -> ctypes.CDLL:
     lib = load_library("cache_sim", SOURCES)
     fn = lib.cache_sim_scan
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -101,10 +106,10 @@ def cache_sim_scan(prev: torch.Tensor, nxt: torch.Tensor,
     """prev/nxt/occ int32[n] -> counts int32[n]; -1 at cold rows.
 
     ``counts[i] = #{ j : prev[i] < j < i, occ[j] > 0, nxt[j] >= i }``.
-    On CUDA tensors this launches the kernel on the current stream (and
-    raises if the launch is refused); on CPU tensors it returns the plain
-    version ``cache_sim_ref``.  ``cache_sim_scan.launches`` counts kernel
-    launches.
+    On CUDA tensors this launches the two kernels on the current stream
+    (and raises if a launch is refused), with tiles of ``TILE`` positions;
+    on CPU tensors it returns the plain version ``cache_sim_ref``.
+    ``cache_sim_scan.launches`` counts calls that launched.
     """
     links = (("prev", prev), ("nxt", nxt), ("occ", occ))
     _check_shapes(*links)
@@ -118,9 +123,13 @@ def cache_sim_scan(prev: torch.Tensor, nxt: torch.Tensor,
     out = torch.empty_like(prev)
     if n == 0:
         return out
+    # sorted tiles, their samples, then every position's key
+    scratch = torch.empty(n // TILE * (TILE + TILE // _SAMPLE) + n,
+                          dtype=torch.int32, device=prev.device)
     stream = torch.cuda.current_stream(prev.device).cuda_stream
     err = _lib().cache_sim_scan(prev.data_ptr(), nxt.data_ptr(),
-                                occ.data_ptr(), out.data_ptr(), n, stream)
+                                occ.data_ptr(), out.data_ptr(),
+                                scratch.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError(f"cache_sim_scan launch failed (cudaError {err})")
     cache_sim_scan.launches += 1

@@ -1,11 +1,15 @@
 """Plain PyTorch versions of the occupancy-masked stack-distance count.
 
-Two routes to the same numbers, both running on any device:
+Three routes to the same numbers, all running on any device:
 
   * ``cache_sim_ref`` — the dense definition, row-chunked so it never
     holds more than ~16M (i, j) pairs at once.  It is the yardstick the
     CUDA kernel is held against (exactly) and the CPU answer for an
     explicit occupancy mask.
+  * ``cache_sim_tiled_ref`` — the CUDA kernel's own decomposition
+    (direct compares over the head and tail of each interval, a
+    ``searchsorted`` in each sorted whole tile between them), held to the
+    dense definition in the tests.
   * the merge-tree route — ``coverage_counts`` + ``count_prev_ge``, joined
     by ``stack_distances_tree`` — computes the same distances for
     ``occ = 1`` in O(n log² n) work (the reference's host engine,
@@ -34,7 +38,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["cache_sim_levels_ref", "cache_sim_ref", "cache_sim_segments_ref",
-           "cache_sim_segments_tree", "count_prev_ge", "coverage_counts",
+           "cache_sim_segments_tree", "cache_sim_tiled_ref",
+           "count_prev_ge", "coverage_counts",
            "live_counts_delta", "live_counts_ref", "stack_distances_tree"]
 
 _PAIRS_PER_CHUNK = 1 << 24
@@ -62,6 +67,59 @@ def cache_sim_ref(prev: torch.Tensor, nxt: torch.Tensor,
                    & occ_j)
         out[lo:hi] = contrib.sum(dim=1, dtype=torch.int32)
     out[prev < 0] = -1
+    return out
+
+
+def cache_sim_tiled_ref(prev: torch.Tensor, nxt: torch.Tensor,
+                        occ: torch.Tensor, tile: int) -> torch.Tensor:
+    """``cache_sim_ref`` as ``cache_sim_scan``'s kernel decomposes it.
+
+    With ``key[j] = nxt[j]`` where ``occ[j] > 0`` and -1 elsewhere, row
+    i's interval ``[prev[i] + 1, i)`` is cut at the tile edges (multiples
+    of ``tile``): the head before the first edge and the tail after the
+    last are counted by direct compares ``key[j] >= i`` (each under
+    ``tile`` positions), and each whole tile between them by a
+    ``searchsorted`` of i in its sorted keys.  int32, -1 at cold rows.
+    """
+    n = prev.shape[0]
+    dev = prev.device
+    out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    rows = torch.nonzero(prev >= 0).squeeze(1)
+    if rows.numel() == 0:
+        return out
+    key = torch.where(occ > 0, nxt.to(torch.int64), -1)
+    i = rows
+    lo = prev[rows].to(torch.int64) + 1
+    head_end = torch.minimum(-(-lo // tile) * tile, i)
+    tail_start = torch.maximum(i // tile * tile, head_end)
+    cnt = torch.zeros(rows.numel(), dtype=torch.int64, device=dev)
+    # head and tail: offsets 0 .. tile - 2 from each piece's start
+    off = torch.arange(max(tile - 1, 1), device=dev)
+    chunk = max(1, _PAIRS_PER_CHUNK // off.numel())
+    for start, end in ((lo, head_end), (tail_start, i)):
+        for c in range(0, rows.numel(), chunk):
+            j = start[c:c + chunk, None] + off[None, :]
+            inside = j < end[c:c + chunk, None]
+            hit = key[j.clamp(0, n - 1)] >= i[c:c + chunk, None]
+            cnt[c:c + chunk] += (inside & hit).sum(dim=1)
+    # whole tiles: keys sorted in each, shifted to >= 0 and made one
+    # ascending list by the tile's index, searched for i + 1
+    tiles = n // tile
+    ntile = tail_start // tile - head_end // tile
+    if tiles and int(ntile.sum()):
+        srt = torch.sort(key[:tiles * tile].view(tiles, tile), dim=1).values
+        big = int(key.max()) + 3
+        flat = (torch.arange(tiles, device=dev)[:, None] * big
+                + srt + 1).view(-1)
+        owner = torch.repeat_interleave(torch.arange(rows.numel(),
+                                                     device=dev), ntile)
+        first = torch.repeat_interleave(head_end // tile, ntile)
+        k = first + (torch.arange(owner.numel(), device=dev)
+                     - torch.repeat_interleave(torch.cumsum(ntile, 0)
+                                               - ntile, ntile))
+        below = torch.searchsorted(flat, k * big + i[owner] + 1) - k * tile
+        cnt.index_add_(0, owner, tile - below)
+    out[rows] = cnt.to(torch.int32)
     return out
 
 

@@ -4,15 +4,22 @@
 reference's Pallas TPU kernel
 ``src/repro/kernels/paged_attention/kernel.py:76``: GQA decode attention
 of one query token per sequence over a paged KV pool, located through
-per-sequence block tables, with an fp32 online softmax.  One CTA per
-(batch row, KV head) reads its row's table and length itself and walks
-only the positions below the length; the source says what bounds it on
-the card.  On a CPU tensor the wrapper returns ``ref.paged_attention_ref``,
-the definition the kernel is held against.
+per-sequence block tables, with an fp32 online softmax.  Split-KV: the
+grid is (KV head, row, split), each split a run of whole pages that a CTA
+streams through a cp.async ring in shared memory, reading its row's table
+and length itself and only the positions below the length; the splits'
+fp32 partials are merged by the log-sum-exp combination in a second
+small kernel.  ``split_count`` picks the splits from the
+table's width and the SM count (the lengths stay on the card).  The
+source says what bounds it on the card.  On a CPU tensor the wrapper
+returns ``ref.paged_attention_ref``, the definition the kernel is held
+against; ``ref.paged_attention_split_ref`` is the kernel's decomposition
+in plain torch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import pathlib
 
@@ -30,15 +37,40 @@ LIBRARIES = (("paged_attention", SOURCES),)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_GROUP = 16
+# positions a CTA's tile holds (the source's TileOf), the table entries a
+# CTA stages (kMaxSplitPages), and the CTAs aimed at per SM
+TILE = {torch.float32: 32, torch.bfloat16: 64}
+MAX_SPLIT_PAGES = 1024
+CTAS_PER_SM = 4
 
 
 def _lib() -> ctypes.CDLL:
     lib = load_library("paged_attention", SOURCES)
     fn = lib.paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_count(batch: int, hkv: int, pages_per_seq: int, page: int,
+                tile: int, sms: int) -> tuple[int, int]:
+    """``(n_split, pages_per_split)`` of a launch: enough splits of whole
+    pages that ``batch * hkv * n_split`` reaches about ``CTAS_PER_SM``
+    CTAs per SM, but none shorter than two tiles (unless the table is)
+    and none holding more than ``MAX_SPLIT_PAGES`` table entries.  Only
+    the table's width is known here: the lengths stay on the card, so a
+    split past a row's length reads nothing."""
+    pps = max(int(pages_per_seq), 1)
+    want = -(-CTAS_PER_SM * sms // max(batch * hkv, 1))
+    min_pages = -(-2 * tile // page)
+    per = max(1, min(max(-(-pps // want), min_pages), MAX_SPLIT_PAGES))
+    return -(-pps // per), per
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -52,10 +84,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     dtype, D a multiple of 4 up to 128, Hq / Hkv up to 16) this launches
     the kernel on the current stream and raises if it cannot; it reads no
     length or table entry on the host; an entry outside the pool is
-    clamped into it.  A row of length 0 comes back as 0, as from the
-    Pallas kernel (``ref.paged_attention_ref`` gives the mean of its
-    gathered V).  On CPU tensors it returns ``ref.paged_attention_ref``.
-    ``paged_attention.launches`` counts launches.
+    clamped into it.  The splits (``split_count``) are merged by a second
+    kernel, in order, so a call gives the same bits every time.  A row of length 0 comes back as 0, as
+    from the Pallas kernel (``ref.paged_attention_ref`` gives the mean of
+    its gathered V).  On CPU tensors it returns ``ref.paged_attention_ref``.
+    ``paged_attention.launches`` counts calls that launched (one or two
+    kernels each).
     """
     b, hq, d = q.shape
     if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
@@ -96,15 +130,26 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_attention: head dim {d} must be a multiple "
                          f"of 4 up to {MAX_HEAD_DIM} and Hq / Hkv = "
                          f"{hq // hkv} at most {MAX_GROUP}")
+    if n_pool * page >= 2**31:
+        raise ValueError(f"paged_attention: a pool of {n_pool} pages of "
+                         f"{page} positions exceeds the kernel's int32 "
+                         f"positions")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    pps = block_tables.shape[1]
+    n_split, per = split_count(b, hkv, pps, page, TILE[q.dtype],
+                               _sm_count(q.device.index))
+    ws = None
+    if n_split > 1:
+        ws = torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
+                         device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b,
-        n_pool, hq, hkv, d, page, block_tables.shape[1], 1.0 / math.sqrt(d),
-        DTYPES[q.dtype], stream)
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), b, n_pool, hq, hkv, d, page,
+        pps, per, n_split, 1.0 / math.sqrt(d), DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed (cudaError {err})")
     paged_attention.launches += 1

@@ -13,6 +13,12 @@
 A row with ``seq_len == 0`` softmaxes an all-masked row here (the mean
 of the gathered V) while the kernel, like the Pallas kernel, writes 0;
 the engine never passes 0, and ``SWEEP`` holds lengths of at least 1.
+
+``paged_attention_split_ref`` is the kernel's split-KV decomposition in
+plain torch (tests only): each split of whole pages forms its own fp32
+``(m, l, acc)`` and the splits are merged by the log-sum-exp
+combination; a split past the length is empty, and a row of length 0
+gives 0, as the kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["SWEEP", "gather_pages", "paged_attention_ref", "sweep_arrays"]
+__all__ = ["LONG_ROWS", "SWEEP", "gather_pages", "paged_attention_ref",
+           "paged_attention_split_ref", "sweep_arrays"]
 
 _NEG_INF = -1e30
 # the shapes at which the kernel is held to these: the reference's sweep
@@ -36,6 +43,15 @@ SWEEP = [
     (4, 16, 8, 128, 8, 20, 96, (1, 75, 80, 160)),
     (4, 16, 8, 128, 16, 10, 64, (16, 33, 150, 160)),
     (4, 16, 8, 128, 32, 5, 48, (1, 31, 128, 160)),
+]
+
+# qwen3's heads at its serving page and table width (136 pages of 16):
+# rows of about 2048 positions at B 1 and 4, split many ways, with a row
+# of length 0 (the kernel writes 0), one of the table's full width and
+# one of length 1
+LONG_ROWS = [
+    (1, 16, 8, 128, 16, 136, 1024, (2046,)),
+    (4, 16, 8, 128, 16, 136, 1024, (2039, 0, 2176, 1)),
 ]
 
 
@@ -85,3 +101,43 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     mask = pos[None, None, :] < seq_lens.to(q.device)[:, None, None]
     p = torch.softmax(torch.where(mask, s, _NEG_INF), dim=-1)
     return torch.einsum("bhk,bkhd->bhd", p, v.float()).to(q.dtype)
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              seq_lens: torch.Tensor,
+                              n_split: int) -> torch.Tensor:
+    """``paged_attention_ref`` as the kernel decomposes it: split z takes
+    pages ``[z * per, (z + 1) * per)`` of each table, ``per =
+    ceil(pages_per_seq / n_split)``; its partial is ``m`` (the max of its
+    visible scores, -1e30 if none), ``l = sum p`` and ``acc = sum p v``
+    with ``p = exp(s - m)`` on the visible positions; the merge weighs
+    split z by ``exp(m_z - max m)`` and divides by ``max(l, 1e-30)``.  A
+    row of length 0 gives 0.  [B, Hq, D] in q's dtype."""
+    b, hq, d = q.shape
+    page, pps = k_pages.shape[1], block_tables.shape[1]
+    if pps == 0:
+        return torch.zeros_like(q)
+    per = -(-pps // n_split)
+    scale = 1.0 / math.sqrt(d)
+    rep = hq // k_pages.shape[2]
+    k = gather_pages(k_pages, block_tables).repeat_interleave(rep, dim=2)
+    v = gather_pages(v_pages, block_tables).repeat_interleave(rep, dim=2)
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
+    pos = torch.arange(k.shape[1], device=q.device)
+    visible = pos[None, :] < seq_lens.to(q.device)[:, None]     # [B, S]
+    ms, ls, accs = [], [], []
+    for z in range(n_split):
+        mask = (visible & (pos // (per * page) == z))[:, None, :]
+        sz = torch.where(mask, s, _NEG_INF)
+        m = sz.max(dim=-1).values                               # [B, Hq]
+        p = torch.where(mask, torch.exp(sz - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhk,bkhd->bhd", p, v.float()))
+    m = torch.stack(ms)
+    w = torch.exp(m - m.max(dim=0).values)
+    lsum = (torch.stack(ls) * w).sum(dim=0)
+    acc = (torch.stack(accs) * w[..., None]).sum(dim=0)
+    return (acc / lsum.clamp_min(1e-30)[..., None]).to(q.dtype)

@@ -13,10 +13,12 @@ eager ops and the port's model layer (``models/``).  Request lifecycle:
     generated token is the argmax at the *padded* last position.
   * decode: batched single-token steps (``_decode_step``); each layer's
     attention runs over the pool through per-request block tables with
-    ``paged_attention`` (the hand-written kernel on the card, its plain
-    version on the CPU; the reference calls the plain version on every
-    backend), and ``_merge_self`` folds in the in-flight token's
-    own KV, which is written into the pool after the step.
+    ``paged_attention`` (on the card the hand-written split-KV kernel,
+    each row's pages cut into splits that stream through a shared-memory
+    ring and are merged by log-sum-exp; its plain version on the CPU; the
+    reference calls the plain version on every backend), and
+    ``_merge_self`` folds in the in-flight token's own KV, which is
+    written into the pool after the step.
 
 The ECI manager observes the event stream; every ``window_events`` it
 re-partitions page quotas and write policies across tenants (Actuator =

@@ -6,8 +6,13 @@
 against the reference's ``cache_sim_ref`` and its Pallas
 ``cache_sim_scan`` in interpret mode, on multi-tenant tapes made from a
 numpy seed: hot rows equal, cold rows -1 (the port's contract; the TPU
-kernel returns prefix counts there, which callers mask).  The CUDA kernel
-itself is held against these on the card (``tests/test_torch_gpu.py``).
+kernel returns prefix counts there, which callers mask).  The CUDA
+kernel's own decomposition, ``cache_sim_tiled_ref`` (direct compares over
+each interval's head and tail, a search in each sorted whole tile), is
+held to the reference exactly too: tapes with n not a multiple of the
+tile and n below it, intervals that start or end on a tile edge, occ
+masks.  The CUDA kernel itself is held against these on the card
+(``tests/test_torch_gpu.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +25,9 @@ from repro.kernels.cache_sim.kernel import cache_sim_scan as cache_sim_scan_tpu
 from repro.kernels.cache_sim.ref import cache_sim_ref as cache_sim_ref_jax
 from repro_torch.kernels.cache_sim.kernel import cache_sim_scan
 from repro_torch.kernels.cache_sim.ops import stack_distances
-from repro_torch.kernels.cache_sim.ref import (cache_sim_ref, count_prev_ge,
+from repro_torch.kernels.cache_sim.ref import (cache_sim_ref,
+                                               cache_sim_tiled_ref,
+                                               count_prev_ge,
                                                coverage_counts,
                                                stack_distances_tree)
 
@@ -128,3 +135,65 @@ def test_ops_stack_distances_cpu_route():
     assert sd.dtype == torch.int64
     want = cache_sim_ref(p.int(), q.int(), torch.ones(700, dtype=torch.int32))
     assert torch.equal(sd, want.long())
+
+
+def _reference_counts(prev, nxt, occ):
+    return np.asarray(cache_sim_ref_jax(jnp.asarray(prev, jnp.int32),
+                                        jnp.asarray(nxt, jnp.int32),
+                                        jnp.asarray(occ, jnp.int32)))
+
+
+@pytest.mark.parametrize("tile", [1, 8, 64, 256])
+@pytest.mark.parametrize("n", [1, 17, 256, 257, 1000])
+@pytest.mark.parametrize("occ_kind", ["ones", "reads"])
+def test_tiled_ref_matches_reference(n, tile, occ_kind):
+    """n below the tile, equal to it, one past it and ragged; tiles of 1
+    (no head or tail) up to the kernel's 256."""
+    prev, nxt, _, reads = _tape(n, seed=3 * n + tile)
+    occ = np.ones(n, np.int32) if occ_kind == "ones" else reads.astype(np.int32)
+    want = _reference_counts(prev, nxt, occ)
+    got = cache_sim_tiled_ref(_t(prev).int(), _t(nxt).int(), _t(occ),
+                              tile).numpy()
+    hot = prev >= 0
+    np.testing.assert_array_equal(got[hot], want[hot])
+    assert (got[~hot] == -1).all()
+
+
+@pytest.mark.parametrize("period", [-1, 0, 1, 16])
+@pytest.mark.parametrize("tile", [4, 16])
+def test_tiled_ref_on_tile_edges(tile, period):
+    """Addresses cycling with period ``tile + period`` (and ``2 * tile``)
+    put interval starts ``prev + 1`` and ends ``i`` on tile edges, and
+    intervals of exactly one or two whole tiles; a random occ mask."""
+    n = 40 * tile + 3
+    rng = np.random.default_rng(tile + period)
+    addrs = np.arange(n) % (tile + period if period != 16 else 2 * tile)
+    prev = np.full(n, -1, np.int64)
+    nxt = np.full(n, n, np.int64)
+    last = {}
+    for k, a in enumerate(addrs.tolist()):
+        if a in last:
+            prev[k] = last[a]
+            nxt[last[a]] = k
+        last[a] = k
+    hot = prev >= 0
+    starts, ends = (prev[hot] + 1) % tile == 0, np.flatnonzero(hot) % tile == 0
+    assert starts.any() and ends.any()
+    occ = (rng.random(n) < 0.7).astype(np.int32)
+    want = _reference_counts(prev, nxt, occ)
+    got = cache_sim_tiled_ref(_t(prev).int(), _t(nxt).int(), _t(occ),
+                              tile).numpy()
+    np.testing.assert_array_equal(got[hot], want[hot])
+    assert (got[~hot] == -1).all()
+
+
+def test_tiled_ref_matches_merge_tree_long_intervals():
+    """A 20,000-access tape of four tenants over few addresses: intervals
+    spanning many 256-position tiles, every access occupying."""
+    prev, nxt, _, _ = _tape(20000, seed=21)
+    got = cache_sim_tiled_ref(_t(prev).int(), _t(nxt).int(),
+                              torch.ones(20000, dtype=torch.int32), 256)
+    hot = prev >= 0
+    span = np.flatnonzero(hot) - prev[hot]
+    assert span.max() > 8 * 256
+    assert torch.equal(got.long(), stack_distances_tree(_t(prev), _t(nxt)))

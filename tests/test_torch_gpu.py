@@ -3,16 +3,20 @@
 Every test here needs a Hopper card and skips elsewhere with the reason;
 run them on the card with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``.  They hold each kernel against its plain
-PyTorch version on the same inputs, exactly (the counts are integers),
-and run ``pgd_solve``, the 256-tenant SHARDS-sampled manager, two-level
+PyTorch version on the same inputs, exactly (the counts are integers;
+``cache_sim_scan`` on intervals spanning many tiles and on one 16-tenant
+MSR window), and run ``pgd_solve``, the 256-tenant SHARDS-sampled
+manager, two-level
 ``simulate_many`` (through both residency routes), the ``etica``
 manager, ``reuse_distances_accel`` (``urd_scan``), the fast greedy walk,
 the ``static`` and ``reuse_intensity`` managers and an event-driven
 churn scenario on the card against the CPU; the prefill attention and
 SSD kernels against their plain versions, and the smoke zamba2 model
 through ``prefill`` and ``decode_step``, card against CPU; the paged
-decode attention against its plain version, and the serving engine on
-the smoke qwen3 config, card against CPU.
+decode attention against its plain version and its split decomposition
+(long rows at B 1 and 4, a row of length 0, the same bits from call to
+call), and the serving engine on the smoke qwen3 config, card against
+CPU.
 This module imports nothing of JAX, so it runs where JAX is absent.
 """
 import numpy as np
@@ -67,9 +71,13 @@ from repro_torch.models.model import (decode_step, hybrid_groups,
                                       params_from_jax, prefill)
 from repro_torch.cache import BlockPool, TieredKVCache
 from repro_torch.core import ECICacheManager
-from repro_torch.kernels.paged_attention.kernel import paged_attention
+from repro_torch.kernels.paged_attention.kernel import (TILE as PAGED_TILE,
+                                                        paged_attention,
+                                                        split_count)
 from repro_torch.kernels.paged_attention.ref import SWEEP as PAGED_SWEEP
-from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+from repro_torch.kernels.paged_attention.ref import (LONG_ROWS,
+                                                     paged_attention_ref,
+                                                     paged_attention_split_ref,
                                                      sweep_arrays)
 from repro_torch.serve.engine import MultiTenantEngine, Request
 
@@ -131,6 +139,44 @@ def test_launch_counter_and_input_checks(card):
     with pytest.raises(ValueError):
         cache_sim_scan(prev, nxt, torch.ones_like(prev))   # int64
     assert cache_sim_scan.launches == before + 1
+
+
+@pytest.mark.parametrize("n,addrs", [(100, 4), (511, 600), (20000, 300),
+                                     (20000, 6000)])
+def test_cache_sim_scan_long_intervals_on_card(card, n, addrs):
+    """The two-pass tiled count, exactly against the dense definition:
+    n below a tile, ragged, and intervals spanning many tiles (one tenant
+    over ``addrs`` addresses); occ = 1 and a read mask.  Each call is one
+    launch."""
+    rng = np.random.default_rng(n + addrs)
+    a = torch.as_tensor(rng.integers(0, addrs, n), device=card)
+    prev, nxt, _, _ = segment_links(a, torch.zeros_like(a),
+                                    torch.full_like(a, n))
+    p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
+    reads = torch.as_tensor(rng.random(n) < 0.6, device=card)
+    for occ in (torch.ones_like(p32), reads.to(torch.int32)):
+        before = cache_sim_scan.launches
+        got = cache_sim_scan(p32, n32, occ)
+        assert cache_sim_scan.launches == before + 1
+        want = cache_sim_ref(p32, n32, occ)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_cache_sim_scan_msr_window_on_card(card):
+    """One 16-tenant MSR window (16 x 65,536 accesses, links severed per
+    tenant): equal to the merge tree exactly."""
+    traces = [msr_trace(p, 65536, seed=i)
+              for i, p in enumerate(list(MSR_PROFILES)[:16])]
+    addrs = torch.cat([t.addrs for t in traces]).to(card)
+    lens = torch.tensor([len(t) for t in traces], device=card)
+    tid = torch.repeat_interleave(torch.arange(16, device=card), lens)
+    prev, nxt, _, _ = segment_links(addrs, tid, torch.cumsum(lens, 0)[tid])
+    want = stack_distances_tree(prev, nxt)
+    p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
+    got = cache_sim_scan(p32, n32, torch.ones_like(p32))
+    torch.cuda.synchronize()
+    assert torch.equal(got.long(), want)
 
 
 def test_manager_on_card_matches_cpu(card):
@@ -701,6 +747,36 @@ def test_paged_attention_launch_counter_and_input_checks(card):
         with pytest.raises(ValueError):
             paged_attention(*args)
     assert paged_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LONG_ROWS + PAGED_SWEEP)
+def test_paged_attention_split_merges_on_card(card, case, dtype):
+    """Long rows at B 1 and 4 and the sweep: against
+    ``paged_attention_ref`` (f32 2e-5, bf16 2e-2) and the split
+    decomposition with the kernel's own split count; a row of length 0
+    writes 0; a second call gives the same bits (the splits merge in a
+    fixed order); one launch counted a call."""
+    a = sweep_arrays(case, seed=8)
+    args = [torch.from_numpy(a[n]).to(card) for n in
+            ("q", "k_pages", "v_pages", "block_tables", "seq_lens")]
+    args[:3] = [t.to(dtype) for t in args[:3]]
+    before = paged_attention.launches
+    got = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    n_split, _ = split_count(case[0], case[2], case[5], case[4],
+                             PAGED_TILE[dtype],
+                             torch.cuda.get_device_properties(card)
+                             .multi_processor_count)
+    live = args[4] > 0
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for want in (paged_attention_ref(*args),
+                 paged_attention_split_ref(*args, n_split)):
+        torch.testing.assert_close(got[live].float(), want[live].float(),
+                                   rtol=tol, atol=tol)
+    assert not bool(got[~live].any())
+    assert torch.equal(got, paged_attention(*args))
 
 
 def _qwen3_engine(device, params, capacity2):
