@@ -8,7 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 Phases:
   1. print the card (``nvidia-smi`` name and power limit, torch's name);
   2. build the eight CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
-     one ``nvcc`` per source, all started together;
+     one ``nvcc`` per source, all started together (``cache_sim_scan``,
+     ``cache_sim_levels_scan`` and ``urd_scan`` include the shared tiled
+     count ``cache_sim/csrc/tiled_count.cuh``, hashed with them);
   3. hold each kernel against its plain PyTorch version on the card,
      exactly: ``cache_sim_scan`` vs the dense ``cache_sim_ref`` at tape
      lengths 1 .. 32768 (multi-tenant severed links, cold rows,
@@ -21,7 +23,13 @@ Phases:
      at n = 1 .. 65,536 (ragged tenant blocks; cap1 = 0, cap1 = captot
      and varying rows; rows with nxt = -1, j and n); ``urd_scan`` vs the
      dense ``urd_scan_ref`` at n = 1 .. 65,536 (ragged tenant blocks,
-     severed links, cold rows); ``flash_attention`` vs the dense
+     severed links, cold rows); ``urd_scan`` and ``cache_sim_levels_scan``
+     vs the dense definitions and the tiled decompositions
+     (``cache_sim_tiled_ref`` with occ = 1, ``cache_sim_levels_tiled_ref``)
+     at n = 1, 255, 256, 257, 4097 and 65,536 on tapes with intervals
+     that start and end on tile edges and, at 65,536, cross more than 16
+     whole tiles, links severed per tenant, and capacities of every kind
+     (cap1 > captot, cap1 = 0, captot = 0); ``flash_attention`` vs the dense
      ``attention_ref`` at the kernel's ``ref.SWEEP`` (tests/test_kernels.py's
      sweep plus head dim 112, GQA 16/8, ragged ``Sq != Skv``,
      ``window=96`` and ``Dv != D``), float32 (2e-5) and bfloat16 (2e-2);
@@ -131,9 +139,12 @@ Phases:
      version there too; ``cache_sim_scan`` a call and alone, with its
      direct compares and tile searches beside the positions the previous
      design walked, and at the 256-tenant path's first tape (16.8 M rows)
-     against the merge tree; ``urd_scan`` at a 65,536-row
-     Table-3 window and at the 1,048,576-row 16-tenant tape that times
-     ``cache_sim_scan``;
+     against the merge tree; ``urd_scan`` at one seed-row window
+     (tenant 0 of the control plane's ``synthetic_mix``, 8,000 accesses; a
+     call, alone, and the 1024 windows in turn), at a 65,536-row Table-3
+     window and at the 1,048,576-row 16-tenant tape that times
+     ``cache_sim_scan``, a call and alone; ``cache_sim_levels_scan`` at the
+     last ETICA window's tape, a call and alone;
  15. print the kernels line, the card line and, last, the result line.
 
 Exits non-zero, printing no result, when no card is visible or any
@@ -208,11 +219,15 @@ PEAK_TF32_PER_S = 495e12
 # the kernels' times before their redesign, printed beside the new ones
 # and kept out of the kernels line, which carries this run's numbers only:
 # flash_attention at zamba2-7b's prefill, mamba2_ssd at its layer,
-# paged_attention at qwen3-0.6b's serving decode and cache_sim_scan at
-# the 16-tenant window tape (this script on NVIDIA H100 80GB HBM3,
-# 700.00 W; PERF.md §6)
+# paged_attention at qwen3-0.6b's serving decode, cache_sim_scan and
+# urd_scan at the 16-tenant window tape, urd_scan at the Table-3 window
+# and cache_sim_levels_scan at the last ETICA window's tape (this script
+# on NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6); and cache_sim_scan's
+# own time there after its redesign, which the shared tiled count keeps
 PREV_MS = {"flash_attention": 6.387, "mamba2_ssd": 5.658,
-           "paged_attention": 0.2815, "cache_sim_scan": 0.564}
+           "paged_attention": 0.2815, "cache_sim_scan": 0.564,
+           "urd_scan": 0.358, "urd_scan_table3": 0.0283,
+           "cache_sim_levels_scan": 0.905, "cache_sim_scan_tiled": 0.2764}
 # the serving path: qwen3-0.6b at full width in bf16 from seed 0 over a
 # 14 GiB pool of 16-token pages; the manager partitions 4096 of its pages
 # between two tenants after bench_serving_cache.py's: "chat" (a shared
@@ -274,6 +289,65 @@ def tape_links(n: int, seed: int, device) -> tuple[torch.Tensor, ...]:
     prev, nxt_c, _, _ = segment_links(t(addrs), t(tid), t(bounds[1:])[t(tid)])
     reads = torch.as_tensor(rng.random(n) < 0.6, device=device)
     return prev, nxt_c, reads
+
+
+def edge_tape(n: int, seed: int, device) -> tuple[torch.Tensor, ...]:
+    """``tape_links``'s tenant blocks (links severed per block) plus, at
+    every tile edge e of the tiled count, a fresh address touched at
+    e - 1 and at a random later row of its block (an interval that starts
+    on the edge, often crossing many whole tiles) and one touched at a
+    random earlier row of e's block and at e (one that ends on it)."""
+    from repro_torch.core.batch_sim import segment_links
+    from repro_torch.kernels.cache_sim.kernel import TILE
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.choice(np.arange(1, n), size=min(3, n - 1),
+                              replace=False)) if n > 1 else np.zeros(0)
+    bounds = np.concatenate([[0], cuts, [n]]).astype(np.int64)
+    lens = np.diff(bounds)
+    addrs = np.concatenate([rng.integers(0, max(4, ln // 3), ln)
+                            for ln in lens])
+    block = np.repeat(np.arange(lens.size), lens)
+    fresh = int(addrs.max()) + 1
+    for e in range(TILE, n, TILE):
+        end = bounds[block[e - 1] + 1]
+        if e + 1 < end:
+            addrs[e - 1] = addrs[rng.integers(e + 1, end)] = fresh
+        start = bounds[block[e]]
+        if start < e - 1:
+            addrs[rng.integers(start, e - 1)] = addrs[e] = fresh + 1
+        fresh += 2
+    t = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)  # noqa: E731
+    prev, nxt, _, _ = segment_links(t(addrs), t(block),
+                                    t(bounds[1:])[t(block)])
+    reads = torch.as_tensor(rng.random(n) < 0.6, device=device)
+    return prev, nxt, reads
+
+
+def edge_caps(n: int, seed: int, device) -> tuple[torch.Tensor, ...]:
+    """Per-row capacities of every kind, at random: cap1 = 0, captot = 0,
+    cap1 > captot, cap1 = captot and cap1 < captot."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, max(8, n // 64), n)
+    b = rng.integers(0, max(8, n // 64), n)
+    kind = rng.integers(0, 5, n)
+    cap1 = np.select([kind == 0, kind == 2, kind == 4],
+                     [0, np.maximum(a, b), np.minimum(a, b)], a)
+    captot = np.select([kind == 1, kind == 2, kind == 3, kind == 4],
+                       [0, np.minimum(a, b), a, np.maximum(a, b)], b)
+    return (torch.as_tensor(cap1, dtype=torch.int32, device=device),
+            torch.as_tensor(captot, dtype=torch.int32, device=device))
+
+
+def edge_rows(prev: torch.Tensor, tile: int) -> tuple[int, int, int]:
+    """(hot rows whose interval starts on a tile edge, hot rows whose
+    interval ends on one, most whole tiles an interval crosses)."""
+    pos = torch.arange(prev.shape[0], device=prev.device)
+    hot = prev >= 0
+    lo, hi = prev[hot] + 1, pos[hot]
+    whole = (hi // tile - (lo + tile - 1) // tile).clamp(min=0)
+    return (int(((lo % tile == 0) & (lo < hi)).sum()),
+            int(((hi % tile == 0) & (lo < hi)).sum()),
+            int(whole.max()) if whole.numel() else 0)
 
 
 def padded_group_links(gprev, gnxt, gocc, w, lo, hi):
@@ -1979,9 +2053,11 @@ def main() -> int:
                                                       live_count_scan)
     from repro_torch.kernels.cache_sim.ops import width_groups_of
     from repro_torch.kernels.cache_sim.ref import (cache_sim_levels_ref,
+                                                   cache_sim_levels_tiled_ref,
                                                    cache_sim_ref,
                                                    cache_sim_segments_ref,
                                                    cache_sim_segments_tree,
+                                                   cache_sim_tiled_ref,
                                                    live_counts_delta,
                                                    live_counts_ref,
                                                    stack_distances_tree)
@@ -2096,6 +2172,39 @@ def main() -> int:
         assert bool((got[prev < 0] == -1).all()), "cold rows must be -1"
         print(f"check: urd_scan == urd_scan_ref at n={n} (ragged tenant "
               f"blocks, severed links; {int((prev < 0).sum())} cold rows)")
+    # the shared tiled count's corners: tile-edge intervals, intervals past
+    # 16 whole tiles (a row's lanes loop), capacities of every kind
+    for n in (1, 255, 256, 257, 4097, 65536):
+        prev, nxt, reads = edge_tape(n, seed=n + 13, device=dev)
+        starts, ends, whole = edge_rows(prev, TILE)
+        assert (starts > 0 or n <= 2 * TILE) and (ends > 0 or n <= TILE)
+        assert n < 65536 or whole > 16, whole
+        p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
+        ones = torch.ones_like(p32)
+        got = urd_scan(p32, n32)
+        check("urd_scan", f"edge tape n={n} vs dense", got,
+              urd_scan_ref(p32, n32))
+        check("urd_scan", f"edge tape n={n} vs tiled", got,
+              cache_sim_tiled_ref(p32, n32, ones, TILE))
+        cap1, captot = edge_caps(n, n, dev)
+        for tag, occ in (("occ=1", ones),
+                         ("occ=is_read", reads.to(torch.int32))):
+            got = cache_sim_levels_scan(p32, n32, occ, cap1, captot)
+            for plain, want in (
+                    ("dense", cache_sim_levels_ref(p32, n32, occ, cap1,
+                                                   captot)),
+                    ("tiled", cache_sim_levels_tiled_ref(p32, n32, occ, cap1,
+                                                         captot, TILE))):
+                for g, w, lv in zip(got, want, ("l1", "union")):
+                    check("cache_sim_levels_scan",
+                          f"edge tape n={n} {tag} {lv} vs {plain}", g, w)
+        print(f"check: urd_scan and cache_sim_levels_scan == dense and "
+              f"tiled plain versions on the edge tape at n={n} ({starts} "
+              f"rows start and {ends} end on a tile edge, up to {whole} "
+              f"whole tiles; cap1 > captot on "
+              f"{int((cap1 > captot).sum())} rows, cap1 = 0 on "
+              f"{int((cap1 == 0).sum())}, captot = 0 on "
+              f"{int((captot == 0).sum())})")
     model_kernel_checks(dev, max_err)
     paged_kernel_checks(dev, max_err)
     print(f"phase seconds: build and kernel checks done at "
@@ -2248,7 +2357,9 @@ def main() -> int:
     # Fenwick-tree count needs n * ceil(log2 n) operations
     bnd, bnd_by = bound_ms(16 * m, m * math.ceil(math.log2(max(m, 2))))
     print(f"full tape: {m} accesses; cache_sim_scan {ms:.4f} ms at tile "
-          f"{TILE} (before its redesign {PREV_MS['cache_sim_scan']} ms), "
+          f"{TILE} (before its redesign {PREV_MS['cache_sim_scan']} ms; "
+          f"{ms / PREV_MS['cache_sim_scan_tiled']:.3f}x the tiled count's "
+          f"{PREV_MS['cache_sim_scan_tiled']} ms before it was shared), "
           f"merge-tree route {plain_ms:.3f} ms, bound {bnd:.6f} ms by "
           f"{bnd_by}; kernel / bound = {ms / bnd:.1f}")
     # the 256-tenant path's window-0 tape (its first launch)
@@ -2272,32 +2383,49 @@ def main() -> int:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": bnd_by,
         "library_ms": None}]
 
-    # ---- 14b. urd_scan at the same 16-tenant tape and at a Table-3 window
-    got = urd_scan(p32, n32)
-    check("urd_scan", "full tape vs merge tree", got,
-          stack_distances_tree(prev, nxt_c))
-    urd_ms = cuda_ms(lambda: urd_scan(p32, n32), REPS)
-    urd_plain = cuda_ms(lambda: stack_distances_tree(prev, nxt_c), REPS // 4)
-    m = int(prev.shape[0])
-    # the function's floor: read prev and nxt and write RD once (12 n
-    # bytes); a Fenwick-tree count's n * ceil(log2 n) operations
-    urd_bnd, urd_by = bound_ms(12 * m, m * math.ceil(math.log2(max(m, 2))))
-    print(f"full tape: {m} accesses; urd_scan {urd_ms:.3f} ms, merge-tree "
-          f"route {urd_plain:.3f} ms, bound {urd_bnd:.6f} ms by {urd_by}; "
-          f"kernel / bound = {urd_ms / urd_bnd:.1f}")
+    # ---- 14b. urd_scan at a seed-row window, a Table-3 window and the
+    # same 16-tenant tape
+    def urd_timed(what, prev_l, nxt_l, reps=REPS):
+        """Held to the merge tree, then a call, alone, the merge tree's
+        time and the bound: reading prev and nxt and writing RD once (12 n
+        bytes); a Fenwick-tree count's n * ceil(log2 n) operations."""
+        p, q = prev_l.to(torch.int32), nxt_l.to(torch.int32)
+        check("urd_scan", f"{what} vs merge tree", urd_scan(p, q),
+              stack_distances_tree(prev_l, nxt_l))
+        n_ = int(p.shape[0])
+        call = cuda_ms(lambda: urd_scan(p, q), reps)
+        alone = graph_ms(lambda: urd_scan(p, q), reps)
+        plain = cuda_ms(lambda: stack_distances_tree(prev_l, nxt_l),
+                        max(1, reps // 4))
+        bnd_, by_ = bound_ms(12 * n_, n_ * math.ceil(math.log2(max(n_, 2))))
+        print(f"{what}: {n_} accesses, {int((prev_l >= 0).sum())} hot; "
+              f"urd_scan {call:.4f} ms a call, {alone:.4f} alone, "
+              f"merge-tree route {plain:.3f} ms, bound {bnd_:.6f} ms by "
+              f"{by_}; kernel / bound = {call / bnd_:.1f}")
+        return call, plain, bnd_, by_
+
+    from repro_torch.data.traces import synthetic_mix
+    mix = synthetic_mix(CP_TENANTS, CP_ACCESSES, seed=CP_SEED)
+    seed_links = [prev_next_occurrence(t.addrs.to(dev)) for t in mix]
+    sr_ms, sr_plain, sr_bnd, sr_by = urd_timed(
+        f"seed-row window (tenant 0 of synthetic_mix({CP_TENANTS}, "
+        f"{CP_ACCESSES}, seed={CP_SEED}))", *seed_links[0])
+    every = [(p.to(torch.int32), q.to(torch.int32)) for p, q in seed_links]
+    row_ms = cuda_ms(lambda: [urd_scan(p, q) for p, q in every], 1)
+    print(f"seed row: the {CP_TENANTS} windows one urd_scan call each in "
+          f"turn, {row_ms:.3f} ms ({row_ms / CP_TENANTS:.4f} ms a call); "
+          f"launches x (time - bound) = "
+          f"{CP_TENANTS * (sr_ms - sr_bnd):.3f} ms")
+    del mix, seed_links, every
     t3 = msr_trace(TABLE3[0], ACCESSES, seed=3)
-    prev3, nxt3 = prev_next_occurrence(t3.addrs.to(dev))
-    p3, n3 = prev3.to(torch.int32), nxt3.to(torch.int32)
-    check("urd_scan", "Table-3 window vs merge tree", urd_scan(p3, n3),
-          stack_distances_tree(prev3, nxt3))
-    t3_ms = cuda_ms(lambda: urd_scan(p3, n3), REPS)
-    t3_plain = cuda_ms(lambda: stack_distances_tree(prev3, nxt3), REPS // 4)
-    m3 = int(prev3.shape[0])
-    t3_bnd, t3_by = bound_ms(12 * m3, m3 * math.ceil(math.log2(m3)))
-    print(f"Table-3 window ({TABLE3[0]}): {m3} accesses; urd_scan "
-          f"{t3_ms:.4f} ms, merge-tree route {t3_plain:.3f} ms, bound "
-          f"{t3_bnd:.6f} ms by {t3_by}; kernel / bound = "
-          f"{t3_ms / t3_bnd:.1f}")
+    urd_timed(f"Table-3 window ({TABLE3[0]}; before the tiled count "
+              f"{PREV_MS['urd_scan_table3']} ms)",
+              *prev_next_occurrence(t3.addrs.to(dev)))
+    urd_ms, urd_plain, urd_bnd, urd_by = urd_timed(
+        f"full tape (before the tiled count {PREV_MS['urd_scan']} ms)",
+        prev, nxt_c)
+    # the row of earlier runs, at the 16-tenant tape, and the seed-row
+    # window, where the control plane's launches run, as a row of its own
     urd_row = {
         "name": "urd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/urd_scan/csrc/urd_scan.cu",
@@ -2306,10 +2434,19 @@ def main() -> int:
         "max_abs_err": max_err["urd_scan"],
         "ms": urd_ms, "plain_ms": urd_plain, "bound_ms": urd_bnd,
         "bound_by": urd_by, "library_ms": None}
+    urd_seed_row = {
+        **urd_row, "shape": f"control-plane seed-row window, tenant 0 of "
+                            f"synthetic_mix({CP_TENANTS}, {CP_ACCESSES}, "
+                            f"seed={CP_SEED})",
+        "launches": launches_cp["urd_scan"],
+        "ms": sr_ms, "plain_ms": sr_plain, "bound_ms": sr_bnd,
+        "bound_by": sr_by}
     print(f"urd_scan launches on its paths: Table-3 Analyzer "
           f"{launches_t3['urd_scan']}, control-plane seed row "
           f"{launches_cp['urd_scan']}; on the scenario path "
-          f"{launches_sc['urd_scan']}")
+          f"{launches_sc['urd_scan']}; the kernels line gives its time at "
+          f"the 16-tenant tape (with both paths' launches, as before) and "
+          f"at the seed-row window (with the seed row's)")
 
     # ---- 14c. full sampled tape: cache_sim_segments_scan vs its tree
     str0 = swindows[0]
@@ -2374,14 +2511,18 @@ def main() -> int:
     hot = prev >= 0
     lv_ms = cuda_ms(lambda: cache_sim_levels_scan(p32, n32, ones, c132,
                                                   ct32), REPS)
+    lv_alone = graph_ms(lambda: cache_sim_levels_scan(p32, n32, ones, c132,
+                                                      ct32), REPS)
     lv_plain = cuda_ms(levels_plain, REPS // 4)
     # the function's floor: read prev, nxt, occ, cap1, captot and write
     # both masks once (28 n bytes); a Fenwick count's n * ceil(log2 n)
     bnd, bnd_by = bound_ms(28 * m, m * math.ceil(math.log2(max(m, 2))))
     print(f"ETICA tape (window {WINDOWS - 1}, warm prefixes included): {m} "
           f"accesses, {int(hot.sum())} hot; cache_sim_levels_scan "
-          f"{lv_ms:.3f} ms, merge tree + compares {lv_plain:.3f} ms, bound "
-          f"{bnd:.6f} ms by {bnd_by}; kernel / bound = {lv_ms / bnd:.1f}")
+          f"{lv_ms:.4f} ms a call, {lv_alone:.4f} alone (before the tiled "
+          f"count {PREV_MS['cache_sim_levels_scan']} ms), merge tree + "
+          f"compares {lv_plain:.3f} ms, bound {bnd:.6f} ms by {bnd_by}; "
+          f"kernel / bound = {lv_ms / bnd:.1f}")
     rows.append({
         "name": "cache_sim_levels_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/cache_sim/csrc/"
@@ -2419,7 +2560,7 @@ def main() -> int:
         "max_abs_err": max_err["live_count_scan"],
         "ms": lc_ms, "plain_ms": lc_plain, "bound_ms": bnd,
         "bound_by": bnd_by, "library_ms": None})
-    rows.append(urd_row)
+    rows += [urd_row, urd_seed_row]
     rows.extend(model_rows)
     rows.extend(serve_rows)
     print(f"cache_sim_scan launches on the 256-tenant path: "

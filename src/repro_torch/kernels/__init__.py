@@ -8,8 +8,10 @@ dispatch on the device of the tensors it is given).
 Kernels are compiled on first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``; the
 library lands in ``_build/`` next to this file, keyed by a hash of its
-sources and flags, so a checkout builds everything it runs from its own
-sources.  Nothing is built or loaded at import time.
+sources, the headers they include and the flags, so a checkout builds
+everything it runs from its own sources and an edited header rebuilds
+every library that includes it.  Nothing is built or loaded at import
+time.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,13 +27,14 @@ import tempfile
 import torch
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "hopper_available",
-           "load_library"]
+           "library_path", "load_library"]
 
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[tuple[str, ...], ctypes.CDLL] = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def hopper_available() -> bool:
@@ -53,20 +57,44 @@ def _nvcc() -> str:
     return found
 
 
+def _included(sources: list[pathlib.Path]) -> list[pathlib.Path]:
+    """Every file the sources include by a quoted path (``#include
+    "..."``, resolved against the including file), transitively, in a
+    fixed order; system headers (``<...>``) are left to ``NVCC_FLAGS``."""
+    found: dict[pathlib.Path, None] = {}
+    todo = [pathlib.Path(s).resolve() for s in sources]
+    while todo:
+        src = todo.pop()
+        for rel in _INCLUDE.findall(src.read_text()):
+            inc = (src.parent / rel).resolve()
+            if inc not in found:
+                found[inc] = None
+                todo.append(inc)
+    return sorted(found)
+
+
+def library_path(name: str, sources: list[pathlib.Path]) -> pathlib.Path:
+    """``_build/lib<name>-<hash>.so``: the hash covers the flags, every
+    source and every header the sources include, so editing any of them
+    names a new library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (*sources, *_included(sources)):
+        h.update(pathlib.Path(src).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
 def build_library(name: str, sources: list[pathlib.Path]
                   ) -> tuple[pathlib.Path, str]:
-    """Compile ``sources`` into ``_build/lib<name>-<hash>.so``.
+    """Compile ``sources`` into ``library_path(name, sources)``.
 
-    Returns the library path and the compiler's output (``-Xptxas -v``
-    prints registers, shared memory and spills per kernel); an existing
-    library with the same hash is reused and returns an empty log.  The
-    build writes to a temporary name and renames, so two processes
-    building at once never load a half-written file.
+    ``nvcc`` is given the sources only; the headers they include are
+    hashed with them.  Returns the library path and the compiler's output
+    (``-Xptxas -v`` prints registers, shared memory and spills per
+    kernel); an existing library with the same hash is reused and returns
+    an empty log.  The build writes to a temporary name and renames, so
+    two processes building at once never load a half-written file.
     """
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(pathlib.Path(src).read_bytes())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    out = library_path(name, sources)
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

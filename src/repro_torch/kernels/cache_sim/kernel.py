@@ -2,19 +2,25 @@
 
 * ``cache_sim_scan`` (``csrc/cache_sim.cu``) replaces the reference's
   Pallas TPU kernel ``src/repro/kernels/cache_sim/kernel.py:63``: a tiled
-  count in two kernels, the tape's tiles sorted first, then each row's
-  interval counted as a head by direct compares, a search in each whole
-  tile after it, and a tail from its own tile's coverage count
-  (``ref.cache_sim_tiled_ref`` is the decomposition in plain torch).
+  count in two kernels (``csrc/tiled_count.cuh``), the tape's tiles sorted
+  first, then each row's interval counted as a head by direct compares, a
+  search in each whole tile after it, and a tail from its own tile's
+  coverage count (``ref.cache_sim_tiled_ref`` is the decomposition in
+  plain torch).
 * ``cache_sim_segments_scan`` (``csrc/cache_sim_segments.cu``) replaces
   ``kernel.py:136``: the same count on a padded, self-aligned
   multi-tenant tape, j restricted to the row's ``seg_width`` block; a
   thread block stages its row tile's range through shared memory.
+* ``cache_sim_levels_scan`` (``csrc/cache_sim_levels.cu``) replaces
+  ``kernel.py:294``: ``cache_sim_scan``'s tiled count, its exact count
+  compared with two per-row capacities (``ref.cache_sim_levels_tiled_ref``
+  is the decomposition in plain torch).
+* ``live_count_scan`` (``csrc/live_count.cu``) replaces ``kernel.py:220``.
 
-Both count in int32; each source says what bounds it on the card.  Cold
-rows (``prev < 0``) come back as -1, here and in the plain versions
-(``ref.cache_sim_ref``, ``ref.cache_sim_segments_ref``).  Each source is
-its own library, so the two build in parallel.
+They count in int32; each source says what bounds it on the card.  Cold
+rows (``prev < 0``) come back as -1 from the counts, here and in the
+plain versions (``ref.cache_sim_ref``, ``ref.cache_sim_segments_ref``).
+Each source is its own library, so they build in parallel.
 """
 from __future__ import annotations
 
@@ -42,10 +48,9 @@ LIBRARIES = (("cache_sim", SOURCES), ("cache_sim_segments", SEGMENTS_SOURCES),
              ("cache_sim_levels", LEVELS_SOURCES),
              ("live_count", LIVE_SOURCES))
 _LIVE_TILE = 8192                   # live_count.cu's kTile
-TILE = 256                          # cache_sim.cu's kTile
+TILE = 256                          # tiled_count.cuh's kTile
 _SAMPLE = 16                        # sorted keys per sample
 _MAX_N = 2**31 - 32                 # the contract's bound: n, i in int32
-_MAX_LEVELS_N = 2**31 - 128         # cache_sim_levels.cu reads 128 ahead
 _MAX_M = 2**31 - 2**14              # every chunk end stays in int32
 
 
@@ -69,7 +74,7 @@ def _segments_lib() -> ctypes.CDLL:
 def _levels_lib() -> ctypes.CDLL:
     lib = load_library("cache_sim_levels", LEVELS_SOURCES)
     fn = lib.cache_sim_levels_scan
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -101,6 +106,16 @@ def _check_int32(*named: tuple[str, torch.Tensor]) -> None:
                              f"got {t.dtype}")
 
 
+def tiled_scratch(n: int, device: torch.device,
+                  keys: bool = True) -> torch.Tensor:
+    """Scratch of ``tiled_count.cuh``'s two passes: the sorted whole tiles
+    and their samples, then every position's key where the keys are not
+    ``nxt`` itself (``keys``)."""
+    return torch.empty(n // TILE * (TILE + TILE // _SAMPLE)
+                       + (n if keys else 0), dtype=torch.int32,
+                       device=device)
+
+
 def cache_sim_scan(prev: torch.Tensor, nxt: torch.Tensor,
                    occ: torch.Tensor) -> torch.Tensor:
     """prev/nxt/occ int32[n] -> counts int32[n]; -1 at cold rows.
@@ -123,9 +138,7 @@ def cache_sim_scan(prev: torch.Tensor, nxt: torch.Tensor,
     out = torch.empty_like(prev)
     if n == 0:
         return out
-    # sorted tiles, their samples, then every position's key
-    scratch = torch.empty(n // TILE * (TILE + TILE // _SAMPLE) + n,
-                          dtype=torch.int32, device=prev.device)
+    scratch = tiled_scratch(n, prev.device)
     stream = torch.cuda.current_stream(prev.device).cuda_stream
     err = _lib().cache_sim_scan(prev.data_ptr(), nxt.data_ptr(),
                                 occ.data_ptr(), out.data_ptr(),
@@ -190,11 +203,12 @@ def cache_sim_levels_scan(prev: torch.Tensor, nxt: torch.Tensor,
 
     With ``SD[i] = #{ j : prev[i] < j < i, occ[j] > 0, nxt[j] >= i }``:
     ``l1[i] = prev[i] >= 0 and SD[i] < cap1[i]`` and ``union[i] =
-    prev[i] >= 0 and SD[i] < captot[i]``, 0/1; cold rows are 0.  Needs
-    ``cap1 <= captot`` row by row.  On CUDA tensors this launches the
-    kernel on the current stream (and raises if the launch is refused);
-    on CPU tensors it returns the plain version ``cache_sim_levels_ref``.
-    ``cache_sim_levels_scan.launches`` counts kernel launches.
+    prev[i] >= 0 and SD[i] < captot[i]``, 0/1; cold rows are 0, for any
+    capacities.  On CUDA tensors this launches the two kernels on the
+    current stream (and raises if a launch is refused), with no read back
+    to the host; on CPU tensors it returns the plain version
+    ``cache_sim_levels_ref``.  ``cache_sim_levels_scan.launches`` counts
+    calls that launched.
     """
     args = (("prev", prev), ("nxt", nxt), ("occ", occ), ("cap1", cap1),
             ("captot", captot))
@@ -203,23 +217,19 @@ def cache_sim_levels_scan(prev: torch.Tensor, nxt: torch.Tensor,
         return cache_sim_levels_ref(prev, nxt, occ, cap1, captot)
     _check_int32(*args)
     n = prev.shape[0]
-    if n >= _MAX_LEVELS_N:
+    if n >= _MAX_N:
         raise ValueError(f"tape of {n} accesses exceeds the kernel's "
-                         f"int32 positions (< {_MAX_LEVELS_N})")
-    # a deliberate host read of the input check; RL001 flags it only
-    # because the reference's jitted code calls its own function of this
-    # name (the lint resolves callees by name across kernel modules),
-    # and nothing traces this torch wrapper
-    if not bool((cap1 <= captot).all()):  # repro-lint: disable=RL001
-        raise ValueError("cap1 must not exceed captot on any row")
+                         f"int32 positions (< {_MAX_N})")
     l1 = torch.empty_like(prev)
     un = torch.empty_like(prev)
     if n == 0:
         return l1, un
+    scratch = tiled_scratch(n, prev.device)
     stream = torch.cuda.current_stream(prev.device).cuda_stream
     err = _levels_lib().cache_sim_levels_scan(
         prev.data_ptr(), nxt.data_ptr(), occ.data_ptr(), cap1.data_ptr(),
-        captot.data_ptr(), l1.data_ptr(), un.data_ptr(), n, stream)
+        captot.data_ptr(), l1.data_ptr(), un.data_ptr(), scratch.data_ptr(),
+        n, stream)
     if err != 0:
         raise RuntimeError(f"cache_sim_levels_scan launch failed "
                            f"(cudaError {err})")

@@ -18,7 +18,8 @@ Three routes to the same numbers, all running on any device:
 
 The two-level hierarchy's kernels have dense yardsticks here too:
 ``cache_sim_levels_ref`` (the count compared with two per-row capacity
-thresholds, the masks of ``cache_sim_levels_scan``) and
+thresholds, the masks of ``cache_sim_levels_scan``, whose decomposition
+is ``cache_sim_levels_tiled_ref``) and
 ``live_counts_ref`` (the RO live count of ``live_count_scan``, with its
 O(n) form ``live_counts_delta``, which a CPU tensor takes on the main
 path).
@@ -37,7 +38,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["cache_sim_levels_ref", "cache_sim_ref", "cache_sim_segments_ref",
+__all__ = ["cache_sim_levels_ref", "cache_sim_levels_tiled_ref",
+           "cache_sim_ref", "cache_sim_segments_ref",
            "cache_sim_segments_tree", "cache_sim_tiled_ref",
            "count_prev_ge", "coverage_counts",
            "live_counts_delta", "live_counts_ref", "stack_distances_tree"]
@@ -136,6 +138,20 @@ def cache_sim_levels_ref(prev: torch.Tensor, nxt: torch.Tensor,
     Cold rows are 0 in both.
     """
     counts = cache_sim_ref(prev, nxt, occ)
+    hot = prev >= 0
+    return ((hot & (counts < cap1)).to(torch.int32),
+            (hot & (counts < captot)).to(torch.int32))
+
+
+def cache_sim_levels_tiled_ref(prev: torch.Tensor, nxt: torch.Tensor,
+                               occ: torch.Tensor, cap1: torch.Tensor,
+                               captot: torch.Tensor, tile: int
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cache_sim_levels_ref`` as ``cache_sim_levels_scan``'s kernel
+    decomposes it: the exact count of ``cache_sim_tiled_ref`` compared
+    with both capacities, for any capacities (``cap1 > captot`` and zeros
+    included).  int32 0/1 masks ``(l1, union)``, cold rows 0."""
+    counts = cache_sim_tiled_ref(prev, nxt, occ, tile)
     hot = prev >= 0
     return ((hot & (counts < cap1)).to(torch.int32),
             (hot & (counts < captot)).to(torch.int32))

@@ -11,69 +11,47 @@
 // distinct addresses between two touches of the same block (the per-tenant
 // Analyzer's URD/TRD sample before the read/write mask).
 //
-// Design. Row i only needs j inside its own reuse interval (prev[i], i), so
-// one warp per row walks that interval 32 positions at a time: lane k reads
-// nxt[prev[i] + 1 + k], + 32, ..., so neighbouring lanes read neighbouring
-// words (coalesced). Each lane counts in int32 and the warp reduces with
-// shuffles. The total work is the sum of the reuse intervals, not n^2, and
-// the int32 count is exact at any length (the TPU's fp32 accumulator is
-// exact only below 2^24). It reads no occupancy array: this is the count of
-// cache_sim_scan (src/repro_torch/kernels/cache_sim/csrc/cache_sim.cu)
-// with every position occupying, and it moves a quarter fewer bytes.
+// Design: the count of cache_sim_scan with every position occupying, so it
+// is the tiled count on sorted tiles of the shared header
+// src/repro_torch/kernels/cache_sim/csrc/tiled_count.cuh, included below by
+// its path relative to this file, keyed on nxt itself: no occupancy array
+// is read and no key array is written. Two kernels a call: pass 1 sorts
+// each whole 256-position tile of nxt, pass 2 (launched as its programmatic
+// dependent) counts each row's interval as a head by direct compares, one
+// search in each sorted whole tile after it and a tail from its own tile's
+// coverage count. A row's work is at most 255 compares plus one search a
+// whole tile, not its interval's length (up to 34,148 positions in a
+// 65,536-access MSR window). The Analyzer's tapes are short (8,000 to
+// 65,536 rows, 32 to 256 tiles), so pass 2 splits each tile's rows over
+// several CTAs to fill the card.
 //
 // What bounds it on the card. The function's floor is its bytes: reading
 // prev and nxt once and writing the output once is 12 n bytes (three int32
 // arrays). Its operations do not bound it, since a Fenwick-tree count needs
-// only n * ceil(log2 n) of them. This design does sum_i (i - prev[i] - 1)
-// compares over hot rows, far more than either: rows whose intervals
-// overlap re-read the same nxt words, which L1 and L2 absorb. That work,
-// not the floor, sets its time.
+// only n * ceil(log2 n) of them. Neither sets the time. At a million rows
+// the heads' compares and the searches' L1 and L2 requests do, as for
+// cache_sim_scan. At the Analyzer's tapes the latency of the chain does:
+// two dependent kernels, then in pass 2 a tile's load, its coverage scan,
+// a head and the rounds of searches of a warp's rows. There a walk of each
+// interval by a warp a row ties it at a 65,536-row window and is faster at
+// an 8,000-row one (PERF.md section 6).
 //
 // Contract. Cold rows (prev[i] < 0) write -1, as cache_sim_scan does (the
 // TPU kernel returns a prefix count there, which its callers mask; no
-// caller uses it). The grid masks its own ragged edge, so any n works
-// without padding; the caller keeps n < 2^31 - 32 so that j + 32 never
-// overflows. The launch goes on the caller's stream and the function
-// returns cudaGetLastError() so a refused launch is reported.
+// caller uses it). Any n works without padding; the caller keeps
+// n < 2^31 - 32 and nxt 16-byte aligned. The launches go on the caller's
+// stream and the function returns cudaGetLastError() so a refused launch
+// is reported.
 
-#include <cuda_runtime.h>
+#include "../../cache_sim/csrc/tiled_count.cuh"
 
-namespace {
-
-constexpr int kWarpsPerBlock = 8;
-
-__global__ void urd_scan_kernel(const int* __restrict__ prev,
-                                const int* __restrict__ nxt,
-                                int* __restrict__ out, int n) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n) return;  // warp-uniform: the whole warp leaves together
-  const int i = static_cast<int>(row);
-  const int p = prev[i];
-  if (p < 0) {           // warp-uniform as well
-    if (lane == 0) out[i] = -1;
-    return;
-  }
-  int cnt = 0;
-  for (int j = p + 1 + lane; j < i; j += 32) {
-    cnt += nxt[j] >= i;
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-  }
-  if (lane == 0) out[i] = cnt;
-}
-
-}  // namespace
-
-extern "C" int urd_scan(const void* prev, const void* nxt, void* out, int n,
-                        void* stream) {
+// scratch: (n / 256) * (256 + 16) ints, 16-byte aligned. Returns a
+// cudaError_t (0 on success).
+extern "C" int urd_scan(const void* prev, const void* nxt, void* out,
+                        void* scratch, int n, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  urd_scan_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(prev), static_cast<const int*>(nxt),
-      static_cast<int*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_tiled_count<false>(
+      static_cast<const int*>(prev), static_cast<const int*>(nxt), nullptr,
+      WriteCount{static_cast<int*>(out)}, static_cast<int*>(scratch), n,
+      static_cast<cudaStream_t>(stream));
 }

@@ -5,7 +5,8 @@ holds more than ~16M (i, j) pairs at once: the yardstick the CUDA kernel
 is held against (exactly), for small n.  At any size the wrapper
 ``kernel.urd_scan`` takes the merge-tree route on a CPU tensor instead
 (``kernels.cache_sim.ref.stack_distances_tree``), which gives the same
-integers.
+integers.  The kernel's own decomposition (heads, sorted whole tiles,
+tails) is ``kernels.cache_sim.ref.cache_sim_tiled_ref`` with ``occ = 1``.
 
 Contract shared with the kernel: cold rows (``prev < 0``) get -1.  The
 reference's TPU kernel returns a prefix count there instead, which its

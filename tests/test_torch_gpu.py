@@ -5,8 +5,11 @@ run them on the card with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``.  They hold each kernel against its plain
 PyTorch version on the same inputs, exactly (the counts are integers;
 ``cache_sim_scan`` on intervals spanning many tiles and on one 16-tenant
-MSR window), and run ``pgd_solve``, the 256-tenant SHARDS-sampled
-manager, two-level
+MSR window; ``urd_scan`` and ``cache_sim_levels_scan``, which share its
+tiled count, on intervals that start or end on a tile edge and cross
+more than 16 whole tiles, ``urd_scan`` on the control plane's seed-row
+windows and the levels kernel at any capacities), and run
+``pgd_solve``, the 256-tenant SHARDS-sampled manager, two-level
 ``simulate_many`` (through both residency routes), the ``etica``
 manager, ``reuse_distances_accel`` (``urd_scan``), the fast greedy walk,
 the ``static`` and ``reuse_intensity`` managers and an event-driven
@@ -29,13 +32,15 @@ from repro_torch.core import (LRUCache, Trace, WritePolicy, analyze_windows,
                               sampled_reuse_distances, simulate_many)
 from repro_torch.core.batch_sim import (padded_segment_layout,
                                         padded_tape_links, segment_links)
+from repro_torch.core.trace import prev_next_occurrence
 from repro_torch.core.mrc import build_hit_ratio_functions
 from repro_torch.core.reuse_distance import RDResult
 from repro_torch.core.partitioner import pgd_solve
 from repro_torch.data.scenarios import churn, replay_scenario
 from repro_torch.data.traces import MSR_PROFILES, msr_trace, synthetic_mix
 from repro_torch.kernels import hopper_available
-from repro_torch.kernels.cache_sim.kernel import (cache_sim_levels_scan,
+from repro_torch.kernels.cache_sim.kernel import (TILE,
+                                                  cache_sim_levels_scan,
                                                   cache_sim_scan,
                                                   cache_sim_segments_scan,
                                                   live_count_scan)
@@ -43,9 +48,11 @@ from repro_torch.kernels.cache_sim.ops import (stack_distances,
                                                stack_distances_segments,
                                                width_groups_of)
 from repro_torch.kernels.cache_sim.ref import (cache_sim_levels_ref,
+                                               cache_sim_levels_tiled_ref,
                                                cache_sim_ref,
                                                cache_sim_segments_ref,
                                                cache_sim_segments_tree,
+                                               cache_sim_tiled_ref,
                                                live_counts_delta,
                                                live_counts_ref,
                                                stack_distances_tree)
@@ -107,6 +114,63 @@ def _tape(n, seed, device, blocks=4):
                                     tid, ends)
     reads = torch.as_tensor(rng.random(n) < 0.6, device=device)
     return prev, nxt, reads
+
+
+def _edge_tape(n, seed, device):
+    """``_tape`` plus, at every tile edge e, a fresh address touched at
+    e - 1 and at a random later row of its block (an interval that starts
+    on the edge, often crossing many whole tiles) and one touched at a
+    random earlier row of e's block and at e (one that ends on it)."""
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.choice(np.arange(1, n), size=min(3, n - 1),
+                              replace=False)) if n > 1 else np.zeros(0)
+    bounds = np.concatenate([[0], cuts, [n]]).astype(np.int64)
+    lens = np.diff(bounds)
+    addrs = np.concatenate([rng.integers(0, max(4, ln // 3), ln)
+                            for ln in lens])
+    block = np.repeat(np.arange(lens.size), lens)
+    fresh = int(addrs.max()) + 1
+    for e in range(TILE, n, TILE):
+        end = bounds[block[e - 1] + 1]
+        if e + 1 < end:
+            addrs[e - 1] = addrs[rng.integers(e + 1, end)] = fresh
+        start = bounds[block[e]]
+        if start < e - 1:
+            addrs[rng.integers(start, e - 1)] = addrs[e] = fresh + 1
+        fresh += 2
+    tid = torch.as_tensor(block, device=device)
+    ends = torch.as_tensor(bounds[1:], device=device)[tid]
+    prev, nxt, _, _ = segment_links(torch.as_tensor(addrs, device=device),
+                                    tid, ends)
+    reads = torch.as_tensor(rng.random(n) < 0.6, device=device)
+    return prev, nxt, reads
+
+
+def _edge_caps(n, seed, device):
+    """Capacities of every kind, row by row at random: cap1 = 0,
+    captot = 0, cap1 > captot, cap1 = captot and cap1 < captot."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, max(8, n // 64), n)
+    b = rng.integers(0, max(8, n // 64), n)
+    kind = rng.integers(0, 5, n)
+    cap1 = np.select([kind == 0, kind == 2, kind == 4],
+                     [0, np.maximum(a, b), np.minimum(a, b)], a)
+    captot = np.select([kind == 1, kind == 2, kind == 3, kind == 4],
+                       [0, np.minimum(a, b), a, np.maximum(a, b)], b)
+    return (torch.as_tensor(cap1, dtype=torch.int32, device=device),
+            torch.as_tensor(captot, dtype=torch.int32, device=device))
+
+
+def _edge_rows(prev):
+    """(rows whose interval starts on a tile edge, rows whose interval
+    ends on one, most whole tiles an interval crosses)."""
+    pos = torch.arange(prev.shape[0], device=prev.device)
+    hot = prev >= 0
+    lo, hi = prev[hot] + 1, pos[hot]
+    whole = (hi // TILE - (lo + TILE - 1) // TILE).clamp(min=0)
+    return (int(((lo % TILE == 0) & (lo < hi)).sum()),
+            int(((hi % TILE == 0) & (lo < hi)).sum()),
+            int(whole.max()) if whole.numel() else 0)
 
 
 @pytest.mark.parametrize("n", [1, 31, 255, 256, 257, 4097])
@@ -342,6 +406,31 @@ def test_cache_sim_levels_scan_matches_ref_on_card(card, n, occ_kind):
     assert not bool(got[1][prev < 0].any())
 
 
+@pytest.mark.parametrize("n", [255, 256, 257, 4097, 65536])
+@pytest.mark.parametrize("occ_kind", ["ones", "reads"])
+def test_cache_sim_levels_scan_any_capacities_on_card(card, n, occ_kind):
+    """The exact tiled count compared with both capacities: rows with
+    cap1 > captot, cap1 = 0 and captot = 0, on intervals that start and
+    end on tile edges and, at 65,536, cross more than 16 whole tiles."""
+    prev, nxt, reads = _edge_tape(n, n + 2, card)
+    starts, ends, whole = _edge_rows(prev)
+    assert (starts > 0 or n <= 2 * TILE) and (ends > 0 or n <= TILE)
+    assert n < 65536 or whole > 16
+    p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
+    occ = (torch.ones_like(p32) if occ_kind == "ones"
+           else reads.to(torch.int32))
+    cap1, captot = _edge_caps(n, n, card)
+    assert bool((cap1 > captot).any()) and bool((captot == 0).any())
+    before = cache_sim_levels_scan.launches
+    got = cache_sim_levels_scan(p32, n32, occ, cap1, captot)
+    assert cache_sim_levels_scan.launches == before + 1
+    want = cache_sim_levels_ref(p32, n32, occ, cap1, captot)
+    tiled = cache_sim_levels_tiled_ref(p32, n32, occ, cap1, captot, TILE)
+    torch.cuda.synchronize()
+    for g, w, t in zip(got, want, tiled):
+        assert torch.equal(g, w) and torch.equal(t, w)
+
+
 def _live_inputs(n, seed, device):
     """Links of a tape plus rows with nxt = -1, nxt = j and nxt = n."""
     _, nxt, reads = _tape(n, seed, device)
@@ -378,12 +467,17 @@ def test_level_kernels_launch_counters_and_input_checks(card):
     with pytest.raises(ValueError):
         cache_sim_levels_scan(prev, nxt, torch.ones_like(prev), cap1.long(),
                               captot.long())                     # int64
-    with pytest.raises(ValueError):
-        cache_sim_levels_scan(p32, n32, torch.ones_like(p32), captot,
-                              cap1)                      # cap1 > captot
+    # cap1 > captot: the exact count makes the masks the function's there
+    got = cache_sim_levels_scan(p32, n32, torch.ones_like(p32), captot,
+                                cap1)
+    want = cache_sim_levels_ref(p32, n32, torch.ones_like(p32), captot,
+                                cap1)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert cache_sim_levels_scan.launches == b_lv + 2
     with pytest.raises(ValueError):
         live_count_scan(nxt, reads.long())                        # int64
-    assert cache_sim_levels_scan.launches == b_lv + 1
+    assert cache_sim_levels_scan.launches == b_lv + 2
     assert live_count_scan.launches == b_live + 1
 
 
@@ -464,6 +558,39 @@ def test_urd_scan_matches_ref_on_card(card, n):
     assert bool((got[prev < 0] == -1).all())
 
 
+@pytest.mark.parametrize("n", [255, 256, 257, 4097, 65536])
+def test_urd_scan_tile_edges_and_long_intervals_on_card(card, n):
+    """The tiled count keyed on nxt: intervals that start and end on tile
+    edges and, at 65,536, cross more than 16 whole tiles (a row's lanes
+    loop over its tiles), links severed per tenant; equal to the dense
+    definition and to the decomposition with every position occupying."""
+    prev, nxt, _ = _edge_tape(n, n + 4, card)
+    starts, ends, whole = _edge_rows(prev)
+    assert (starts > 0 or n <= 2 * TILE) and (ends > 0 or n <= TILE)
+    assert n < 65536 or whole > 16
+    p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
+    got = urd_scan(p32, n32)
+    want = urd_scan_ref(p32, n32)
+    tiled = cache_sim_tiled_ref(p32, n32, torch.ones_like(p32), TILE)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(tiled, want)
+
+
+def test_urd_scan_seed_row_windows_on_card(card):
+    """The control plane's seed row: 8,000-access windows of
+    ``synthetic_mix(1024, 8000, seed=7)`` (32 tiles, each split over
+    several CTAs), one launch a window, equal to the dense definition."""
+    for tr in synthetic_mix(1024, 8000, seed=7)[:8]:
+        prev, nxt = prev_next_occurrence(tr.addrs.to(card))
+        p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
+        before = urd_scan.launches
+        got = urd_scan(p32, n32)
+        assert urd_scan.launches == before + 1
+        want = urd_scan_ref(p32, n32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
 def test_urd_scan_launch_counter_and_input_checks(card):
     prev, nxt, _ = _tape(1000, 5, card)
     p32, n32 = prev.to(torch.int32), nxt.to(torch.int32)
@@ -477,6 +604,11 @@ def test_urd_scan_launch_counter_and_input_checks(card):
     with pytest.raises(ValueError):
         urd_scan(p32, n32.cpu())                          # two devices
     assert urd_scan.launches == before + 1
+    # a view 4 bytes into its storage: nxt is copied to 16-byte alignment
+    got = urd_scan(p32[1:], n32[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got, urd_scan_ref(p32[1:], n32[1:]))
+    assert urd_scan.launches == before + 2
 
 
 @pytest.mark.parametrize("kind", ["urd", "trd"])

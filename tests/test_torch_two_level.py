@@ -8,7 +8,10 @@ counterpart and held to it exactly unless stated:
   (and the wrappers ``cache_sim_levels_scan``/``live_count_scan``, which
   take them on CPU tensors) — against ``repro.kernels.cache_sim.ref``,
   with rows whose ``nxt[j] <= j`` held to the dense definition, and
-  (``slow``) against the Pallas kernels in interpret mode;
+  (``slow``) against the Pallas kernels in interpret mode; the CUDA levels
+  kernel's decomposition, ``cache_sim_levels_tiled_ref``, against the
+  Pallas ``cache_sim_levels_scan`` in interpret mode at several tile
+  widths, with rows of cap1 > captot, cap1 = 0 and captot = 0;
 * ``simulate_many`` with two levels against the reference's
   ``simulate_many`` and ``simulate`` (and the port's own ``simulate``),
   cold and over warm multi-window chains, over WB/WT/RO x clean/dirty
@@ -66,6 +69,7 @@ from repro_torch.kernels.cache_sim import ops
 from repro_torch.kernels.cache_sim.kernel import (cache_sim_levels_scan,
                                                   live_count_scan)
 from repro_torch.kernels.cache_sim.ref import (cache_sim_levels_ref,
+                                               cache_sim_levels_tiled_ref,
                                                live_counts_delta,
                                                live_counts_ref)
 
@@ -212,6 +216,33 @@ def test_levels_ref_matches_pallas_interpret():
                                      (prev, nxt, occ, cap1, captot)])
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("occ_kind", ["ones", "reads"])
+@pytest.mark.parametrize("tile", [4, 16, 256])
+def test_levels_tiled_decomposition_matches_pallas_interpret(tile, occ_kind):
+    """``cache_sim_levels_scan``'s CUDA decomposition (the exact tiled
+    count, then both compares) equals the reference's Pallas kernel in
+    interpret mode and the dense version, for any capacities: rows with
+    cap1 > captot, cap1 = 0 and captot = 0 among the rest."""
+    n = 900
+    prev, nxt, reads = _links(n, 40 + tile)
+    rng = np.random.default_rng(tile)
+    a, b = rng.integers(0, 24, n), rng.integers(0, 24, n)
+    kind = rng.integers(0, 5, n)
+    cap1 = np.select([kind == 0, kind == 2], [0, np.maximum(a, b)], a)
+    captot = np.select([kind == 1, kind == 2], [0, np.minimum(a, b)], b)
+    assert (cap1 > captot).any() and (cap1 == 0).any() and (captot == 0).any()
+    occ = np.ones(n, np.int64) if occ_kind == "ones" else reads
+    j32 = lambda x: jnp.asarray(np.asarray(x), jnp.int32)  # noqa: E731
+    want = levels_scan_tpu(j32(prev), j32(nxt), j32(occ), j32(cap1),
+                           j32(captot), interpret=True)
+    args = [_t(x).to(torch.int32) for x in (prev, nxt, occ, cap1, captot)]
+    got = cache_sim_levels_tiled_ref(*args, tile)
+    for g, d, w in zip(got, cache_sim_levels_ref(*args), want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(d.numpy(), np.asarray(w))
 
 
 @pytest.mark.slow

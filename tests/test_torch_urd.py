@@ -7,6 +7,12 @@ against the JAX reference.
   -1 (the port's contract; the TPU kernel returns prefix counts there,
   which its callers mask).  The reference's Pallas ``urd_scan`` in
   interpret mode is the ``slow`` case.
+* The CUDA kernel's decomposition, ``cache_sim_tiled_ref`` with every
+  position occupying (heads by direct compares, a search in each sorted
+  whole tile, tails), against ``urd_scan_ref`` and the reference's Pallas
+  ``urd_scan`` in interpret mode, at several tile widths, on tapes with
+  intervals that start and end on tile edges and cross many whole
+  tiles.
 * The four exact engines (``reuse_distances`` Fenwick oracle,
   ``reuse_distances_vectorized``, ``batch_sim.reuse_distances_fast`` and
   ``reuse_distances_accel``) against the reference's, for both kinds, on
@@ -35,6 +41,7 @@ from repro_torch.core import (Trace, reuse_distances, reuse_distances_fast,
                               sampled_reuse_distances, shards_keep_mask,
                               shards_salt)
 from repro_torch.data.traces import msr_trace
+from repro_torch.kernels.cache_sim.ref import cache_sim_tiled_ref
 from repro_torch.kernels.urd_scan.kernel import urd_scan
 from repro_torch.kernels.urd_scan.ops import reuse_distances_accel, urd_counts
 from repro_torch.kernels.urd_scan.ref import urd_scan_ref
@@ -64,6 +71,41 @@ def _links(n, seed, blocks=4):
 
 def _t32(a):
     return torch.as_tensor(np.asarray(a), dtype=torch.int32)
+
+
+def _edge_links(n, tile, seed, blocks=3):
+    """Severed multi-tenant links (numpy) over random addresses, plus, at
+    every multiple e of ``tile``, a fresh address touched at e - 1 and at
+    a random later row of its block (an interval starting on the edge,
+    often crossing many whole tiles) and one touched at a random earlier
+    row of e's block and at e (an interval ending on it)."""
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.choice(np.arange(1, n), size=blocks - 1,
+                              replace=False))
+    bounds = np.concatenate([[0], cuts, [n]]).astype(np.int64)
+    block = np.repeat(np.arange(blocks), np.diff(bounds))
+    addrs = rng.integers(0, 40, n)
+    fresh = 40
+    for e in range(tile, n, tile):
+        end = bounds[block[e - 1] + 1]
+        if e + 1 < end:
+            addrs[e - 1] = addrs[rng.integers(e + 1, end)] = fresh
+        start = bounds[block[e]]
+        if start < e - 1:
+            addrs[rng.integers(start, e - 1)] = addrs[e] = fresh + 1
+        fresh += 2
+    prev = np.full(n, -1, np.int64)
+    nxt = np.zeros(n, np.int64)
+    for s, e in zip(bounds[:-1], bounds[1:]):
+        last = {}
+        nxt[s:e] = e
+        for k in range(s, e):
+            a = int(addrs[k])
+            if a in last:
+                prev[k] = last[a]
+                nxt[last[a]] = k
+            last[a] = k
+    return prev, nxt
 
 
 @pytest.mark.parametrize("n", [1, 2, 255, 1000])
@@ -102,6 +144,33 @@ def test_urd_scan_ref_matches_pallas_interpret():
     got = urd_scan_ref(_t32(prev), _t32(nxt)).numpy()
     hot = prev >= 0
     np.testing.assert_array_equal(got[hot], want[hot])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("tile", [4, 16, 64, 256])
+def test_tiled_decomposition_matches_urd_reference(tile, seed):
+    """``urd_scan``'s CUDA decomposition is ``cache_sim_tiled_ref`` with
+    every position occupying: equal to the dense ``urd_scan_ref`` and to
+    the reference's Pallas kernel in interpret mode (hot rows; -1 at cold
+    rows), with intervals that start and end on tile edges and, at narrow
+    tiles, cross more than 16 whole tiles."""
+    n = 1100
+    prev, nxt = _edge_links(n, tile, seed=tile + seed)
+    hot = prev >= 0
+    lo, hi = prev[hot] + 1, np.flatnonzero(hot)
+    assert ((lo % tile == 0) & (lo < hi)).any()
+    assert ((hi % tile == 0) & (lo < hi)).any()
+    whole = hi // tile - -(-lo // tile)
+    assert tile > 16 or whole.max() > 16
+    got = cache_sim_tiled_ref(_t32(prev), _t32(nxt),
+                              torch.ones(n, dtype=torch.int32), tile).numpy()
+    np.testing.assert_array_equal(got, urd_scan_ref(_t32(prev),
+                                                    _t32(nxt)).numpy())
+    want = np.asarray(urd_scan_tpu(jnp.asarray(prev, jnp.int32),
+                                   jnp.asarray(nxt, jnp.int32),
+                                   interpret=True))
+    np.testing.assert_array_equal(got[hot], want[hot])
+    assert (got[~hot] == -1).all()
 
 
 def _pair(name, n, seed):
