@@ -17,11 +17,18 @@ Phases:
      ``occ = 1`` and ``occ = is_read``; tile edges at 255, 256, 257);
      ``cache_sim_segments_scan`` vs
      the dense ``cache_sim_segments_ref`` on padded multi-tenant tapes of
-     widths 64 .. 8192 and 16384 (wider than one shared-memory stage);
+     widths 64 .. 16384 (the widest block held in shared memory), and vs
+     its block-local tiled decomposition ``cache_sim_segments_tiled_ref``
+     on width groups of 64, 640, 4096, 16383, 16384, 16385 and 32768
+     (either side of the shared-memory / global boundary) with links that
+     cross a block and prev at or past the row;
      ``cache_sim_levels_scan`` vs ``cache_sim_levels_ref`` and
      ``live_count_scan`` vs ``live_counts_ref`` and ``live_counts_delta``
      at n = 1 .. 65,536 (ragged tenant blocks; cap1 = 0, cap1 = captot
-     and varying rows; rows with nxt = -1, j and n); ``urd_scan`` vs the
+     and varying rows; rows with nxt = -1, j and n), and vs
+     ``live_counts_onepass_ref`` at a tile +- 1 .. 2^20 rows with 1,500
+     deaths on one word and deaths anywhere; both kernels the same bits
+     from call to call, and for two tapes in turn; ``urd_scan`` vs the
      dense ``urd_scan_ref`` at n = 1 .. 65,536 (ragged tenant blocks,
      severed links, cold rows); ``urd_scan`` and ``cache_sim_levels_scan``
      vs the dense definitions and the tiled decompositions
@@ -144,7 +151,11 @@ Phases:
      call, alone, and the 1024 windows in turn), at a 65,536-row Table-3
      window and at the 1,048,576-row 16-tenant tape that times
      ``cache_sim_scan``, a call and alone; ``cache_sim_levels_scan`` at the
-     last ETICA window's tape, a call and alone;
+     last ETICA window's tape, a call and alone; ``cache_sim_segments_scan``
+     at each width group of the 256-tenant window-0 sampled tape and its
+     three launches, a call and alone, with the key words it stages; and
+     ``live_count_scan`` at the pressure path's and the 256-tenant path's
+     first guard tapes, a call and alone;
  15. print the kernels line, the card line and, last, the result line.
 
 Exits non-zero, printing no result, when no card is visible or any
@@ -197,7 +208,7 @@ CP_TENANTS, CP_ACCESSES, CP_SEED, CP_C_MIN = 1024, 8000, 7, 50
 SC_CAPACITY, SC_C_MIN = 8192, 256
 SEGMENT_LENS = {64: [64, 1, 33, 0, 64], 512: [512, 300, 257, 0],
                 4096: [4096, 2049, 3000], 8192: [8192, 5000, 4097],
-                16384: [16384, 9000]}   # 16384: wider than one stage
+                16384: [16384, 9000]}   # 16384: the widest block on chip
 # the model layer: zamba2-7b at full width in bf16 from seed 0; prefill
 # of PREFILL_SHAPE prompts (a multiple of the 256-token SSM chunk), then
 # DECODE_ROWS requests of DECODE_PROMPT tokens teacher-forced through
@@ -222,12 +233,16 @@ PEAK_TF32_PER_S = 495e12
 # paged_attention at qwen3-0.6b's serving decode, cache_sim_scan and
 # urd_scan at the 16-tenant window tape, urd_scan at the Table-3 window
 # and cache_sim_levels_scan at the last ETICA window's tape (this script
-# on NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6); and cache_sim_scan's
-# own time there after its redesign, which the shared tiled count keeps
+# on NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6); cache_sim_scan's
+# own time there after its redesign, which the shared tiled count keeps;
+# and cache_sim_segments_scan at the 256-tenant window-0 sampled tape (its
+# three launches) and live_count_scan at the pressure path's first guard
+# tape (the same script and card, before their redesign)
 PREV_MS = {"flash_attention": 6.387, "mamba2_ssd": 5.658,
            "paged_attention": 0.2815, "cache_sim_scan": 0.564,
            "urd_scan": 0.358, "urd_scan_table3": 0.0283,
-           "cache_sim_levels_scan": 0.905, "cache_sim_scan_tiled": 0.2764}
+           "cache_sim_levels_scan": 0.905, "cache_sim_scan_tiled": 0.2764,
+           "cache_sim_segments_scan": 0.1328, "live_count_scan": 0.0345}
 # the serving path: qwen3-0.6b at full width in bf16 from seed 0 over a
 # 14 GiB pool of 16-token pages; the manager partitions 4096 of its pages
 # between two tenants after bench_serving_cache.py's: "chat" (a shared
@@ -350,6 +365,58 @@ def edge_rows(prev: torch.Tensor, tile: int) -> tuple[int, int, int]:
             int(whole.max()) if whole.numel() else 0)
 
 
+def live_edge_tape(n: int, seed: int, device) -> tuple[torch.Tensor, ...]:
+    """int32 nxt and occ for the live count's corners: ``tape_links``'s
+    links plus rows with nxt = -1 and nxt = j (never live) and nxt >= n
+    (live to the end), past 2,000 rows 1,500 rows before the middle dying
+    at the middle word, and a twentieth of the rows dying anywhere on the
+    tape."""
+    _, nxt, reads = tape_links(n, seed, device)
+    rng = np.random.default_rng(seed)
+    pos = torch.arange(n, device=device)
+    pick = torch.as_tensor(rng.integers(0, 5, n), device=device)
+    nxt = torch.where(pick == 0, -1, torch.where(
+        pick == 1, pos, torch.where(pick == 2, n, nxt)))
+    if n > 2000:
+        nxt[n // 2 - 1500:n // 2] = n // 2
+    far = torch.as_tensor(rng.random(n) < 0.05, device=device)
+    anywhere = torch.as_tensor(rng.integers(0, n + 2, n), device=device)
+    return (torch.where(far, anywhere, nxt).to(torch.int32),
+            reads.to(torch.int32))
+
+
+def segment_group(w: int, lens, seed: int, device, cross: int = 0):
+    """int32 prev, nxt, occ and a read mask of one width group: a segment
+    of each length in ``lens`` at the start of its own w-block, links
+    severed per segment with nxt clamped to its end, pad rows cold,
+    non-occupying and linked to themselves; ``cross`` hot rows past the
+    first block get a prev in an earlier block and as many a prev at or
+    past the row.  Any w (the segments kernel takes any width that divides
+    the length)."""
+    rng = np.random.default_rng(seed)
+    m = w * len(lens)
+    prev = np.full(m, -1, np.int64)
+    nxt = np.arange(m, dtype=np.int64)
+    occ = np.zeros(m, np.int64)
+    for b, ln in enumerate(lens):
+        s, e = b * w, b * w + ln
+        addrs = rng.integers(0, max(3, ln // 4), ln)
+        order = np.argsort(addrs, kind="stable")
+        same = addrs[order][1:] == addrs[order][:-1]
+        prev[s + order[1:][same]] = s + order[:-1][same]
+        nxt[s:e] = e
+        nxt[s + order[:-1][same]] = s + order[1:][same]
+        occ[s:e] = 1
+    reads = occ * (rng.random(m) < 0.6)
+    hot = np.flatnonzero((prev >= 0) & (np.arange(m) >= w))
+    pick = rng.choice(hot, size=min(2 * cross, hot.size), replace=False)
+    back, late = pick[:cross], pick[cross:]
+    prev[back] = np.maximum(back - w - rng.integers(0, w, back.size), 0)
+    prev[late] = late + rng.integers(0, 3, late.size)
+    t = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)  # noqa: E731
+    return t(prev), t(nxt), t(occ), t(reads)
+
+
 def padded_group_links(gprev, gnxt, gocc, w, lo, hi):
     """Chunk-local int32 links of one width group of a padded tape."""
     gp = gprev[lo:hi]
@@ -379,6 +446,32 @@ def padded_tape(lens, seed: int, device):
     reads[lay[1]] = torch.as_tensor(rng.random(int(lens.sum())) < 0.6,
                                     device=device).to(torch.int32)
     return gprev, gnxt, gocc, reads, width_groups_of(lay[4])
+
+
+def sampled_tape(traces, device):
+    """The SHARDS-sampled padded tape of one window of the 256-tenant
+    path, as its monitor lays it out: the kept accesses per tenant, the
+    width groups and each group's chunk-local int32 links with its width
+    (the arguments of one ``cache_sim_segments_scan`` launch each)."""
+    from repro_torch.core.batch_sim import (padded_segment_layout,
+                                            padded_tape_links,
+                                            segment_links)
+    from repro_torch.core.monitor import shards_subtape
+    from repro_torch.core.reuse_distance import auto_sample_rate
+    from repro_torch.kernels.cache_sim.ops import width_groups_of
+    rates = [auto_sample_rate(len(t)) for t in traces]
+    addrs, _, kept = shards_subtape(traces, rates, 0,
+                                    list(range(len(traces))), device)
+    tid = torch.repeat_interleave(torch.arange(len(traces), device=device),
+                                  kept)
+    bounds = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
+                        torch.cumsum(kept, 0)])
+    prev, nxt, _, _ = segment_links(addrs, tid, bounds[1:][tid])
+    lay = padded_segment_layout(bounds.cpu(), device=device)
+    gprev, gnxt, gocc = padded_tape_links(prev, nxt, lay)
+    groups = width_groups_of(lay[4])
+    return kept, groups, [(padded_group_links(gprev, gnxt, gocc, w, lo, hi),
+                           w) for w, lo, hi in groups]
 
 
 def _gen_trace(args):
@@ -625,6 +718,36 @@ def compare_runs(gpu, grec, cpu, crec) -> None:
             assert (sg[k] == v if isinstance(v, int)
                     else abs(sg[k] - v) <= 1e-12 * abs(v)), \
                 f"summary {k}: {sg[k]} vs {v}"
+
+
+def segments_staged(prev: torch.Tensor, w: int) -> int:
+    """Key words the segments kernel stages into shared memory for one
+    width group (chunk-local prev), as its plan_for cuts the group: past
+    w = 256 a CTA takes R rows of one block (1024 up to w = 4096 and 512
+    past it, a power of two below 2w) and stages from the tile of its
+    lowest interval start (or its first row) to its last row; up to
+    w = 256 every row once; past ``SEGMENTS_SMEM_WIDTH`` none (the global
+    count)."""
+    from repro_torch.kernels.cache_sim.kernel import SEGMENTS_SMEM_WIDTH
+    m = int(prev.shape[0])
+    if w <= 256 or w > SEGMENTS_SMEM_WIDTH:
+        return m if w <= 256 else 0
+    rows, most = 256, 1024 if w <= 4096 else 512
+    while rows < most and rows < w:
+        rows *= 2
+    pos = torch.arange(m, device=prev.device)
+    bs = pos - pos % w
+    lo = torch.minimum(torch.maximum(prev.long() + 1, bs), pos)
+    lo = torch.where(prev >= 0, lo, pos)
+    cta = bs // w * -(-w // rows) + (pos - bs) // rows
+    k = int(cta.max()) + 1
+    big = torch.full((k,), m, dtype=torch.int64, device=prev.device)
+    first = big.scatter_reduce(0, cta, lo, "amin")
+    r0 = big.scatter_reduce(0, cta, pos, "amin")
+    r1 = torch.zeros_like(big).scatter_reduce(0, cta, pos + 1, "amax")
+    cbs = r0 - r0 % w
+    start = torch.minimum(cbs + (first - cbs) // 256 * 256, r0)
+    return int((r1 - start).sum())
 
 
 def segments_work(groups) -> tuple[int, int]:
@@ -2039,26 +2162,26 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.core.batch_sim as bs
-    from repro_torch.core.batch_sim import (padded_segment_layout,
-                                            padded_tape_links, segment_links)
-    from repro_torch.core.monitor import shards_subtape
-    from repro_torch.core.reuse_distance import auto_sample_rate
+    from repro_torch.core.batch_sim import segment_links
     from repro_torch.kernels import build_library
     from repro_torch.core.trace import prev_next_occurrence
     from repro_torch.data.traces import msr_trace
-    from repro_torch.kernels.cache_sim.kernel import (LIBRARIES, TILE,
+    from repro_torch.kernels.cache_sim.kernel import (LIBRARIES, LIVE_TILE,
+                                                      SEGMENTS_SMEM_WIDTH,
+                                                      TILE,
                                                       cache_sim_levels_scan,
                                                       cache_sim_scan,
                                                       cache_sim_segments_scan,
                                                       live_count_scan)
-    from repro_torch.kernels.cache_sim.ops import width_groups_of
     from repro_torch.kernels.cache_sim.ref import (cache_sim_levels_ref,
                                                    cache_sim_levels_tiled_ref,
                                                    cache_sim_ref,
                                                    cache_sim_segments_ref,
+                                                   cache_sim_segments_tiled_ref,
                                                    cache_sim_segments_tree,
                                                    cache_sim_tiled_ref,
                                                    live_counts_delta,
+                                                   live_counts_onepass_ref,
                                                    live_counts_ref,
                                                    stack_distances_tree)
     from repro_torch.kernels.flash_attention.kernel import \
@@ -2205,6 +2328,56 @@ def main() -> int:
               f"{int((cap1 > captot).sum())} rows, cap1 = 0 on "
               f"{int((cap1 == 0).sum())}, captot = 0 on "
               f"{int((captot == 0).sum())})")
+    # the one-pass live count's corners: a tile +- 1, several tiles, a
+    # million rows; 1,500 deaths on one word, deaths anywhere, rows never
+    # or always live; a second call and two tapes in turn give the same bits
+    for n in (1, LIVE_TILE - 1, LIVE_TILE, LIVE_TILE + 1, 3 * LIVE_TILE + 1,
+              1 << 20):
+        nl, reads = live_edge_tape(n, n + 17, dev)
+        for tag, occ in (("occ=is_read", reads), ("occ=1", torch.ones_like(nl))):
+            got = live_count_scan(nl, occ)
+            for plain, want in (
+                    ("delta", live_counts_delta(nl, occ)),
+                    ("one-pass", live_counts_onepass_ref(nl, occ, LIVE_TILE))):
+                check("live_count_scan", f"edge tape n={n} {tag} vs {plain}",
+                      got, want)
+            if n <= LIVE_TILE + 1:
+                check("live_count_scan", f"edge tape n={n} {tag} vs dense",
+                      got, live_counts_ref(nl, occ))
+            check("live_count_scan", f"edge tape n={n} {tag} again",
+                  live_count_scan(nl, occ), got)
+    tapes = [live_edge_tape(n, n, dev) for n in (300_000, 77_777)]
+    first = [live_count_scan(*t) for t in tapes]
+    for _ in range(2):
+        for t, f in zip(tapes, first):
+            check("live_count_scan", "two tapes in turn", live_count_scan(*t),
+                  f)
+    print(f"check: live_count_scan == live_counts_delta == "
+          f"live_counts_onepass_ref (tile {LIVE_TILE}) on edge tapes at n = "
+          f"1 .. 2^20 (1,500 deaths on one word, deaths anywhere, nxt = -1, "
+          f"j, n rows; occ=1, occ=is_read); the same bits call to call and "
+          f"for two tapes in turn")
+    # the segments kernel on both sides of the shared-memory / global
+    # boundary, links that cross a block, prev at or past the row
+    for w in (64, 640, 4096, SEGMENTS_SMEM_WIDTH - 1, SEGMENTS_SMEM_WIDTH,
+              SEGMENTS_SMEM_WIDTH + 1, 2 * SEGMENTS_SMEM_WIDTH):
+        prev, nxt, occ1, reads = segment_group(
+            w, [w, w // 2 + 1, 1, 0, w - 1], w, dev, cross=w // 8 + 1)
+        for tag, occ in (("occ=1", occ1), ("occ=is_read", reads)):
+            got = cache_sim_segments_scan(prev, nxt, occ, w)
+            check("cache_sim_segments_scan", f"edge group w={w} {tag} vs tiled",
+                  got, cache_sim_segments_tiled_ref(prev, nxt, occ, w))
+            check("cache_sim_segments_scan", f"edge group w={w} {tag} again",
+                  cache_sim_segments_scan(prev, nxt, occ, w), got)
+            if prev.shape[0] <= 4096:
+                check("cache_sim_segments_scan",
+                      f"edge group w={w} {tag} vs dense", got,
+                      cache_sim_segments_ref(prev, nxt, occ, w))
+    print(f"check: cache_sim_segments_scan == cache_sim_segments_tiled_ref on "
+          f"width groups of 64 .. {2 * SEGMENTS_SMEM_WIDTH} (shared memory up "
+          f"to {SEGMENTS_SMEM_WIDTH}, the global count past it; links across "
+          f"blocks, prev at or past the row; full, half, one-row and empty "
+          f"segments), the same bits call to call")
     model_kernel_checks(dev, max_err)
     paged_kernel_checks(dev, max_err)
     print(f"phase seconds: build and kernel checks done at "
@@ -2226,7 +2399,8 @@ def main() -> int:
           f"x {ACCESSES} accesses generated in "
           f"{time.perf_counter() - t0:.1f} s (outside the timed region)")
     import repro_torch.kernels.cache_sim.ops as cs_ops
-    with Recorder(cs_ops, "cache_sim_scan") as tape256:
+    with Recorder(cs_ops, "cache_sim_scan") as tape256, \
+            Recorder(bs, "ro_live_counts") as live256:
         launches256, _, _ = drive("256-tenant", dev, swindows, SHARDS_NAMES,
                                   SHARDS_CAPACITY,
                                   want=("cache_sim_segments_scan",),
@@ -2450,36 +2624,36 @@ def main() -> int:
 
     # ---- 14c. full sampled tape: cache_sim_segments_scan vs its tree
     str0 = swindows[0]
-    rates = [auto_sample_rate(len(t)) for t in str0]
-    addrs_s, _, kept = shards_subtape(str0, rates, 0,
-                                      list(range(len(str0))), dev)
-    tid_s = torch.repeat_interleave(torch.arange(len(str0), device=dev),
-                                    kept)
-    sub_bounds = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                            torch.cumsum(kept, 0)])
-    prev, nxt_c, _, _ = segment_links(addrs_s, tid_s,
-                                      sub_bounds[1:][tid_s])
-    lay = padded_segment_layout(sub_bounds.cpu(), device=dev)
-    gprev, gnxt, gocc = padded_tape_links(prev, nxt_c, lay)
-    groups = width_groups_of(lay[4])
-    args = [(padded_group_links(gprev, gnxt, gocc, w, lo, hi), w)
-            for w, lo, hi in groups]
+    kept, groups, args = sampled_tape(str0, dev)
     for (a, w) in args:
         check("cache_sim_segments_scan", f"sampled tape w={w} vs tree",
               cache_sim_segments_scan(*a, w), cache_sim_segments_tree(*a, w))
     m, ops = segments_work(groups)
+    for a, w in args:
+        print(f"sampled tape width {w} ({a[0].shape[0]} entries): "
+              f"cache_sim_segments_scan "
+              f"{cuda_ms(lambda: cache_sim_segments_scan(*a, w), REPS):.4f} "
+              f"ms a call, "
+              f"{graph_ms(lambda: cache_sim_segments_scan(*a, w), REPS):.4f} "
+              f"alone; key words staged {segments_staged(a[0], w)}")
     seg_ms = cuda_ms(lambda: [cache_sim_segments_scan(*a, w)
                               for a, w in args], REPS)
+    seg_alone = graph_ms(lambda: [cache_sim_segments_scan(*a, w)
+                                  for a, w in args], REPS)
     seg_plain = cuda_ms(lambda: [cache_sim_segments_tree(*a, w)
                                  for a, w in args], REPS // 4)
     bnd, bnd_by = bound_ms(16 * m, ops)
+    staged = sum(segments_staged(a[0], w) for a, w in args)
     print(f"sampled tape (window 0): {int(kept.sum())} kept of "
           f"{sum(len(t) for t in str0)} accesses, padded to {m} in "
           f"{len(groups)} width groups {[(w, hi - lo) for w, lo, hi in groups]}"
-          f"; cache_sim_segments_scan {seg_ms:.3f} ms for the "
-          f"{len(groups)} launches, merge-sort tree {seg_plain:.3f} ms, "
-          f"bound {bnd:.6f} ms by {bnd_by}; kernel / bound = "
-          f"{seg_ms / bnd:.1f}")
+          f"; cache_sim_segments_scan {seg_ms:.4f} ms a call for the "
+          f"{len(groups)} launches, {seg_alone:.4f} alone (before its "
+          f"redesign {PREV_MS['cache_sim_segments_scan']} ms a call), "
+          f"merge-sort tree {seg_plain:.3f} ms, bound {bnd:.6f} ms by "
+          f"{bnd_by}; kernel / bound = {seg_ms / bnd:.1f}; key words staged "
+          f"{staged} ({8 * staged / 1e6:.1f} MB of nxt and occ read, the "
+          f"function's bytes {16 * m / 1e6:.1f} MB)")
     rows.append({
         "name": "cache_sim_segments_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/cache_sim/csrc/"
@@ -2489,7 +2663,7 @@ def main() -> int:
         "max_abs_err": max_err["cache_sim_segments_scan"],
         "ms": seg_ms, "plain_ms": seg_plain, "bound_ms": bnd,
         "bound_by": bnd_by, "library_ms": None})
-    del swindows, args, gprev, gnxt, gocc
+    del swindows, args
 
     # ---- 14d. the last ETICA window's tape: cache_sim_levels_scan vs the
     # merge tree's distances compared with the two thresholds
@@ -2542,13 +2716,31 @@ def main() -> int:
           live_count_scan(n32, o32), live_counts_delta(nxt_l, occ_l))
     m = int(n32.shape[0])
     lc_ms = cuda_ms(lambda: live_count_scan(n32, o32), REPS)
+    lc_alone = graph_ms(lambda: live_count_scan(n32, o32), REPS)
     lc_plain = cuda_ms(lambda: live_counts_delta(nxt_l, occ_l), REPS)
     # the function's floor: nxt and occ read, L written once (12 n
     # bytes); a prefix sum's n additions
     bnd, bnd_by = bound_ms(12 * m, m)
     print(f"pressure guard tape: {m} accesses; live_count_scan "
-          f"{lc_ms:.3f} ms, delta form {lc_plain:.3f} ms, bound "
-          f"{bnd:.6f} ms by {bnd_by}; kernel / bound = {lc_ms / bnd:.1f}")
+          f"{lc_ms:.4f} ms a call, {lc_alone:.4f} alone (before its "
+          f"redesign {PREV_MS['live_count_scan']} ms a call), delta form "
+          f"{lc_plain:.3f} ms, bound {bnd:.6f} ms by {bnd_by}; kernel / "
+          f"bound = {lc_ms / bnd:.1f}")
+    # the 256-tenant path's guard tape (window 1, its one launch)
+    n256 = live256.args[0].to(torch.int32).contiguous()
+    o256 = live256.args[1].to(torch.int32).contiguous()
+    live256.args = None
+    check("live_count_scan", "256-tenant guard tape vs delta",
+          live_count_scan(n256, o256), live_counts_delta(n256, o256))
+    m256 = int(n256.shape[0])
+    bnd256, by256 = bound_ms(12 * m256, m256)
+    call256 = cuda_ms(lambda: live_count_scan(n256, o256), REPS)
+    print(f"256-tenant guard tape: {m256} accesses; live_count_scan "
+          f"{call256:.4f} ms a call, "
+          f"{graph_ms(lambda: live_count_scan(n256, o256), REPS):.4f} alone, "
+          f"bound {bnd256:.6f} ms by {by256}; kernel / bound = "
+          f"{call256 / bnd256:.1f}")
+    del n256, o256
     live_total = sum(x["live_count_scan"] for x in
                      (launches16, launches256, launches_et, launches_pr,
                       launches_ri))

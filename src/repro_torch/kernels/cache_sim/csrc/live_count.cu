@@ -8,139 +8,231 @@
 // over the whole (i, j) plane in 256 x 256 tiles with an fp32 accumulator.
 // That is O(n^2) work for an O(n) function: each occupying row j with
 // nxt[j] > j is a token alive on [j, nxt[j]), so L is the prefix sum of
-// +1 at every birth j and -1 at every death nxt[j].
+// +1 at every birth j and -1 at every death nxt[j]. A row with
+// nxt[j] <= j (a pad row's -1, say) is never live; a death at nxt[j] >= n
+// falls outside the tape and is dropped. Every count is an exact int32.
 //
-// Design, in one call on the caller's stream:
-//   1. zero an int32 scratch d[0, n) (cudaMemsetAsync);
-//   2. scatter: thread j adds +1 at d[j] and -1 at d[nxt[j]] when
-//      occ[j] > 0 and nxt[j] > j (the definition's own condition: a row
-//      with nxt[j] <= j, such as a pad row's -1, is never live). Deaths at
-//      nxt[j] >= n fall outside [0, n) and are dropped. The adds are
-//      atomics. Many tokens die at the same position (links clamped to a
-//      tenant block's end, thousands on one word), so a warp first groups
-//      its lanes by death position (__match_any_sync) and each group adds
-//      once;
-//   3. scan each tile of kTile words with one block: 1024 threads scan
-//      1024 words at a time with warp shuffles and carry the running sum
-//      across the tile's sub-tiles; the tile's total goes to tile_sums;
-//   4. one block turns tile_sums into exclusive offsets, 1024 at a time
-//      with a carried sum;
-//   5. every tile but the first adds its offset.
-// Every count is an exact int32 (n < 2^31, and a count is at most n).
+// Design: two kernels a call, after one memset, over tiles of kTile rows.
+//   1. scatter_kernel, a CTA a tile: loads its rows once and sums, in
+//      shared memory, +1 at each birth and -1 at each death that lands in
+//      its own tile (the lanes of a warp that die at one position adding
+//      once), then adds the tile's nonzero sums to d (cleared by the
+//      memset); a death beyond its tile goes to d with a global atomic:
+//      those at the furthest position it reaches (a tenant block's end,
+//      where thousands of tokens die) once, through a shared counter, the
+//      rest a warp's lanes of one position at a time.
+//   2. scan_kernel, a programmatic dependent launch of the first (it starts
+//      while the scatter runs and waits for it with griddepcontrol): a
+//      single-pass scan with decoupled look-back. CTAs take tiles in order
+//      from an atomic ticket (cleared by the same memset), so every tile
+//      before a CTA's own is held by a running CTA and the look-back cannot
+//      deadlock. A CTA scans d over its tile, publishes the tile's sum,
+//      looks back for its exclusive prefix (the whole CTA, kThreads tiles
+//      a step, summing tile sums until a tile that holds its inclusive
+//      prefix: the tiles publish at about the same time, so a narrow
+//      window would walk far), publishes its inclusive prefix and writes L
+//      once.
+// No state outlives the call: the memset clears the ticket, the status
+// words and d. The previous design's five stream operations (a memset,
+// scatter, tile scan, a single-CTA scan of the tile sums and an offset
+// pass) become three. (A single kernel, clearing d itself tile by tile and
+// waiting for every earlier tile to scatter before its scan, measured
+// slower: each CTA's chain of clearing, scattering, waiting and scanning
+// left the card idle, PERF.md section 6.)
 //
 // What bounds it on the card. The function's floor is its bytes: nxt and
-// occ read once and L written once, 12 n bytes. Its operations (one add a
-// row for a scan) do not bound it. This design moves the scratch d four
-// more times (memset, scatter, read, and L read and written again in the
-// offset pass), about 28 n bytes, and pays five launches; at the tapes of
-// the main path (10^6 to 1.7 x 10^7 rows) the launches and the atomics on
-// the death words that a whole tenant shares are what a later version
-// would cut further.
+// occ read once and L written once, 12 n bytes; its operations (an add a
+// row) do not bound it. This design moves besides those d cleared, added
+// to and read (12 n bytes, mostly L2 hits at the pressure tape), and its
+// deaths beyond a tile as global atomics, which set its time at the
+// 16.8 M-row tapes.
 //
-// Contract. nxt and occ are int32[n]; L is int32[n]; scratch holds
-// n + ceil(n / kTile) int32 words. The function returns
-// cudaGetLastError() so a refused launch is reported.
+// Contract. nxt and occ are int32[n]; L is int32[n]; with tiles =
+// ceil(n / 4096), scratch holds ceil((2 tiles + 1) / 4) * 4 + 4096 tiles
+// int32 words, 16-byte aligned. The function returns a cudaError_t (0 on
+// success; cudaGetLastError() after the launches, so a refused launch is
+// reported).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kItems = 8;                     // sub-tiles of a tile
-constexpr int kTile = kThreads * kItems;      // 8192 words a tile
+constexpr int kItems = 4;                     // rows a thread
+constexpr int kTile = kThreads * kItems;      // 4096 rows a tile
+constexpr int kWarps = kThreads / 32;
+// status word of a tile: a flag in the high half, a value in the low half
+constexpr unsigned long long kAggregate = 1ull << 32;  // value: tile sum
+constexpr unsigned long long kPrefix = 2ull << 32;     // value: inclusive
 
-__global__ void scatter_kernel(const int* __restrict__ nxt,
-                               const int* __restrict__ occ,
-                               int* __restrict__ d, int n) {
-  // every lane of a warp reaches the match below (blockDim is a multiple
-  // of 32), so no lane leaves early
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int x = j < n ? nxt[j] : 0;
-  const bool tok = j < n && occ[j] > 0 && x > j;
-  if (tok) atomicAdd(d + j, 1);
-  // deaths: the lanes of a warp that die at one position add once, from
-  // the lowest of them
-  const int at = (tok && x < n) ? x : -1;
-  const unsigned peers = __match_any_sync(0xffffffffu, at);
-  if (at >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1) {
-    atomicAdd(d + at, -__popc(peers));
+// scratch, all cleared by the memset: status[tiles] (8 bytes each) and
+// the ticket, rounded up to 16 bytes, then d (tiles * kTile words)
+constexpr long long small_ints(long long tiles) {
+  return (2 * tiles + 1 + 3) / 4 * 4;
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void publish(unsigned long long* p,
+                                        unsigned long long flag, int value) {
+  __threadfence();
+  *reinterpret_cast<volatile unsigned long long*>(p) =
+      flag | static_cast<unsigned int>(value);
+}
+
+__device__ __forceinline__ int flag_of(unsigned long long w) {
+  return static_cast<int>(w >> 32);
+}
+
+__device__ __forceinline__ int value_of(unsigned long long w) {
+  return static_cast<int>(static_cast<unsigned int>(w));
+}
+
+// 1. births less deaths, summed in shared memory over the tile's own rows,
+// then added to d
+__global__ void __launch_bounds__(kThreads)
+scatter_kernel(const int* __restrict__ nxt, const int* __restrict__ occ,
+               int* __restrict__ d, int n) {
+  __shared__ __align__(16) int delta[kTile];
+  __shared__ int s_far_at, s_far;
+  // the scan may start now; its griddepcontrol.wait still waits for this
+  // grid to finish and its writes to land
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const long long base = static_cast<long long>(blockIdx.x) * kTile;
+  const long long end = min(base + kTile, static_cast<long long>(n));
+  if (tid == 0) {
+    s_far_at = -1;
+    s_far = 0;
+  }
+  int at[kItems];
+  int far_at = -1;                            // the furthest death beyond
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int t = it * kThreads + tid;
+    const long long j = base + t;
+    int x = -1;
+    int born = 0;
+    if (j < n) {
+      const int nx = nxt[j];
+      if (occ[j] > 0 && nx > j) {
+        born = 1;
+        if (nx < n) x = nx;
+      }
+    }
+    delta[t] = born;
+    at[it] = x;
+    if (x >= end) far_at = max(far_at, x);
+  }
+  far_at = __reduce_max_sync(0xffffffffu, far_at);
+  __syncthreads();
+  if (lane == 0 && far_at >= 0) atomicMax(&s_far_at, far_at);
+  __syncthreads();
+  const int far = s_far_at;
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int x = at[it];
+    const unsigned peers = __match_any_sync(0xffffffffu, x);
+    if (x >= 0 && lane == __ffs(peers) - 1) {
+      const int c = __popc(peers);
+      if (x < end) {
+        atomicAdd(&delta[x - base], -c);
+      } else if (x == far) {
+        atomicAdd(&s_far, c);
+      } else {
+        atomicAdd(d + x, -c);
+      }
+    }
+  }
+  __syncthreads();
+  if (tid == 0 && far >= 0) atomicAdd(d + far, -s_far);
+  for (int t = tid; t < kTile; t += kThreads) {
+    const int v = delta[t];
+    if (v != 0) atomicAdd(d + base + t, v);
   }
 }
 
-// Inclusive scan of v over the block (kThreads threads); warp_sums holds
-// kThreads / 32 words of shared memory. Ends with a barrier, so the
-// caller may reuse warp_sums.
-__device__ int block_inclusive_scan(int v, int* warp_sums) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int off = 1; off < 32; off <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += t;
+// 2. the scan with decoupled look-back
+__global__ void __launch_bounds__(kThreads)
+scan_kernel(const int* __restrict__ d, int* __restrict__ out,
+            unsigned long long* status, int* ticket, int n) {
+  __shared__ int warp_sums[kWarps];
+  __shared__ int s_tile, s_first, s_excl;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (tid == 0) {
+    s_tile = atomicAdd(ticket, 1);
+    s_excl = 0;
   }
-  if (lane == 31) warp_sums[warp] = v;
+  __syncthreads();
+  const int k = s_tile;
+  const long long base = static_cast<long long>(k) * kTile;
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // the scatter is done
+
+  // this thread's kItems consecutive rows, scanned; then the CTA's
+  const long long row = base + static_cast<long long>(tid) * kItems;
+  int4 v = *reinterpret_cast<const int4*>(d + row);
+  v.y += v.x;
+  v.z += v.y;
+  v.w += v.z;
+  int incl = v.w;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    int w = warp_sums[lane];  // kThreads / 32 == 32 warps
+    int x = lane < kWarps ? warp_sums[lane] : 0;
     for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, w, off);
-      if (lane >= off) w += t;
+      const int y = __shfl_up_sync(0xffffffffu, x, off);
+      if (lane >= off) x += y;
     }
-    warp_sums[lane] = w;
+    if (lane < kWarps) warp_sums[lane] = x;
   }
   __syncthreads();
-  if (warp > 0) v += warp_sums[warp - 1];
+  const int before = incl - v.w + (warp > 0 ? warp_sums[warp - 1] : 0);
+  const int total = warp_sums[kWarps - 1];
+
+  // the exclusive prefix by look-back, kThreads tiles a step
+  if (tid == 0) publish(status + k, k == 0 ? kPrefix : kAggregate, total);
+  for (int top = k - 1; top >= 0; top -= kThreads) {   // CTA-uniform
+    if (tid == 0) s_first = kThreads;
+    __syncthreads();
+    const int j = top - tid;
+    unsigned long long w = kPrefix;           // before tile 0: prefix 0
+    if (j >= 0) {
+      do {
+        w = load_status(status + j);
+      } while (flag_of(w) == 0);
+    }
+    // the closest tile that holds its inclusive prefix ends the sum
+    const int cand = __reduce_min_sync(
+        0xffffffffu, w >= kPrefix ? tid : kThreads);
+    if (lane == 0) atomicMin(&s_first, cand);
+    __syncthreads();
+    const int first = s_first;
+    const int part = __reduce_add_sync(0xffffffffu,
+                                       tid <= first ? value_of(w) : 0);
+    if (lane == 0 && part != 0) atomicAdd(&s_excl, part);
+    if (first < kThreads) break;
+    __syncthreads();
+  }
   __syncthreads();
-  return v;
-}
-
-__global__ void tile_scan_kernel(const int* __restrict__ d,
-                                 int* __restrict__ out,
-                                 int* __restrict__ tile_sums, int n) {
-  __shared__ int warp_sums[kThreads / 32];
-  __shared__ int total;
-  const long long base = static_cast<long long>(blockIdx.x) * kTile;
-  int carry = 0;
-  for (int k = 0; k < kItems; ++k) {
-    const long long idx = base + static_cast<long long>(k) * kThreads +
-                          threadIdx.x;
-    const int v = idx < n ? d[idx] : 0;
-    const int s = block_inclusive_scan(v, warp_sums);
-    if (idx < n) out[idx] = s + carry;
-    if (threadIdx.x == kThreads - 1) total = s;
-    __syncthreads();
-    carry += total;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = carry;
-}
-
-// One block: tile_sums -> exclusive prefix offsets, in place.
-__global__ void tile_offsets_kernel(int* __restrict__ tile_sums, int tiles) {
-  __shared__ int warp_sums[kThreads / 32];
-  __shared__ int total;
-  int carry = 0;
-  for (int base = 0; base < tiles; base += kThreads) {
-    const int idx = base + threadIdx.x;
-    const int v = idx < tiles ? tile_sums[idx] : 0;
-    const int s = block_inclusive_scan(v, warp_sums);
-    if (idx < tiles) tile_sums[idx] = s - v + carry;
-    if (threadIdx.x == kThreads - 1) total = s;
-    __syncthreads();
-    carry += total;
-    __syncthreads();
-  }
-}
-
-__global__ void add_offsets_kernel(int* __restrict__ out,
-                                   const int* __restrict__ tile_offs,
-                                   int n) {
-  const int off = tile_offs[blockIdx.x + 1];  // tile 0 needs no offset
-  const long long base = static_cast<long long>(blockIdx.x + 1) * kTile;
-  for (int k = 0; k < kItems; ++k) {
-    const long long idx = base + static_cast<long long>(k) * kThreads +
-                          threadIdx.x;
-    if (idx < n) out[idx] += off;
+  const int excl = s_excl;
+  if (tid == 0 && k > 0) publish(status + k, kPrefix, excl + total);
+  const int add = excl + before;
+  if (row + kItems <= n) {
+    *reinterpret_cast<int4*>(out + row) =
+        make_int4(add + v.x, add + v.y, add + v.z, add + v.w);
+  } else {
+    const int vals[kItems] = {add + v.x, add + v.y, add + v.z, add + v.w};
+    for (int q = 0; q < kItems && row + q < n; ++q) out[row + q] = vals[q];
   }
 }
 
@@ -150,19 +242,30 @@ extern "C" int live_count_scan(const void* nxt, const void* occ, void* out,
                                void* scratch, int n, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* d = static_cast<int*>(scratch);
-  const int tiles = (n + kTile - 1) / kTile;
-  int* tile_sums = d + n;
-  cudaError_t err = cudaMemsetAsync(d, 0, sizeof(int) * static_cast<size_t>(n), s);
+  const long long tiles = (static_cast<long long>(n) + kTile - 1) / kTile;
+  int* small = static_cast<int*>(scratch);
+  auto* status = reinterpret_cast<unsigned long long*>(small);
+  int* ticket = small + 2 * tiles;
+  int* d = small + small_ints(tiles);
+  cudaError_t err = cudaMemsetAsync(
+      small, 0,
+      sizeof(int) * static_cast<size_t>(small_ints(tiles) + tiles * kTile), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  scatter_kernel<<<(n + 255) / 256, 256, 0, s>>>(
+  scatter_kernel<<<static_cast<int>(tiles), kThreads, 0, s>>>(
       static_cast<const int*>(nxt), static_cast<const int*>(occ), d, n);
-  tile_scan_kernel<<<tiles, kThreads, 0, s>>>(d, static_cast<int*>(out),
-                                              tile_sums, n);
-  if (tiles > 1) {
-    tile_offsets_kernel<<<1, kThreads, 0, s>>>(tile_sums, tiles);
-    add_offsets_kernel<<<tiles - 1, kThreads, 0, s>>>(
-        static_cast<int*>(out), tile_sums, n);
-  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, scan_kernel, static_cast<const int*>(d),
+                           static_cast<int*>(out), status, ticket, n);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,11 @@
 // The tiled count on sorted tiles, for Hopper (sm_90a): the device code of
 // the port's three interval counts, cache_sim_scan (cache_sim.cu),
 // cache_sim_levels_scan (cache_sim_levels.cu) and urd_scan
-// (../../urd_scan/csrc/urd_scan.cu). Each of them includes this header and
-// is built into a library of its own, so everything here has internal
-// linkage.
+// (../../urd_scan/csrc/urd_scan.cu), and of cache_sim_segments_scan's
+// blocks too wide for shared memory (cache_sim_segments.cu, through a
+// prologue that raises prev to the block start). Each of them includes this
+// header and is built into a library of its own, so everything here has
+// internal linkage.
 //
 // For every hot row i (prev[i] >= 0) they count
 //
@@ -215,17 +217,27 @@ struct WriteCount {
   }
 };
 
+// How pass 2 reads a row's prev: as it is (PlainPrev), or through a
+// prologue of the caller's (cache_sim_segments.cu raises a hot row's prev
+// to its block start).
+struct PlainPrev {
+  __device__ __forceinline__ int operator()(const int* __restrict__ prev,
+                                            long long j) const {
+    return prev[j];
+  }
+};
+
 // Pass 2: the rows of one tile (blockIdx.x), or the blockIdx.y-th of
 // gridDim.y equal shares of them, kLanes lanes a row; each row's count
 // goes to epilogue(i, prev[i] >= 0, C[i]). Reads nothing of pass 1 before
 // its griddepcontrol.wait.
-template <bool kOcc, class Epilogue>
+template <bool kOcc, class Epilogue, class PrevOf>
 __global__ void __launch_bounds__(kThreads)
 tiled_count_kernel(const int* __restrict__ prev, const int* __restrict__ nxt,
                    const int* __restrict__ occ, const int* __restrict__ keys,
                    const int* __restrict__ sorted,
                    const int* __restrict__ samples, Epilogue epilogue,
-                   int n) {
+                   PrevOf prev_of, int n) {
   __shared__ __align__(16) int sk[kTile];     // the tile's keys
   __shared__ int sp[kTile];                   // its rows' prev
   __shared__ int cov[kTile + 1];              // in-tile coverage
@@ -241,7 +253,7 @@ tiled_count_kernel(const int* __restrict__ prev, const int* __restrict__ nxt,
       int key = kNever;                       // as pass 1 keys it
       if (j < n) key = !kOcc || occ[j] > 0 ? nxt[j] : kNever;
       sk[t] = key;
-      sp[t] = j < n ? prev[j] : -1;
+      sp[t] = j < n ? prev_of(prev, j) : -1;
     }
   }
   __syncthreads();
@@ -293,12 +305,13 @@ tiled_count_kernel(const int* __restrict__ prev, const int* __restrict__ nxt,
 // kOcc the keys are occ[j] > 0 ? nxt[j] : -1 and pass 1 writes them to
 // scratch; without it occ is not read and the keys are nxt. Pass 2 is a
 // programmatic dependent launch of pass 1; with no whole tile to sort
-// (kOcc false, n < T) it is launched alone, in stream order. Returns a
-// cudaError_t (0 on success).
-template <bool kOcc, class Epilogue>
+// (kOcc false, n < T) it is launched alone, in stream order. prev_of reads
+// a row's prev (PlainPrev: as it is). Returns a cudaError_t (0 on
+// success).
+template <bool kOcc, class Epilogue, class PrevOf = PlainPrev>
 int launch_tiled_count(const int* prev, const int* nxt, const int* occ,
                        Epilogue epilogue, int* scratch, int n,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, PrevOf prev_of = PrevOf()) {
   const long long tiles = n / kTile;
   int* sorted = scratch;                           // tiles * T
   int* samples = sorted + tiles * kTile;           // tiles * T / 16
@@ -324,8 +337,8 @@ int launch_tiled_count(const int* prev, const int* nxt, const int* occ,
   cfg.attrs = attr;
   cfg.numAttrs = sort_grid > 0 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, tiled_count_kernel<kOcc, Epilogue>, prev, nxt, occ, keys, sorted,
-      samples, epilogue, n);
+      &cfg, tiled_count_kernel<kOcc, Epilogue, PrevOf>, prev, nxt, occ, keys,
+      sorted, samples, epilogue, prev_of, n);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,13 +9,21 @@
   plain torch).
 * ``cache_sim_segments_scan`` (``csrc/cache_sim_segments.cu``) replaces
   ``kernel.py:136``: the same count on a padded, self-aligned
-  multi-tenant tape, j restricted to the row's ``seg_width`` block; a
-  thread block stages its row tile's range through shared memory.
+  multi-tenant tape, j restricted to the row's ``seg_width`` block.  Up
+  to ``SEGMENTS_SMEM_WIDTH`` a block's keys stay in shared memory, where
+  a CTA counts a partial tile by direct compares, whole tiles from a count
+  table and tails by coverage (``ref.cache_sim_segments_tiled_ref`` is the
+  decomposition in plain torch); wider blocks take the global tiled count
+  with ``prev`` raised to the block start.
 * ``cache_sim_levels_scan`` (``csrc/cache_sim_levels.cu``) replaces
   ``kernel.py:294``: ``cache_sim_scan``'s tiled count, its exact count
   compared with two per-row capacities (``ref.cache_sim_levels_tiled_ref``
   is the decomposition in plain torch).
-* ``live_count_scan`` (``csrc/live_count.cu``) replaces ``kernel.py:220``.
+* ``live_count_scan`` (``csrc/live_count.cu``) replaces ``kernel.py:220``:
+  a scatter of births and deaths over tiles of ``LIVE_TILE`` rows, then a
+  single-pass scan with decoupled look-back launched as its programmatic
+  dependent (``ref.live_counts_onepass_ref`` is the decomposition in
+  plain torch).
 
 They count in int32; each source says what bounds it on the card.  Cold
 rows (``prev < 0``) come back as -1 from the counts, here and in the
@@ -47,8 +55,9 @@ LIVE_SOURCES = [_CSRC / "live_count.cu"]
 LIBRARIES = (("cache_sim", SOURCES), ("cache_sim_segments", SEGMENTS_SOURCES),
              ("cache_sim_levels", LEVELS_SOURCES),
              ("live_count", LIVE_SOURCES))
-_LIVE_TILE = 8192                   # live_count.cu's kTile
+LIVE_TILE = 4096                    # live_count.cu's kTile
 TILE = 256                          # tiled_count.cuh's kTile
+SEGMENTS_SMEM_WIDTH = 16384         # cache_sim_segments.cu's kSmemWidth
 _SAMPLE = 16                        # sorted keys per sample
 _MAX_N = 2**31 - 32                 # the contract's bound: n, i in int32
 _MAX_M = 2**31 - 2**14              # every chunk end stays in int32
@@ -65,7 +74,7 @@ def _lib() -> ctypes.CDLL:
 def _segments_lib() -> ctypes.CDLL:
     lib = load_library("cache_sim_segments", SEGMENTS_SOURCES)
     fn = lib.cache_sim_segments_scan
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                              ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -116,6 +125,14 @@ def tiled_scratch(n: int, device: torch.device,
                        device=device)
 
 
+def live_scratch_ints(n: int) -> int:
+    """int32 words of ``live_count.cu``'s scratch at n rows, all of which
+    the call clears: a status word (two ints) a tile and the ticket,
+    rounded up to 16 bytes, then the births less deaths of every row."""
+    tiles = -(-n // LIVE_TILE)
+    return -(-(2 * tiles + 1) // 4) * 4 + tiles * LIVE_TILE
+
+
 def cache_sim_scan(prev: torch.Tensor, nxt: torch.Tensor,
                    occ: torch.Tensor) -> torch.Tensor:
     """prev/nxt/occ int32[n] -> counts int32[n]; -1 at cold rows.
@@ -160,9 +177,12 @@ def cache_sim_segments_scan(prev: torch.Tensor, nxt: torch.Tensor,
     ``counts[i] = #{ j : prev[i] < j < i, occ[j] > 0, nxt[j] >= i,
     j // seg_width == i // seg_width }`` on a tape whose length m is a
     multiple of ``seg_width`` (chunk-local links of one width group of a
-    padded tape).  On CUDA tensors this launches the kernel on the
-    current stream (and raises if the launch is refused); on CPU tensors
-    it returns the plain version ``cache_sim_segments_ref``.
+    padded tape); a hot row whose ``prev`` lies in an earlier block counts
+    from its block start.  On CUDA tensors this launches the kernel on the
+    current stream (and raises if the launch is refused): blocks up to
+    ``SEGMENTS_SMEM_WIDTH`` wide are counted in shared memory, wider ones
+    by the global tiled count, chosen by ``seg_width`` alone; on CPU
+    tensors it returns the plain version ``cache_sim_segments_ref``.
     ``cache_sim_segments_scan.launches`` counts kernel launches.
     """
     links = (("prev", prev), ("nxt", nxt), ("occ", occ))
@@ -181,10 +201,13 @@ def cache_sim_segments_scan(prev: torch.Tensor, nxt: torch.Tensor,
     out = torch.empty_like(prev)
     if m == 0:
         return out
+    scratch = (tiled_scratch(m, prev.device)
+               if seg_width > SEGMENTS_SMEM_WIDTH else None)
     stream = torch.cuda.current_stream(prev.device).cuda_stream
     err = _segments_lib().cache_sim_segments_scan(
-        prev.data_ptr(), nxt.data_ptr(), occ.data_ptr(), out.data_ptr(), m,
-        seg_width, stream)
+        prev.data_ptr(), nxt.data_ptr(), occ.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), m, seg_width,
+        stream)
     if err != 0:
         raise RuntimeError(f"cache_sim_segments_scan launch failed "
                            f"(cudaError {err})")
@@ -261,7 +284,7 @@ def live_count_scan(nxt: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(nxt)
     if n == 0:
         return out
-    scratch = torch.empty(n + -(-n // _LIVE_TILE), dtype=torch.int32,
+    scratch = torch.empty(live_scratch_ints(n), dtype=torch.int32,
                           device=nxt.device)
     stream = torch.cuda.current_stream(nxt.device).cuda_stream
     err = _live_lib().live_count_scan(nxt.data_ptr(), occ.data_ptr(),

@@ -22,14 +22,17 @@ thresholds, the masks of ``cache_sim_levels_scan``, whose decomposition
 is ``cache_sim_levels_tiled_ref``) and
 ``live_counts_ref`` (the RO live count of ``live_count_scan``, with its
 O(n) form ``live_counts_delta``, which a CPU tensor takes on the main
-path).
+path, and the kernel's one-pass decomposition ``live_counts_onepass_ref``).
 
 The segment-restricted count of ``cache_sim_segments_scan`` has the same
 two routes on a padded, self-aligned multi-tenant tape: the dense
 ``cache_sim_segments_ref`` (the j plane masked to the row's own
 ``seg_width`` block) and the merge-sort tree ``cache_sim_segments_tree``
 (O(m log² w) work, O(m) memory), which is what a CPU tensor takes on the
-sampled monitor's path.
+sampled monitor's path; ``cache_sim_segments_tiled_ref`` is the CUDA
+kernel's decomposition.  ``live_counts_onepass_ref`` and
+``cache_sim_segments_tiled_ref`` are held to the reference in the tests
+only.
 
 Contract shared with the kernels: cold rows (``prev < 0``, which includes
 the pad rows of a padded tape) get -1.
@@ -40,9 +43,10 @@ import torch
 
 __all__ = ["cache_sim_levels_ref", "cache_sim_levels_tiled_ref",
            "cache_sim_ref", "cache_sim_segments_ref",
-           "cache_sim_segments_tree", "cache_sim_tiled_ref",
-           "count_prev_ge", "coverage_counts",
-           "live_counts_delta", "live_counts_ref", "stack_distances_tree"]
+           "cache_sim_segments_tiled_ref", "cache_sim_segments_tree",
+           "cache_sim_tiled_ref", "count_prev_ge", "coverage_counts",
+           "live_counts_delta", "live_counts_onepass_ref", "live_counts_ref",
+           "stack_distances_tree"]
 
 _PAIRS_PER_CHUNK = 1 << 24
 
@@ -197,6 +201,35 @@ def live_counts_delta(nxt: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(d[:n], 0).to(torch.int32)
 
 
+def live_counts_onepass_ref(nxt: torch.Tensor, occ: torch.Tensor,
+                            tile: int = 4096) -> torch.Tensor:
+    """``live_counts_ref`` as ``live_count_scan``'s kernel computes it, a
+    tile of ``tile`` rows after another: the tile's births (+1 at each
+    token, ``occ[j] > 0`` and ``nxt[j] > j``), its own deaths (-1 at
+    ``nxt[j]`` inside it), the deaths that earlier tiles carried forward
+    into it (deaths at ``nxt[j] >= n`` dropped), a scan of the tile, and
+    the running total of the tiles before it added.  int32."""
+    n = nxt.shape[0]
+    dev = nxt.device
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    nx = nxt.to(torch.int64)
+    carried = torch.zeros(n, dtype=torch.int64, device=dev)
+    before = 0
+    for base in range(0, n, tile):
+        end = min(base + tile, n)
+        pos = torch.arange(base, end, device=dev)
+        tok = (occ[base:end] > 0) & (nx[base:end] > pos)
+        x = nx[base:end][tok & (nx[base:end] < n)]
+        here = x < end
+        delta = tok.to(torch.int64) - torch.bincount(x[here] - base,
+                                                     minlength=end - base)
+        carried.index_add_(0, x[~here], torch.ones_like(x[~here]))
+        scan = torch.cumsum(delta - carried[base:end], 0)
+        out[base:end] = (before + scan).to(torch.int32)
+        before += int(scan[-1])
+    return out
+
+
 def cache_sim_segments_ref(prev: torch.Tensor, nxt: torch.Tensor,
                            occ: torch.Tensor, seg_width: int) -> torch.Tensor:
     """``cache_sim_ref`` with j restricted to row i's ``seg_width`` block:
@@ -270,6 +303,80 @@ def cache_sim_segments_tree(prev: torch.Tensor, nxt: torch.Tensor,
         cnt = cnt + torch.where(do, (blk + 1) * s - p, 0)
     out = cnt.to(torch.int32)
     out[prev < 0] = -1
+    return out
+
+
+def cache_sim_segments_tiled_ref(prev: torch.Tensor, nxt: torch.Tensor,
+                                 occ: torch.Tensor, seg_width: int,
+                                 tile: int = 256) -> torch.Tensor:
+    """``cache_sim_segments_ref`` as ``cache_sim_segments_scan``'s kernel
+    decomposes it.
+
+    A hot row's interval starts at ``lo = max(prev[i] + 1, i - i % w)``
+    (prev raised to the block start).  The block is cut into tiles of
+    ``T = min(tile, w)`` positions from its start (the last one ragged when
+    T does not divide w); with ``key[j] = nxt[j]`` where ``occ[j] > 0`` and
+    -1 elsewhere, an interval inside the row's own tile and the head up to
+    the first tile edge are direct compares ``key[j] >= i`` (under T
+    positions), each whole tile between is the count of its keys >= i, and
+    the tail from the row's tile start is a coverage count: key j covers
+    rows ``j + 1 .. min(key, tile end - 1)``, a difference array prefix-
+    summed over the tape, read as ``P[i] - P[tile start]``.  int32, -1 at
+    cold rows.
+    """
+    m = prev.shape[0]
+    dev = prev.device
+    w = int(seg_width)
+    T = min(int(tile), w)
+    out = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    if m == 0:
+        return out
+    key = torch.where(occ > 0, nxt.to(torch.int64), -1)
+    pos = torch.arange(m, device=dev)
+    bs = pos - pos % w
+    start = bs + (pos - bs) // T * T                 # the row's own tile
+    end = torch.minimum(start + T, bs + w)
+    lo = torch.minimum(torch.maximum(prev.to(torch.int64) + 1, bs), pos)
+    inside = lo > start
+    edge = torch.where(inside, pos,
+                       torch.minimum(bs + -(-(lo - bs) // T) * T, start))
+    cnt = torch.zeros(m, dtype=torch.int64, device=dev)
+    # direct compares over [lo, edge)
+    off = torch.arange(max(T - 1, 1), device=dev)
+    chunk = max(1, _PAIRS_PER_CHUNK // off.numel())
+    for c in range(0, m, chunk):
+        j = lo[c:c + chunk, None] + off[None, :]
+        hit = key[j.clamp(max=m - 1)] >= pos[c:c + chunk, None]
+        cnt[c:c + chunk] += ((j < edge[c:c + chunk, None]) & hit).sum(dim=1)
+    # tails [start, i) by coverage
+    last = torch.minimum(key, end - 1)
+    covers = last > pos
+    diff = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+    diff.index_add_(0, pos[covers] + 1, torch.ones_like(pos[covers]))
+    stops = covers & (last + 1 < end)
+    diff.index_add_(0, last[stops] + 1, -torch.ones_like(pos[stops]))
+    P = torch.cumsum(diff[:m], 0)
+    cnt += torch.where(inside, 0, P - P[start])
+    # whole tiles [edge, start): keys >= i of each, from its sorted keys
+    ntile = ((start - edge) // T).clamp(min=0)
+    if int(ntile.sum()):
+        per = w // T                                 # whole tiles a block
+        first = (torch.arange(m // w, device=dev)[:, None] * w
+                 + torch.arange(per, device=dev)[None, :] * T).view(-1)
+        srt = torch.sort(key[first[:, None] + torch.arange(T, device=dev)],
+                         dim=1).values
+        big = int(key.max()) + 3
+        flat = (torch.arange(first.numel(), device=dev)[:, None] * big
+                + srt + 1).view(-1)
+        owner = torch.repeat_interleave(pos, ntile)
+        k0 = torch.repeat_interleave(bs // w * per + (edge - bs) // T, ntile)
+        k = k0 + (torch.arange(owner.numel(), device=dev)
+                  - torch.repeat_interleave(torch.cumsum(ntile, 0) - ntile,
+                                            ntile))
+        below = torch.searchsorted(flat, k * big + owner + 1) - k * T
+        cnt.index_add_(0, owner, T - below)
+    hot = prev >= 0
+    out[hot] = cnt[hot].to(torch.int32)
     return out
 
 

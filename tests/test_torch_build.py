@@ -3,10 +3,11 @@
 A library is ``_build/lib<name>-<hash>.so``, and the hash must change with
 anything that changes the compiled code: the flags, the sources and every
 header the sources include, which ``library_path`` finds itself from the
-quoted ``#include`` lines.  ``cache_sim_scan``, ``cache_sim_levels_scan``
-and ``urd_scan`` share ``cache_sim/csrc/tiled_count.cuh``, so an edit to
-it must rename all three libraries (a stale one would be loaded
-otherwise).  Nothing here compiles: ``library_path`` only hashes.
+quoted ``#include`` lines.  ``cache_sim_scan``, ``cache_sim_levels_scan``,
+``urd_scan`` and ``cache_sim_segments_scan`` share
+``cache_sim/csrc/tiled_count.cuh``, so an edit to it must rename all four
+libraries (a stale one would be loaded otherwise).  Nothing here
+compiles: ``library_path`` only hashes.
 """
 import pathlib
 import re
@@ -75,13 +76,15 @@ def test_every_included_header_is_hashed(name, tmp_path):
 
 def test_editing_the_shared_header_renames_its_libraries(tmp_path):
     """Copies of the sources: one byte more in the shared header names a
-    new library for each of its three users and for no other."""
+    new library for each of its four users (the segments count takes it
+    for blocks wider than shared memory) and for no other."""
     copies = _copy_tree(tmp_path)
     before = {name: library_path(name, srcs) for name, srcs in copies.items()}
     header = tmp_path / "cache_sim" / "csrc" / SHARED
     header.write_text(header.read_text() + "\n")
     after = {name: library_path(name, srcs) for name, srcs in copies.items()}
     changed = sorted(name for name in copies if after[name] != before[name])
-    assert changed == ["cache_sim", "cache_sim_levels", "urd_scan"]
+    assert changed == ["cache_sim", "cache_sim_levels", "cache_sim_segments",
+                       "urd_scan"]
     assert all(p.name.startswith(f"lib{name}-") and p.suffix == ".so"
                for name, p in after.items())

@@ -12,7 +12,12 @@ each interval's head and tail, a search in each sorted whole tile), is
 held to the reference exactly too: tapes with n not a multiple of the
 tile and n below it, intervals that start or end on a tile edge, occ
 masks.  The CUDA kernel itself is held against these on the card
-(``tests/test_torch_gpu.py``).
+(``tests/test_torch_gpu.py``).  So is ``cache_sim_segments_scan``'s
+decomposition, ``cache_sim_segments_tiled_ref`` (prev raised to the block
+start; block-local tiles; heads direct, whole tiles counted, tails by
+coverage), against the reference's dense ``cache_sim_segments_ref`` and
+its Pallas ``cache_sim_segments_scan`` in interpret mode, on width groups
+with pad rows and links that cross a block.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,10 +27,15 @@ import torch
 from repro.core.batch_sim import _stack_distances_host
 from repro.core.batch_sim import count_prev_ge as count_prev_ge_ref
 from repro.kernels.cache_sim.kernel import cache_sim_scan as cache_sim_scan_tpu
+from repro.kernels.cache_sim.kernel import \
+    cache_sim_segments_scan as segments_scan_tpu
 from repro.kernels.cache_sim.ref import cache_sim_ref as cache_sim_ref_jax
+from repro.kernels.cache_sim.ref import \
+    cache_sim_segments_ref as segments_ref_jax
 from repro_torch.kernels.cache_sim.kernel import cache_sim_scan
 from repro_torch.kernels.cache_sim.ops import stack_distances
 from repro_torch.kernels.cache_sim.ref import (cache_sim_ref,
+                                               cache_sim_segments_tiled_ref,
                                                cache_sim_tiled_ref,
                                                count_prev_ge,
                                                coverage_counts,
@@ -197,3 +207,107 @@ def test_tiled_ref_matches_merge_tree_long_intervals():
     span = np.flatnonzero(hot) - prev[hot]
     assert span.max() > 8 * 256
     assert torch.equal(got.long(), stack_distances_tree(_t(prev), _t(nxt)))
+
+
+def _width_group(w, lens, seed, cross=0):
+    """One width group of a padded tape (numpy, independent of the port):
+    a segment of each length in ``lens`` (each <= w) at the start of its
+    own w-block, links severed per segment with ``nxt`` clamped to the
+    segment end, pad rows cold, non-occupying and linked to themselves;
+    then ``cross`` hot rows past the first block get a ``prev`` in an
+    earlier block.  Returns prev, nxt, occ (1 on real rows) and a read
+    mask."""
+    rng = np.random.default_rng(seed)
+    m = w * len(lens)
+    prev = np.full(m, -1, np.int64)
+    nxt = np.arange(m, dtype=np.int64)
+    occ = np.zeros(m, np.int32)
+    for b, ln in enumerate(lens):
+        s, e = b * w, b * w + ln
+        last = {}
+        for k, a in enumerate(rng.integers(0, max(3, ln // 4), ln).tolist()):
+            if a in last:
+                prev[s + k] = s + last[a]
+            last[a] = k
+        nxt[s:e] = e
+        hot = np.flatnonzero(prev[s:e] >= 0) + s
+        nxt[prev[hot]] = hot
+        occ[s:e] = 1
+    reads = occ * (rng.random(m) < 0.6)
+    hot = np.flatnonzero((prev >= 0) & (np.arange(m) >= w))
+    pick = rng.choice(hot, size=min(cross, hot.size), replace=False)
+    prev[pick] = np.maximum(pick - w - rng.integers(0, w, pick.size), 0)
+    return prev, nxt, occ, reads.astype(np.int32)
+
+
+def _segments_reference(prev, nxt, occ, w):
+    return np.asarray(segments_ref_jax(jnp.asarray(prev, jnp.int32),
+                                       jnp.asarray(nxt, jnp.int32),
+                                       jnp.asarray(occ, jnp.int32), w))
+
+
+SEG_GROUPS = [(64, [64, 1, 37, 0, 64]), (128, [128, 100, 65]),
+              (256, [256, 129, 200]), (512, [512, 300, 257, 0]),
+              (4096, [4096, 2049]), (16384, [9000])]
+
+
+@pytest.mark.parametrize("w,lens", SEG_GROUPS)
+@pytest.mark.parametrize("occ_kind", ["ones", "reads"])
+def test_segments_tiled_ref_matches_reference(w, lens, occ_kind):
+    """Hot rows equal the reference's dense oracle, pad and cold rows are
+    -1, at every width the sampled tapes use up to the widest block held
+    in shared memory; where there are two blocks or more, some hot rows
+    link to an earlier one (one block at w = 16384 keeps the dense
+    oracle's plane at 2^28 pairs)."""
+    prev, nxt, occ, reads = _width_group(w, lens, seed=w, cross=w // 8 + 1)
+    if occ_kind == "reads":
+        occ = reads
+    crossing = (prev >= 0) & (prev < np.arange(prev.size) // w * w)
+    assert crossing.any() or len(lens) == 1
+    want = _segments_reference(prev, nxt, occ, w)
+    got = cache_sim_segments_tiled_ref(_t(prev).int(), _t(nxt).int(),
+                                       _t(occ), w)
+    assert got.dtype == torch.int32
+    hot = prev >= 0
+    np.testing.assert_array_equal(got.numpy()[hot], want[hot])
+    assert (got.numpy()[~hot] == -1).all()
+
+
+@pytest.mark.parametrize("w", [16, 64, 100])
+@pytest.mark.parametrize("tile", [4, 16])
+def test_segments_tiled_ref_small_tiles(w, tile):
+    """Tiles of 4 and 16 put many whole tiles, heads and tails in each
+    block (a ragged last tile where the tile does not divide w = 100),
+    and prev at or past the row (an empty interval) on some rows."""
+    m = 6 * w
+    rng = np.random.default_rng(w + tile)
+    pos = np.arange(m)
+    prev = pos - rng.integers(1, w + w // 2 + 2, m)
+    prev[(rng.random(m) < 0.2) | (prev < 0)] = -1
+    late = rng.random(m) < 0.05
+    prev[late] = pos[late] + rng.integers(0, 3, late.sum())
+    nxt = pos + rng.integers(1, w + 1, m)
+    end = rng.random(m) < 0.3
+    nxt[end] = (pos[end] // w + 1) * w
+    occ = (rng.random(m) < 0.7).astype(np.int32)
+    want = _segments_reference(prev, nxt, occ, w)
+    got = cache_sim_segments_tiled_ref(_t(prev).int(), _t(nxt).int(),
+                                       _t(occ), w, tile).numpy()
+    hot = prev >= 0
+    np.testing.assert_array_equal(got[hot], want[hot])
+    assert (got[~hot] == -1).all()
+
+
+@pytest.mark.parametrize("w,lens", [(64, [64, 30]), (256, [256, 129])])
+@pytest.mark.parametrize("occ_kind", ["ones", "reads"])
+def test_segments_tiled_ref_matches_tpu_kernel_interpret(w, lens, occ_kind):
+    prev, nxt, occ, reads = _width_group(w, lens, seed=3 * w, cross=4)
+    if occ_kind == "reads":
+        occ = reads
+    want = np.asarray(segments_scan_tpu(
+        *[jnp.asarray(a, jnp.int32) for a in (prev, nxt, occ)],
+        seg_width=w, interpret=True))
+    got = cache_sim_segments_tiled_ref(_t(prev).int(), _t(nxt).int(),
+                                       _t(occ), w).numpy()
+    hot = prev >= 0
+    np.testing.assert_array_equal(got[hot], want[hot])

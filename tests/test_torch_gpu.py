@@ -19,7 +19,13 @@ through ``prefill`` and ``decode_step``, card against CPU; the paged
 decode attention against its plain version and its split decomposition
 (long rows at B 1 and 4, a row of length 0, the same bits from call to
 call), and the serving engine on the smoke qwen3 config, card against
-CPU.
+CPU.  The one-pass ``live_count_scan`` and the shared-memory
+``cache_sim_segments_scan`` are also held to their decompositions
+(``live_counts_onepass_ref``, ``cache_sim_segments_tiled_ref``) at their
+edges: a tile +- 1, thousands of deaths on one word and deaths anywhere
+on the tape; widths on both sides of the shared-memory / global boundary,
+links that cross a block, every width group of a sampled MSR tape; and
+from call to call and tape to tape (no state kept between calls).
 This module imports nothing of JAX, so it runs where JAX is absent.
 """
 import numpy as np
@@ -39,7 +45,10 @@ from repro_torch.core.partitioner import pgd_solve
 from repro_torch.data.scenarios import churn, replay_scenario
 from repro_torch.data.traces import MSR_PROFILES, msr_trace, synthetic_mix
 from repro_torch.kernels import hopper_available
-from repro_torch.kernels.cache_sim.kernel import (TILE,
+from repro_torch.core.monitor import shards_subtape
+from repro_torch.core.reuse_distance import auto_sample_rate
+from repro_torch.kernels.cache_sim.kernel import (LIVE_TILE,
+                                                  SEGMENTS_SMEM_WIDTH, TILE,
                                                   cache_sim_levels_scan,
                                                   cache_sim_scan,
                                                   cache_sim_segments_scan,
@@ -51,9 +60,11 @@ from repro_torch.kernels.cache_sim.ref import (cache_sim_levels_ref,
                                                cache_sim_levels_tiled_ref,
                                                cache_sim_ref,
                                                cache_sim_segments_ref,
+                                               cache_sim_segments_tiled_ref,
                                                cache_sim_segments_tree,
                                                cache_sim_tiled_ref,
                                                live_counts_delta,
+                                               live_counts_onepass_ref,
                                                live_counts_ref,
                                                stack_distances_tree)
 from repro_torch.kernels.urd_scan.kernel import urd_scan
@@ -284,7 +295,7 @@ def _padded_tape(lens, seed, device):
 
 SEGMENT_LENS = {64: [64, 1, 33, 0, 64], 512: [512, 300, 257],
                 4096: [4096, 2049, 3000], 8192: [8192, 5000, 4097],
-                16384: [16384, 9000]}     # 16384: wider than one stage
+                16384: [16384, 9000]}     # 16384: the widest block on chip
 
 
 @pytest.mark.parametrize("w", sorted(SEGMENT_LENS))
@@ -317,6 +328,107 @@ def test_segments_launch_counter_and_input_checks(card):
     with pytest.raises(ValueError):
         cache_sim_segments_scan(p32, n32, gocc, w * 3)        # not a divisor
     assert cache_sim_segments_scan.launches == before + 1
+
+
+def _segment_group(w, lens, seed, device, cross=0):
+    """One width group (numpy): a segment of each length in ``lens`` at
+    the start of its own w-block, links severed per segment with ``nxt``
+    clamped to its end, pad rows cold, non-occupying and linked to
+    themselves; ``cross`` hot rows past the first block get a ``prev`` in
+    an earlier block and as many a ``prev`` at or past the row.  Any w
+    (the kernel takes any width that divides the length)."""
+    rng = np.random.default_rng(seed)
+    m = w * len(lens)
+    prev = np.full(m, -1, np.int64)
+    nxt = np.arange(m, dtype=np.int64)
+    occ = np.zeros(m, np.int64)
+    for b, ln in enumerate(lens):
+        s, e = b * w, b * w + ln
+        addrs = rng.integers(0, max(3, ln // 4), ln)
+        order = np.argsort(addrs, kind="stable")
+        same = addrs[order][1:] == addrs[order][:-1]
+        prev[s + order[1:][same]] = s + order[:-1][same]
+        nxt[s:e] = e
+        nxt[s + order[:-1][same]] = s + order[1:][same]
+        occ[s:e] = 1
+    reads = occ * (rng.random(m) < 0.6)
+    hot = np.flatnonzero((prev >= 0) & (np.arange(m) >= w))
+    pick = rng.choice(hot, size=min(2 * cross, hot.size), replace=False)
+    back, late = pick[:cross], pick[cross:]
+    prev[back] = np.maximum(back - w - rng.integers(0, w, back.size), 0)
+    prev[late] = late + rng.integers(0, 3, late.size)
+    t = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)  # noqa: E731
+    return t(prev), t(nxt), t(occ), t(reads)
+
+
+@pytest.mark.parametrize("w", [64, 128, 256, 512, 640, 4096, 8192,
+                               SEGMENTS_SMEM_WIDTH - 1, SEGMENTS_SMEM_WIDTH,
+                               SEGMENTS_SMEM_WIDTH + 1,
+                               2 * SEGMENTS_SMEM_WIDTH])
+@pytest.mark.parametrize("occ_kind", ["ones", "reads"])
+def test_segments_scan_edges_on_card(card, w, occ_kind):
+    """Widths that take shared memory (up to ``SEGMENTS_SMEM_WIDTH``, a
+    width of 640 and one of the boundary less 1 with a ragged last tile)
+    and the global tiled count past it; full, half, one-row and empty
+    segments; links that cross a block and prev at or past the row."""
+    prev, nxt, occ, reads = _segment_group(w, [w, w // 2 + 1, 1, 0, w - 1],
+                                           w, card, cross=w // 8 + 1)
+    if occ_kind == "reads":
+        occ = reads
+    got = cache_sim_segments_scan(prev, nxt, occ, w)
+    want = cache_sim_segments_tiled_ref(prev, nxt, occ, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((got[prev < 0] == -1).all())
+    if prev.shape[0] <= 4096:
+        assert torch.equal(got, cache_sim_segments_ref(prev, nxt, occ, w))
+
+
+def test_segments_scan_sampled_tape_on_card(card):
+    """Every width group of a sampled MSR tape: 32 tenants (the 16
+    profiles twice) of 65,536 accesses, each kept at the manager's own
+    rate, laid out and linked as the sampled monitor does."""
+    names = list(MSR_PROFILES) * 2
+    traces = [msr_trace(p, 65536, seed=i) for i, p in enumerate(names)]
+    rates = [auto_sample_rate(len(t)) for t in traces]
+    addrs, _, kept = shards_subtape(traces, rates, 0,
+                                    list(range(len(traces))), card)
+    tid = torch.repeat_interleave(torch.arange(len(traces), device=card),
+                                  kept)
+    bounds = torch.cat([torch.zeros(1, dtype=torch.int64, device=card),
+                        torch.cumsum(kept, 0)])
+    prev, nxt, _, _ = segment_links(addrs, tid, bounds[1:][tid])
+    lay = padded_segment_layout(bounds.cpu(), device=card)
+    gprev, gnxt, gocc = padded_tape_links(prev, nxt, lay)
+    groups = width_groups_of(lay[4])
+    assert len(groups) >= 2
+    for w, lo, hi in groups:
+        gp = gprev[lo:hi]
+        args = (torch.where(gp >= 0, gp - lo, -1).to(torch.int32),
+                (gnxt[lo:hi] - lo).to(torch.int32), gocc[lo:hi].contiguous())
+        got = cache_sim_segments_scan(*args, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cache_sim_segments_tree(*args, w)), w
+        assert torch.equal(got, cache_sim_segments_tiled_ref(*args, w)), w
+
+
+def test_segments_scan_repeats_and_keeps_no_state_on_card(card):
+    """A second call gives the same bits; two tapes in turn, one in
+    shared memory and one through the global count, give what their first
+    calls gave; one launch a call."""
+    a = (*_segment_group(4096, [4096, 3000, 2049], 1, card, cross=50)[:3],
+         4096)
+    b = (*_segment_group(2 * SEGMENTS_SMEM_WIDTH, [40000, 20000], 2, card,
+                         cross=50)[:3], 2 * SEGMENTS_SMEM_WIDTH)
+    before = cache_sim_segments_scan.launches
+    ra, rb = cache_sim_segments_scan(*a), cache_sim_segments_scan(*b)
+    torch.cuda.synchronize()
+    assert torch.equal(ra, cache_sim_segments_tiled_ref(*a))
+    assert torch.equal(rb, cache_sim_segments_tiled_ref(*b))
+    for _ in range(3):
+        assert torch.equal(cache_sim_segments_scan(*a), ra)
+        assert torch.equal(cache_sim_segments_scan(*b), rb)
+    assert cache_sim_segments_scan.launches == before + 8
 
 
 def test_stack_distances_segments_card_matches_cpu(card):
@@ -453,6 +565,49 @@ def test_live_count_scan_matches_ref_on_card(card, n):
     assert torch.equal(got, want)
     if n <= 8193:
         assert torch.equal(got, live_counts_ref(nxt, occ))
+
+
+def _live_edge_inputs(n, seed, device):
+    """``_live_inputs`` plus, past 2,000 rows, 1,500 rows before the middle
+    dying at the middle word, and a twentieth of the rows dying anywhere
+    on the tape (or past it)."""
+    nxt, occ = _live_inputs(n, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    if n > 2000:
+        nxt[n // 2 - 1500:n // 2] = n // 2
+    far = torch.as_tensor(rng.random(n) < 0.05, device=device)
+    anywhere = torch.as_tensor(rng.integers(0, n + 2, n), device=device)
+    return torch.where(far, anywhere, nxt).to(torch.int32), occ
+
+
+@pytest.mark.parametrize("n", [1, LIVE_TILE - 1, LIVE_TILE, LIVE_TILE + 1,
+                               3 * LIVE_TILE + 1, 1 << 20])
+def test_live_count_scan_edges_on_card(card, n):
+    nxt, occ = _live_edge_inputs(n, n + 3, card)
+    for o in (occ, torch.ones_like(occ)):
+        got = live_count_scan(nxt, o)
+        want = live_counts_delta(nxt, o)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(got, live_counts_onepass_ref(nxt, o, LIVE_TILE))
+        if n <= LIVE_TILE + 1:
+            assert torch.equal(got, live_counts_ref(nxt, o))
+
+
+def test_live_count_scan_repeats_and_keeps_no_state_on_card(card):
+    """A second call gives the same bits; two tapes of other lengths in
+    turn give what their first calls gave; one launch a call."""
+    a = _live_edge_inputs(300_000, 1, card)
+    b = _live_edge_inputs(77_777, 2, card)
+    before = live_count_scan.launches
+    ra, rb = live_count_scan(*a), live_count_scan(*b)
+    torch.cuda.synchronize()
+    assert torch.equal(ra, live_counts_delta(*a))
+    assert torch.equal(rb, live_counts_delta(*b))
+    for _ in range(3):
+        assert torch.equal(live_count_scan(*a), ra)
+        assert torch.equal(live_count_scan(*b), rb)
+    assert live_count_scan.launches == before + 8
 
 
 def test_level_kernels_launch_counters_and_input_checks(card):

@@ -11,7 +11,11 @@ counterpart and held to it exactly unless stated:
   (``slow``) against the Pallas kernels in interpret mode; the CUDA levels
   kernel's decomposition, ``cache_sim_levels_tiled_ref``, against the
   Pallas ``cache_sim_levels_scan`` in interpret mode at several tile
-  widths, with rows of cap1 > captot, cap1 = 0 and captot = 0;
+  widths, with rows of cap1 > captot, cap1 = 0 and captot = 0; the CUDA
+  live count's one-pass decomposition, ``live_counts_onepass_ref``,
+  against the reference's dense ``live_counts_ref`` and its Pallas
+  ``live_count_scan`` in interpret mode, at n = 1, a tile +- 1 and
+  several tiles, with thousands of deaths on one word;
 * ``simulate_many`` with two levels against the reference's
   ``simulate_many`` and ``simulate`` (and the port's own ``simulate``),
   cold and over warm multi-window chains, over WB/WT/RO x clean/dirty
@@ -71,6 +75,7 @@ from repro_torch.kernels.cache_sim.kernel import (cache_sim_levels_scan,
 from repro_torch.kernels.cache_sim.ref import (cache_sim_levels_ref,
                                                cache_sim_levels_tiled_ref,
                                                live_counts_delta,
+                                               live_counts_onepass_ref,
                                                live_counts_ref)
 
 POL = ["wb", "wt", "ro"]
@@ -243,6 +248,55 @@ def test_levels_tiled_decomposition_matches_pallas_interpret(tile, occ_kind):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
         np.testing.assert_array_equal(d.numpy(), np.asarray(w))
+
+
+def _live_tape(n, seed):
+    """nxt and a read mask (numpy): ``_links``'s tape plus rows with
+    ``nxt = -1`` and ``nxt = j`` (never live) and ``nxt >= n`` (live to
+    the end), and, past 2,000 rows, 1,500 rows before the middle all dying
+    at the middle word."""
+    _, nxt, reads = _links(n, seed)
+    rng = np.random.default_rng(seed)
+    pos = np.arange(n)
+    pick = rng.integers(0, 5, n)
+    nxt = np.where(pick == 0, -1, np.where(pick == 1, pos, nxt))
+    nxt = np.where(pick == 2, n + rng.integers(0, 3, n), nxt)
+    if n > 2000:
+        nxt[n // 2 - 1500:n // 2] = n // 2
+    return nxt, reads
+
+
+LIVE_CASES = [(1, 4096), (4095, 4096), (4096, 4096), (4097, 4096),
+              (12293, 4096), (1, 16), (15, 16), (16, 16), (17, 16),
+              (700, 16), (300, 1)]
+
+
+@pytest.mark.parametrize("n,tile", LIVE_CASES)
+@pytest.mark.parametrize("occ_kind", ["ones", "reads"])
+def test_live_onepass_ref_matches_reference(n, tile, occ_kind):
+    """``live_count_scan``'s decomposition, tile by tile with the deaths
+    carried forward, equals the reference's dense oracle: one row, a
+    tile +- 1, several tiles (of the kernel's 4096 rows and of 16 and 1),
+    rows that never or always live, and a word where 1,500 tokens die."""
+    nxt, reads = _live_tape(n, n + tile)
+    occ = np.ones(n, np.int32) if occ_kind == "ones" else reads
+    want = np.asarray(ref_jax.live_counts_ref(jnp.asarray(nxt, jnp.int32),
+                                              jnp.asarray(occ, jnp.int32)))
+    got = live_counts_onepass_ref(_t(nxt).to(torch.int32),
+                                  _t(occ).to(torch.int32), tile)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,tile", [(300, 16), (512, 4096)])
+def test_live_onepass_ref_matches_pallas_interpret(n, tile):
+    nxt, reads = _live_tape(n, 7 * n)
+    want = np.asarray(live_scan_tpu(jnp.asarray(nxt, jnp.int32),
+                                    jnp.asarray(reads, jnp.int32),
+                                    interpret=True))
+    got = live_counts_onepass_ref(_t(nxt).to(torch.int32),
+                                  _t(reads).to(torch.int32), tile)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.slow
