@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases:
   1. print the card (``nvidia-smi`` name and power limit, torch's name);
-  2. build the eight CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
+  2. build the ten CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
      one ``nvcc`` per source, all started together (``cache_sim_scan``,
      ``cache_sim_levels_scan`` and ``urd_scan`` include the shared tiled
      count ``cache_sim/csrc/tiled_count.cuh``, hashed with them);
@@ -52,19 +52,33 @@ Phases:
      (B 1 and 4, about 2048 positions, a row of length 0 that must be 0),
      float32 (2e-5) and bfloat16 (2e-2), and equal bit for bit from
      call to call (the splits merge in a fixed order);
+     ``ro_token_replay_scan`` and ``ro_token_replay_levels_scan`` vs
+     their plain versions (the host loops over the blocks) on pressured
+     multi-block tapes (one-row blocks, capacity 0, warm-L2 rows below
+     ``l2_end``, a clean L2), exactly, the same bits call to call;
   4. drive slice 1's path — ``make_manager("eci", 6000, ...)`` over 16
      tenants, three Δt windows of 65,536 accesses each — on the card with
      every kernel launch counter set to 0 just before each window and
      read just after; then run the same windows through the port on the
      CPU and require equal sizes, policies, feasibility, per-tenant
-     counts, final LRU states, summaries, and latencies to rel 1e-12;
+     counts, final LRU states, summaries, and latencies to rel 1e-12; in
+     every path of phases 4-7 and 10 the RO replay kernels launch once
+     per kind in each window whose CPU replay took that kind's host token
+     loop (and never otherwise), every call of theirs on the path is held
+     to its plain version on the same blocks and timed, and each window's
+     ``ro_replay`` stage is printed beside PERF.md section 5's; then the
+     same windows through ``pipeline="device"`` on the card, decisions,
+     event logs, per-tenant counts and LRU states equal to the host
+     pipeline's run;
   5. drive the SHARDS path — ``make_manager("eci", 96000, ...)`` over 256
      tenants (the 16 MSR profiles x 16), two windows of 65,536 accesses
      per tenant, which the manager monitors sampled by itself (rate
      1/16) — the same way, every window launching
      ``cache_sim_segments_scan``; then the same windows on the CPU
      (window 1 only while the run is inside its time budget; a cut is
-     printed), compared as in phase 4, sample rates included;
+     printed), compared as in phase 4, sample rates included; then
+     window 0 through ``pipeline="device"`` (the sampled branch), equal to
+     the host pipeline's window 0;
   6. drive the ETICA path — ``make_manager("etica", 6000, ..., capacity2=
      24000, t_fast2=4.0)``, slice 1's windows — the same way, compared
      with the CPU level by level (sizes2, policies2, L2 counts, both
@@ -91,7 +105,15 @@ Phases:
      per-tenant ``reuse_distances_accel`` loop, 1024 ``urd_scan``
      launches, and the fast greedy walk) and the fused row (exact
      ``analyze_windows`` and the fast walk) on the card, the heap walk on
-     the CPU; allocations, feasibility and hit ratios equal;
+     the CPU; allocations, feasibility and hit ratios equal; then
+     ``DeviceWindowPipeline(transfer_sanitize=True)`` on the same window
+     from the host (one sync a window): curves and hit ratios bit for bit
+     and sizes equal to the fused row and the heap walk, latency to rel
+     1e-12, timed beside the fused row, its ``cache_sim_segments_scan``
+     launches counted; ``run_stream`` over windows of seeds 7, 8, an empty
+     one and 9, equal to ``run``; ``greedy_allocate(method="device")`` on
+     the fused curves against the heap walk; and the pipeline on the card
+     against the CPU at ``synthetic_mix(32, 1000, seed=11)``, bit for bit;
  10. the remaining schemes on slice 1's deployment: ``static`` and
      ``reuse_intensity`` (every window launching ``live_count_scan``)
      driven as in phase 4, and ``GlobalLRUManager`` on the card against
@@ -155,7 +177,10 @@ Phases:
      at each width group of the 256-tenant window-0 sampled tape and its
      three launches, a call and alone, with the key words it stages; and
      ``live_count_scan`` at the pressure path's and the 256-tenant path's
-     first guard tapes, a call and alone;
+     first guard tapes, a call and alone; the RO replay kernels' rows come
+     from their largest calls on the paths (phases 4-7), with the bound
+     the larger of their bytes and the longest block's rows times one
+     dependent L1 hit;
  15. print the kernels line, the card line and, last, the result line.
 
 Exits non-zero, printing no result, when no card is visible or any
@@ -261,6 +286,23 @@ CHAT_SHORT, BATCH_SHORT, SERVE_NEW = 7, 9, 32
 SERVE_REDUCED_LAYERS, SERVE_REDUCED_SCALE, SERVE_REDUCED_NEW = 2, 4, 8
 SERVE_REDUCED = dict(n_pages=1024, capacity=256, c_min=8, initial=128,
                      window=64)
+# PERF.md section 5's ro_replay stage per window when the RO replays were
+# host loops (this script on NVIDIA H100 80GB HBM3, 700.00 W), printed
+# beside this run's
+RO_REPLAY_BEFORE_S = {"16-tenant": (0.0, 0.368, 0.319),
+                      "256-tenant": (0.0, 6.107),
+                      "ETICA": (0.0, 0.526, 0.498),
+                      "pressure": (0.0, 0.824, 0.597)}
+# one dependent L1 hit on Hopper: about 33 cycles (published
+# microbenchmarks of the H100's L1) at the H100 SXM's 1.98 GHz boost
+# clock; the RO token replays' chain bound is a block's rows times this
+L1_HIT_S = 33 / 1.98e9
+# the control plane through DeviceWindowPipeline.run_stream: these seeds,
+# with an empty window third
+CP_STREAM_SEEDS = (7, 8, None, 9)
+# the card-against-CPU check of the device pipeline at a small size (the
+# CPU counts each width group with the dense plain segments count)
+DP_SMALL = (32, 1000, 11)
 T_START = time.perf_counter()
 
 
@@ -539,7 +581,9 @@ def graph_ms(fn, reps: int) -> float:
 
 KERNEL_NAMES = ("cache_sim_scan", "cache_sim_segments_scan",
                 "cache_sim_levels_scan", "live_count_scan", "urd_scan",
-                "mamba2_ssd", "flash_attention", "paged_attention")
+                "mamba2_ssd", "flash_attention", "paged_attention",
+                "ro_token_replay_scan", "ro_token_replay_levels_scan")
+RO_KERNELS = ("ro_token_replay_scan", "ro_token_replay_levels_scan")
 STAGES = ("tape", "ro_replay", "count", "replay", "monitor", "pgd")
 
 
@@ -549,9 +593,11 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.mamba2_ssd import kernel as ssd
     from repro_torch.kernels.paged_attention import kernel as pa
+    from repro_torch.kernels.ro_replay import kernel as ro
     from repro_torch.kernels.urd_scan import kernel as urd
     home = {"urd_scan": urd, "mamba2_ssd": ssd, "flash_attention": fa,
-            "paged_attention": pa}
+            "paged_attention": pa, "ro_token_replay_scan": ro,
+            "ro_token_replay_levels_scan": ro}
     return {name: getattr(home.get(name, cache_sim), name)
             for name in KERNEL_NAMES}
 
@@ -571,6 +617,23 @@ def states_of(mgr) -> list:
     return [tuple(x.cpu() for x in t.cache.state_arrays())
             + tuple(x.cpu() for x in t.cache2.state_arrays())
             for t in mgr.tenants]
+
+
+# calls of the per-tenant host token loops (the CPU tape's RO replays),
+# counted by wrappers main() installs on batch_sim's names
+HOST_TOKENS = collections.Counter()
+
+
+def count_host_tokens(bs) -> None:
+    """Count the CPU tape's per-tenant RO replays (one and two levels)."""
+    for name, key in (("_ro_token_replay", "one"),
+                      ("_ro_token_replay_levels", "two")):
+        fn = getattr(bs, name)
+
+        def counted(*a, _fn=fn, _key=key, **k):
+            HOST_TOKENS[_key] += 1
+            return _fn(*a, **k)
+        setattr(bs, name, counted)
 
 
 def run_windows(device, windows, names, capacity, profile=None,
@@ -602,12 +665,15 @@ def run_windows(device, windows, names, capacity, profile=None,
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         zero_counts()
+        host0 = dict(HOST_TOKENS)
         t0 = time.perf_counter()
         mgr.run_window(traces)
         if cuda:
             torch.cuda.synchronize()
         rec["walls"].append(time.perf_counter() - t0)
         rec["launches"].append(read_counts())
+        rec["host_tokens"].append(tuple(HOST_TOKENS[k] - host0.get(k, 0)
+                                        for k in ("one", "two")))
         rec["peak"].append(torch.cuda.max_memory_allocated() if cuda else 0)
         rec["stages"].append({k: profile.times.get(k, 0.0) - st0.get(k, 0.0)
                               for k in STAGES} if profile is not None
@@ -821,6 +887,23 @@ def drive(path: str, dev, windows, names, capacity, want=(), scheme="eci",
     print(f"check: {path} card run == CPU run (sizes, policies, "
           f"feasibility, sample rates, guard reports, per-tenant counts, "
           f"LRU states, summary; latencies to rel 1e-12)")
+    # the RO replay kernels: one launch per kind in each window whose CPU
+    # replay took that kind's host token loop for some tenant
+    for w, (one, two) in enumerate(crec["host_tokens"]):
+        got = tuple(grec["launches"][w][k] for k in RO_KERNELS)
+        assert got == (int(one > 0), int(two > 0)), \
+            f"{path} window {w}: RO replay launches {got}, CPU host " \
+            f"token loops {(one, two)}"
+    before = RO_REPLAY_BEFORE_S.get(path)
+    for w, st in enumerate(grec["stages"]):
+        if "ro_replay" in st:
+            print(f"{path} window {w}: ro_replay {st['ro_replay']:.4f} s on "
+                  f"the card (PERF.md section 5, host loops: "
+                  f"{before[w] if before else 'not measured'} s); "
+                  f"RO replay launches "
+                  f"{[grec['launches'][w][k] for k in RO_KERNELS]}, CPU "
+                  f"tenants through the host loops "
+                  f"{list(crec['host_tokens'][w]) if w < len(crec['host_tokens']) else 'not run'}")
     return launches, (gpu, grec), (cpu, crec)
 
 
@@ -928,6 +1011,261 @@ def _same_results(what: str, got, want, rel: float = 1e-12) -> None:
                    [dataclasses.asdict(r) for r in want], rel)
 
 
+class RoCalls:
+    """Keeps every call's arguments of batch_sim's two RO replay entry
+    points (``ro_token_replays``, ``ro_token_replays_levels``: the
+    kernels' callers) while a path runs; the wrapped functions still
+    run.  Calls with the same blocks on the same tape length (the ETICA
+    route replays on clones) are kept once."""
+
+    def __init__(self, bs):
+        self.bs = bs
+        self.calls = {"ro_token_replay_scan": {},
+                      "ro_token_replay_levels_scan": {}}
+
+    def __enter__(self):
+        self.orig = {}
+        for attr, kern in (("ro_token_replays", "ro_token_replay_scan"),
+                           ("ro_token_replays_levels",
+                            "ro_token_replay_levels_scan")):
+            fn = getattr(self.bs, attr)
+            self.orig[attr] = fn
+
+            def wrapped(*a, _fn=fn, _kern=kern):
+                key = (int(a[0].shape[0]),
+                       *(tuple(int(x) for x in v) for v in a[4:]))
+                self.calls[_kern].setdefault(key, a)
+                return _fn(*a)
+            setattr(self.bs, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for attr, fn in self.orig.items():
+            setattr(self.bs, attr, fn)
+
+
+def ro_tape(seed: int, dev, levels: bool, blocks: int = 6,
+            n_max: int = 5000):
+    """Pressured RO tenant blocks on one tape: few addresses, mostly
+    reads, links severed at the blocks; a one-row block; capacity 0 on
+    some single-level blocks; warm-L2 rows (l2_end) at the head of the
+    two-level blocks, a clean L2 on every other one."""
+    from repro_torch.core.batch_sim import segment_links
+    rng = np.random.default_rng(seed)
+    lens = [int(x) for x in rng.integers(1, n_max, blocks)]
+    lens[1] = 1
+    bounds = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    tid = torch.as_tensor(np.repeat(np.arange(blocks), lens), device=dev)
+    addrs = np.concatenate([rng.integers(0, 40 + 20 * k, ln)
+                            for k, ln in enumerate(lens)])
+    prev, nxt, _, _ = segment_links(torch.as_tensor(addrs, device=dev), tid,
+                                    torch.as_tensor(bounds[1:],
+                                                    device=dev)[tid])
+    m = int(bounds[-1])
+    tape = (torch.as_tensor(rng.random(m) < 0.8, device=dev), prev, nxt,
+            torch.as_tensor(rng.random(m) < 0.3, device=dev))
+    c1 = [int(x) for x in rng.integers(1 if levels else 0, 24, blocks)]
+    c2 = [int(x) for x in rng.integers(1, 24, blocks)]
+    l2e = [min(int(x), ln) for x, ln in zip(rng.integers(0, 12, blocks),
+                                           lens)]
+    caps = ((c1, c2, l2e, [bool(k % 2) for k in range(blocks)]) if levels
+            else (c1,))
+    return tape, bounds[:-1].tolist(), bounds[1:].tolist(), caps
+
+
+def ro_kernel_args(a):
+    """A recorded ``ro_token_replays*`` call as the kernel's arguments."""
+    rd, prev, nxt, force, *rest = a
+    return (rd.contiguous(), prev.to(torch.int32).contiguous(),
+            nxt.to(torch.int32).contiguous(), force.contiguous(), *rest)
+
+
+def ro_check(name: str, what: str, args, check) -> float:
+    """Hold one RO replay kernel call against its plain version (the
+    host loops on CPU copies of the tape): every output equal.  Returns
+    the plain version's seconds."""
+    from repro_torch.kernels.ro_replay import kernel as ro, ref
+    kern = getattr(ro, name)
+    plain = (ref.ro_token_replay_blocks_ref
+             if name == "ro_token_replay_scan"
+             else ref.ro_token_replay_levels_blocks_ref)
+    got = kern(*args)
+    host = tuple(x.cpu() for x in args[:4]) + tuple(args[4:])
+    t0 = time.perf_counter()
+    want = plain(*host)
+    t_plain = time.perf_counter() - t0
+    for g, w_, part in zip(got, want, ("death", "dirty", "lvl", "counts")):
+        check(name, f"{what} {part}", g.cpu(), w_)
+    return t_plain
+
+
+def ro_work(args, levels: bool) -> tuple[int, int]:
+    """(rows replayed, the longest block's rows) of one call."""
+    starts, ends = args[4], args[5]
+    rows = [e - s for s, e in zip(starts, ends)]
+    return sum(rows), max(rows, default=0)
+
+
+def ro_bound_ms(args, levels: bool) -> tuple[float, str]:
+    """The larger of the call's bytes at the memory rate (read is_read,
+    prev, nxt, force and write death, dirty and, with two levels, lvl
+    once a row: 15 or 16 bytes) and its longest block's chain of
+    dependent steps, one L1 hit each (``bound_by`` "operations": the
+    dependent steps)."""
+    rows, longest = ro_work(args, levels)
+    b = rows * (16 if levels else 15) / PEAK_BYTES_PER_S * 1e3
+    chain = longest * L1_HIT_S * 1e3
+    return max(b, chain), ("operations" if chain >= b else "bytes")
+
+
+def ro_path_checks(path: str, calls: RoCalls, check, timed: dict) -> None:
+    """Phase 4-7: every recorded RO replay call of a path held to its
+    plain version on the card, exactly, and timed (the kernel by CUDA
+    events, a call; its plain version once); the largest call of each
+    kind is kept in ``timed`` for the kernels line."""
+    for name, by_key in calls.calls.items():
+        levels = name == "ro_token_replay_levels_scan"
+        for i, a in enumerate(by_key.values()):
+            args = ro_kernel_args(a)
+            rows, longest = ro_work(args, levels)
+            t_plain = ro_check(name, f"{path} call {i}", args, check)
+            kern = kernel_wrappers()[name]
+            ms = cuda_ms(lambda: kern(*args), 3)
+            bnd, by = ro_bound_ms(args, levels)
+            print(f"{path} {name} call {i}: {len(args[4])} pressured "
+                  f"blocks, {rows} rows (longest {longest}); kernel "
+                  f"{ms:.3f} ms a call, plain version (host loops) "
+                  f"{t_plain * 1e3:.1f} ms, bound {bnd:.4f} ms by {by}; "
+                  f"equal")
+            if name not in timed or rows > timed[name]["rows"]:
+                timed[name] = {"rows": rows, "ms": ms,
+                               "plain_ms": t_plain * 1e3, "bound_ms": bnd,
+                               "bound_by": by, "path": path}
+
+
+def device_pipeline_phase(dev, traces, capacity: int, fused, heap,
+                          fused_wall: float) -> int:
+    """Phase 9, second part: the 1024-tenant control plane through
+    ``DeviceWindowPipeline`` under ``transfer_sanitize=True`` (one sync
+    a window), against the fused row (curves, ``greedy_allocate(method=
+    "fast")``) and the heap walk; ``run_stream`` over four windows
+    against ``run``; ``greedy_allocate(method="device")`` on the fused
+    curves against the heap.  Returns the segments kernel's launches."""
+    from repro_torch.core import StageProfile, Trace, greedy_allocate
+    from repro_torch.core.device_pipeline import DeviceWindowPipeline
+    from repro_torch.data.traces import synthetic_mix
+    curves, part = fused
+    host = curves.to("cpu")
+    pipe = DeviceWindowPipeline(capacity, c_min=CP_C_MIN,
+                                transfer_sanitize=True, device=dev)
+    walls = []
+    for rep in range(2):                      # the first warms the caches
+        prof = StageProfile(dev)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        dec = pipe.run(traces, profile=prof)
+        walls.append(time.perf_counter() - t0)
+        counts = read_counts()
+    assert prof.syncs_per_window == 1 and prof.windows == 1, prof.report()
+    assert counts["cache_sim_segments_scan"] >= 1, counts
+    for f in ("edges", "heights", "offsets", "n_accesses"):
+        assert torch.equal(getattr(dec.curves, f), getattr(host, f)), f
+    for want in (part, heap):
+        assert dec.sizes.tolist() == want.sizes.tolist(), "sizes"
+        assert torch.equal(dec.hit_ratios, want.hit_ratios), "hit ratios"
+        assert dec.feasible == want.feasible
+        assert abs(dec.latency - want.latency) <= 1e-12 * abs(want.latency)
+    print(f"control plane DeviceWindowPipeline.run on the card "
+          f"(transfer_sanitize=True, CPU traces): {walls[0]:.3f} s, then "
+          f"{walls[1]:.3f} s (fused row: {fused_wall:.3f} s); stages "
+          f"{json.dumps({k: round(v, 4) for k, v in prof.times.items()})}, "
+          f"syncs a window {prof.syncs_per_window}; launches "
+          f"{json.dumps(counts)}")
+    print(f"check: DeviceWindowPipeline == fused row == heap walk (curves "
+          f"and hit ratios bit for bit, sizes exact, latency to rel "
+          f"1e-12), one sync a window under the sanitizer")
+    empty = [Trace(torch.zeros(0, dtype=torch.int64),
+                   torch.zeros(0, dtype=torch.bool))] * CP_TENANTS
+    wins = [empty if sd is None else synthetic_mix(CP_TENANTS, CP_ACCESSES,
+                                                   seed=sd)
+            for sd in CP_STREAM_SEEDS]
+    sprof = StageProfile(dev)
+    t0 = time.perf_counter()
+    stream = pipe.run_stream(wins, profile=sprof)
+    t_stream = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solo = [pipe.run(w) for w in wins]
+    t_solo = time.perf_counter() - t0
+    for k, (a, b) in enumerate(zip(stream, solo)):
+        assert a.sizes.tolist() == b.sizes.tolist(), f"stream window {k}"
+        assert torch.equal(a.urd_sizes, b.urd_sizes)
+        assert torch.equal(a.hit_ratios, b.hit_ratios)
+        assert torch.equal(a.curves.edges, b.curves.edges)
+        assert a.latency == b.latency and a.feasible == b.feasible
+    assert sprof.syncs == len(wins) - 1 and sprof.windows == len(wins), \
+        sprof.report()
+    print(f"check: run_stream over windows of seeds {CP_STREAM_SEEDS} "
+          f"(None: empty) == run, {sprof.syncs} syncs for "
+          f"{sprof.windows} windows; stream {t_stream:.3f} s, the windows "
+          f"one at a time {t_solo:.3f} s")
+    gdev = greedy_allocate(curves, capacity, 1.0, 20.0, c_min=CP_C_MIN,
+                           method="device")
+    assert gdev.sizes.tolist() == heap.sizes.tolist()
+    assert torch.equal(gdev.hit_ratios, heap.hit_ratios)
+    print("check: greedy_allocate(method=\"device\") on the fused curves "
+          "== heap walk (sizes, hit ratios)")
+    # card against CPU, bit for bit, at a small size
+    small = synthetic_mix(*DP_SMALL[:2], seed=DP_SMALL[2])
+    cap_small = DP_SMALL[0] * CP_C_MIN * 2
+    g = DeviceWindowPipeline(cap_small, c_min=CP_C_MIN,
+                             transfer_sanitize=True, device=dev).run(small)
+    c = DeviceWindowPipeline(cap_small, c_min=CP_C_MIN,
+                             device="cpu").run(small)
+    for f in ("sizes", "urd_sizes", "hit_ratios", "write_ratios"):
+        assert torch.equal(getattr(g, f), getattr(c, f)), f
+    for f in ("edges", "heights", "offsets"):
+        assert torch.equal(getattr(g.curves, f), getattr(c.curves, f)), f
+    assert g.feasible == c.feasible
+    assert abs(g.latency - c.latency) <= 1e-12 * abs(c.latency)
+    print(f"check: DeviceWindowPipeline card == CPU at "
+          f"synthetic_mix{DP_SMALL[:2]}, seed {DP_SMALL[2]}, capacity "
+          f"{cap_small} (every output bit for bit, latency to rel 1e-12; "
+          f"feasible={g.feasible})")
+    return counts["cache_sim_segments_scan"]
+
+
+def manager_device_phase(dev, path, windows, names, capacity, host_run,
+                         **kw) -> None:
+    """The manager under ``pipeline="device"`` on the card against the
+    same windows' host-pipeline run on the card: decisions, event logs,
+    per-tenant counts and LRU states equal."""
+    from repro_torch.core import StageProfile
+    gpu, grec = host_run
+    t0 = time.perf_counter()
+    mgr, rec = run_windows(dev, windows, names, capacity,
+                           profile=StageProfile(dev), pipeline="device", **kw)
+    wall = time.perf_counter() - t0
+    for w, (dd, dh) in enumerate(zip(mgr.history, gpu.history)):
+        assert dd.sizes.tolist() == dh.sizes.tolist(), f"{path} {w}: sizes"
+        assert dd.policies == dh.policies and dd.feasible == dh.feasible
+        assert dd.guard == dh.guard
+        assert torch.equal(dd.sample_rates, dh.sample_rates)
+        assert dd.partition.latency == dh.partition.latency
+        assert rec["counts"][w] == grec["counts"][w], f"{path} {w}: counts"
+        compare_states(f"{path} device pipeline, window {w}",
+                       rec["states"][w], grec["states"][w])
+    assert [(e.window, e.tenant, e.reason) for e in mgr.events] == \
+        [(e.window, e.tenant, e.reason) for e in gpu.events]
+    print(f"check: {path} manager, pipeline=\"device\", {len(windows)} "
+          f"window(s) on the card ({wall:.1f} s; monitor "
+          f"{[round(x['monitor'], 4) for x in rec['stages']]} s a window, "
+          f"host pipeline "
+          f"{[round(x['monitor'], 4) for x in grec['stages'][:len(windows)]]}"
+          f") == the host pipeline's run (decisions, events, per-tenant "
+          f"counts, LRU states)")
+
+
 def table3_phase(dev) -> collections.Counter:
     """Phase 8: the per-tenant Analyzer on the Table-3 workloads."""
     from repro_torch.core import reuse_distances, reuse_distances_fast
@@ -967,9 +1305,11 @@ def table3_phase(dev) -> collections.Counter:
     return launches
 
 
-def control_plane_phase(dev) -> collections.Counter:
+def control_plane_phase(dev) -> tuple[collections.Counter, int]:
     """Phase 9: the 1024-tenant control plane, seed and fused rows on the
-    card, the heap walk on the CPU."""
+    card, the heap walk on the CPU, then ``DeviceWindowPipeline``
+    (``device_pipeline_phase``).  Returns the seed row's launches and the
+    device pipeline's segments launches."""
     from repro_torch.core import (Trace, analyze_windows,
                                   build_hit_ratio_function, greedy_allocate,
                                   urd_cache_blocks, write_ratio)
@@ -1008,7 +1348,7 @@ def control_plane_phase(dev) -> collections.Counter:
         wall = time.perf_counter() - t0
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2**20
-        rows[row] = (curves, part, counts)
+        rows[row] = (curves, part, counts, wall)
         print(f"control plane {row} row on the card: {wall:.3f} s, peak "
               f"device memory {peak:.1f} MiB, launches {json.dumps(counts)}")
     assert rows["seed"][2]["urd_scan"] == CP_TENANTS, rows["seed"][2]
@@ -1034,7 +1374,10 @@ def control_plane_phase(dev) -> collections.Counter:
     print(f"check: control plane seed row == fused row == heap walk "
           f"(curves bit for bit, allocations {int(heap.sizes.sum())} blocks"
           f", feasible={heap.feasible}, hit ratios bit for bit)")
-    return rows["seed"][2]
+    segments = device_pipeline_phase(dev, traces, capacity,
+                                     rows["fused"][:2], heap,
+                                     rows["fused"][3])
+    return rows["seed"][2], segments
 
 
 def global_lru_phase(dev, windows) -> None:
@@ -2190,6 +2533,11 @@ def main() -> int:
         LIBRARIES as SSD_LIBRARIES
     from repro_torch.kernels.paged_attention.kernel import \
         LIBRARIES as PA_LIBRARIES
+    from repro_torch.kernels.ro_replay.kernel import LIBRARIES as RO_LIBRARIES
+    from repro_torch.kernels.ro_replay.kernel import (
+        ro_token_replay_levels_scan, ro_token_replay_scan)
+    from repro_torch.kernels.ro_replay.ref import (
+        ro_token_replay_blocks_ref, ro_token_replay_levels_blocks_ref)
     from repro_torch.kernels.urd_scan.kernel import LIBRARIES as URD_LIBRARIES
     from repro_torch.kernels.urd_scan.kernel import urd_scan
     from repro_torch.kernels.urd_scan.ref import urd_scan_ref
@@ -2204,7 +2552,7 @@ def main() -> int:
     # ----------------------------------------- 2. build, one nvcc a source
     t0 = time.perf_counter()
     libraries = (LIBRARIES + URD_LIBRARIES + SSD_LIBRARIES + FA_LIBRARIES
-                 + PA_LIBRARIES)
+                 + PA_LIBRARIES + RO_LIBRARIES)
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as ex:
         builds = {name: ex.submit(build_library, name, srcs)
                   for name, srcs in libraries}
@@ -2378,6 +2726,28 @@ def main() -> int:
           f"to {SEGMENTS_SMEM_WIDTH}, the global count past it; links across "
           f"blocks, prev at or past the row; full, half, one-row and empty "
           f"segments), the same bits call to call")
+    # the RO token replays: pressured blocks with one-row blocks,
+    # capacity 0, warm L2 below l2_end and a clean L2, the same bits call
+    # to call, and an empty call
+    for seed in (1, 2, 3):
+        for levels, kern, plain in (
+                (False, ro_token_replay_scan, ro_token_replay_blocks_ref),
+                (True, ro_token_replay_levels_scan,
+                 ro_token_replay_levels_blocks_ref)):
+            tape, starts, ends, caps = ro_tape(seed, dev, levels)
+            args = ro_kernel_args((*tape, starts, ends, *caps))
+            got = kern(*args)
+            want = plain(*(x.cpu() for x in tape), starts, ends, *caps)
+            again = kern(*args)
+            for g, w, a in zip(got, want, again):
+                check(kern.__name__, f"edge tape {seed}", g.cpu(), w)
+                check(kern.__name__, f"edge tape {seed} again", a, g)
+    assert all(x.numel() == 0 for x in ro_token_replay_scan(
+        *ro_kernel_args((*tape, [], [], []))))
+    print("check: ro_token_replay_scan == ro_token_replay_blocks_ref and "
+          "ro_token_replay_levels_scan == ro_token_replay_levels_blocks_ref "
+          "on pressured multi-block tapes (one-row blocks, capacity 0, "
+          "warm L2 below l2_end, a clean L2), the same bits call to call")
     model_kernel_checks(dev, max_err)
     paged_kernel_checks(dev, max_err)
     print(f"phase seconds: build and kernel checks done at "
@@ -2389,7 +2759,17 @@ def main() -> int:
     print(f"traces: {WINDOWS} windows x {len(MSR_16)} tenants x "
           f"{ACCESSES} accesses generated in "
           f"{time.perf_counter() - t0:.1f} s (outside the timed region)")
-    launches16, _, _ = drive("16-tenant", dev, windows, MSR_16, 6000)
+    count_host_tokens(bs)
+    ro_timed: dict = {}
+    with RoCalls(bs) as ro16:
+        launches16, run16, _ = drive("16-tenant", dev, windows, MSR_16, 6000)
+    ro_path_checks("16-tenant", ro16, check, ro_timed)
+    del ro16
+    t0 = time.perf_counter()
+    manager_device_phase(dev, "16-tenant", windows, MSR_16, 6000, run16)
+    print(f"phase seconds: the 16-tenant manager under pipeline=\"device\" "
+          f"{time.perf_counter() - t0:.1f} s")
+    del run16
 
     # ------------------------------------------------ 5. the SHARDS path
     t0 = time.perf_counter()
@@ -2400,17 +2780,28 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (outside the timed region)")
     import repro_torch.kernels.cache_sim.ops as cs_ops
     with Recorder(cs_ops, "cache_sim_scan") as tape256, \
-            Recorder(bs, "ro_live_counts") as live256:
-        launches256, _, _ = drive("256-tenant", dev, swindows, SHARDS_NAMES,
-                                  SHARDS_CAPACITY,
-                                  want=("cache_sim_segments_scan",),
-                                  cpu_budget=True)
+            Recorder(bs, "ro_live_counts") as live256, RoCalls(bs) as ro256:
+        launches256, run256, _ = drive("256-tenant", dev, swindows,
+                                       SHARDS_NAMES, SHARDS_CAPACITY,
+                                       want=("cache_sim_segments_scan",),
+                                       cpu_budget=True)
+    ro_path_checks("256-tenant", ro256, check, ro_timed)
+    del ro256
+    t0 = time.perf_counter()
+    manager_device_phase(dev, "256-tenant (window 0, sampled)", swindows[:1],
+                         SHARDS_NAMES, SHARDS_CAPACITY, run256)
+    print(f"phase seconds: the 256-tenant window 0 under pipeline="
+          f"\"device\" {time.perf_counter() - t0:.1f} s")
+    del run256
 
     # ------------------------- 6. the ETICA path, with its residency routes
     routes = RouteReplays(dev)
-    launches_et, _, (cpu_et, crec_et) = drive(
-        "ETICA", dev, windows, MSR_16, ETICA_CAP1, scheme="etica",
-        before_window=routes, capacity2=ETICA_CAP2, t_fast2=T_FAST2)
+    with RoCalls(bs) as ro_et:
+        launches_et, _, (cpu_et, crec_et) = drive(
+            "ETICA", dev, windows, MSR_16, ETICA_CAP1, scheme="etica",
+            before_window=routes, capacity2=ETICA_CAP2, t_fast2=T_FAST2)
+    ro_path_checks("ETICA", ro_et, check, ro_timed)
+    del ro_et
     print(f"ETICA residency routes: cache_sim_levels_scan launches "
           f"{routes.launches['cache_sim_levels_scan']} over "
           f"{len(routes.walls)} windows (counters 0 just before each "
@@ -2435,26 +2826,31 @@ def main() -> int:
 
     # --------------------------------------- 7. the ETICA pressure path
     with Recorder(bs, "_ro_token_replay_levels") as tok, \
-            Recorder(bs, "ro_live_counts") as live_rec:
+            Recorder(bs, "ro_live_counts") as live_rec, RoCalls(bs) as ro_pr:
         launches_pr, (gpu_pr, _), _ = drive(
             "pressure", dev, windows[:PRESSURE_WINDOWS], MSR_16,
             PRESSURE_CAP1, scheme="etica", capacity2=PRESSURE_CAP2,
             t_fast2=T_FAST2, w_threshold=0.0)
-    print(f"pressure: tenant-windows through _ro_token_replay_levels on "
-          f"the card: {tok.by_device['cuda']} (CPU run: "
-          f"{tok.by_device['cpu']}); live_count_scan launches on the card "
-          f"path (L and U2): {launches_pr['live_count_scan']}; "
+    ro_path_checks("pressure", ro_pr, check, ro_timed)
+    del ro_pr
+    print(f"pressure: ro_token_replay_levels_scan launches on the card "
+          f"{launches_pr['ro_token_replay_levels_scan']} (tenant-windows "
+          f"through the host loop on the CPU: {tok.by_device['cpu']}, on "
+          f"the card: {tok.by_device['cuda']}); live_count_scan launches "
+          f"on the card path (L and U2): {launches_pr['live_count_scan']}; "
           f"ro_fallback_windows {gpu_pr.summary()['ro_fallback_windows']}")
-    assert tok.by_device["cuda"] >= 1, \
-        "no tenant-window took the two-level token replay"
+    assert launches_pr["ro_token_replay_levels_scan"] >= 1 and \
+        tok.by_device["cuda"] == 0, \
+        "the two-level token replay did not run as a kernel on the card"
     assert gpu_pr.summary()["ro_fallback_windows"] == 0
     assert launches_pr["live_count_scan"] > 0
     assert all(t.policy.value == "ro" for t in gpu_pr.tenants)
     for name, launches in (("16-tenant", launches16),
                            ("256-tenant", launches256),
-                           ("ETICA", launches_et)):
+                           ("ETICA", launches_et), ("pressure", launches_pr)):
         print(f"live_count_scan launches on the {name} path: "
-              f"{launches['live_count_scan']}")
+              f"{launches['live_count_scan']}; RO replay launches "
+              f"{[launches[k] for k in RO_KERNELS]}")
     print(f"phase seconds: slices 1-3 paths done at "
           f"{time.perf_counter() - T_START:.1f} s")
 
@@ -2465,7 +2861,7 @@ def main() -> int:
 
     # ------------------------- 9. the thousand-tenant control plane
     t0 = time.perf_counter()
-    launches_cp = control_plane_phase(dev)
+    launches_cp, segments_dp = control_plane_phase(dev)
     print(f"phase seconds: control plane {time.perf_counter() - t0:.1f} s")
 
     # ----------------------------------------- 10. the remaining schemes
@@ -2654,12 +3050,16 @@ def main() -> int:
           f"{bnd_by}; kernel / bound = {seg_ms / bnd:.1f}; key words staged "
           f"{staged} ({8 * staged / 1e6:.1f} MB of nxt and occ read, the "
           f"function's bytes {16 * m / 1e6:.1f} MB)")
+    print(f"cache_sim_segments_scan launches: 256-tenant path "
+          f"{launches256['cache_sim_segments_scan']}, the control plane's "
+          f"DeviceWindowPipeline.run {segments_dp}")
     rows.append({
         "name": "cache_sim_segments_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/cache_sim/csrc/"
                   "cache_sim_segments.cu",
         "replaces": "src/repro/kernels/cache_sim/kernel.py:136",
-        "launches": launches256["cache_sim_segments_scan"],
+        "launches": (launches256["cache_sim_segments_scan"]
+                     + segments_dp),
         "max_abs_err": max_err["cache_sim_segments_scan"],
         "ms": seg_ms, "plain_ms": seg_plain, "bound_ms": bnd,
         "bound_by": bnd_by, "library_ms": None})
@@ -2752,6 +3152,32 @@ def main() -> int:
         "max_abs_err": max_err["live_count_scan"],
         "ms": lc_ms, "plain_ms": lc_plain, "bound_ms": bnd,
         "bound_by": bnd_by, "library_ms": None})
+    # ---- 14f. the RO token replays at their paths' largest pressured
+    # call (timed in phases 4-7, each held to its plain version there)
+    ro_launch = {k: sum(x[k] for x in (launches16, launches256, launches_et,
+                                       launches_pr, launches_ri))
+                 for k in RO_KERNELS}
+    for name in RO_KERNELS:
+        t = ro_timed[name]
+        print(f"{name}: largest call on the {t['path']} path, {t['rows']} "
+              f"rows: {t['ms']:.3f} ms a call, plain version (host loops) "
+              f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']} (a dependent L1 hit a row of the longest "
+              f"block, or 15-16 bytes a row); kernel / bound = "
+              f"{t['ms'] / t['bound_ms']:.1f}; launches on the paths "
+              f"{ro_launch[name]}")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/ro_replay/csrc/ro_replay.cu",
+            "replaces": "none: no TPU kernel (the reference's host loop "
+                        + ("src/repro/core/batch_sim.py:539 and its "
+                           "lax.fori_loop :726" if name == RO_KERNELS[0]
+                           else "src/repro/core/batch_sim.py:589 and its "
+                                "lax.fori_loop :845") + ")",
+            "launches": ro_launch[name], "max_abs_err": max_err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
     rows += [urd_row, urd_seed_row]
     rows.extend(model_rows)
     rows.extend(serve_rows)

@@ -37,7 +37,7 @@ enforcement and the host tier's LRU trim: the Actuator.
 
 Tier failures (``fail_tier``/``recover_tier``) need the manager's
 degradation ladder and raise ``NotImplementedError`` naming ROADMAP §1
-item 3; until then no tier is ever down, and ``summary()`` reports the
+item 3b; until then no tier is ever down, and ``summary()`` reports the
 failure counters as 0 (the keys the reference reports).
 """
 from __future__ import annotations
@@ -307,7 +307,7 @@ class TieredKVCache:
             "host_quotas": dict(self.host_quotas),
             "policies": {i: p.value for i, p in self.policies.items()},
             "rebalance_seconds": self.rebalance_seconds,
-            # no tier fails until fail_tier is ported (ROADMAP §1 item 3)
+            # no tier fails until fail_tier is ported (ROADMAP §1 item 3b)
             "tier_failures": 0,
             "dropped_pages": 0,
             "dirty_loss": 0,
@@ -320,4 +320,4 @@ def _ladder_not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"TieredKVCache.{what} is not ported yet: it drives the manager's "
         f"note_tier_loss / note_tier_recovery, which come with the "
-        f"degradation ladder (ROADMAP §1 item 3)")
+        f"degradation ladder (ROADMAP §1 item 3b)")

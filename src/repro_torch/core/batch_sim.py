@@ -34,8 +34,11 @@ fills: the live count ``L(t) = #{ j <= t : is_read[j], nxt[j] > t }``
 (``ops.ro_live_counts``: ``live_count_scan`` on the card) is the guard,
 less ``U2``, the still-untouched warm-L2 blocks, when both levels are
 live.  A tenant over the bound is replayed by an O(n) eviction-token
-host loop: ``_ro_token_replay`` for one level, ``_ro_token_replay_levels``
-(tokens carry their level) for two.
+loop (``kernels.ro_replay``), single-level or with a level per token: on
+a CUDA tape every pressured tenant of the window in one kernel launch
+per kind (``ro_token_replay_scan``, ``ro_token_replay_levels_scan``), on
+a CPU tape a host loop per tenant (``_ro_token_replay``,
+``_ro_token_replay_levels``, the kernels' plain versions).
 
 Warm cross-window state is replayed exactly by prepending the cache
 content as pseudo-read accesses — warm L2 then warm L1, each LRU -> MRU,
@@ -61,11 +64,17 @@ from repro_torch.core.simulator import (LRUCache, SimResult,
                                        rebalance_levels, simulate)
 from repro_torch.core.trace import Trace, prev_next_occurrence
 from repro_torch.core.write_policy import WritePolicy
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels.cache_sim.ops import (
     residency_levels, ro_live_counts, stack_distances as _link_distances)
+from repro_torch.kernels.ro_replay.ops import (ro_token_replays,
+                                               ro_token_replays_levels)
+# the per-tenant host loops of the CPU tape (the kernels' plain versions)
+from repro_torch.kernels.ro_replay.ref import (
+    ro_token_replay_levels_ref as _ro_token_replay_levels,
+    ro_token_replay_ref as _ro_token_replay)
 
-__all__ = ["padded_segment_layout", "padded_tape_links",
+__all__ = ["padded_plan", "padded_segment_layout", "padded_tape_links",
            "reuse_distances_fast", "segment_links", "simulate_batch",
            "simulate_many", "stack_distances"]
 
@@ -123,14 +132,26 @@ def reuse_distances_fast(trace: Trace, kind: str = "urd") -> RDResult:
     return RDResult(sd, kind)
 
 
+def padded_plan(lens) -> tuple[list[int], list[int]]:
+    """The padded layout of segments of lengths ``lens``, on the host:
+    ``(segs, widths)``, the non-empty segments' indices in layout order
+    and their padded widths (the next power of two, at least
+    ``_PAD_MIN``), descending, stable among equal widths."""
+    act = [k for k, ln in enumerate(lens) if ln > 0]
+    W = [max(1 << (lens[k] - 1).bit_length(), _PAD_MIN) for k in act]
+    order = sorted(range(len(act)), key=lambda q: -W[q])   # stable
+    return [act[q] for q in order], [W[q] for q in order]
+
+
 def padded_segment_layout(bounds, device: str | torch.device | None = None):
     """Segment-aligned power-of-two padding for a multi-segment tape.
 
     Each non-empty segment of ``bounds`` is padded to the next power of
     two (at least ``_PAD_MIN``) and the padded segments are laid out in
-    descending width order (stable among equal widths).  Prefix sums of
-    descending powers of two are multiples of every following width, so
-    every segment starts at a multiple of its own padded width.
+    descending width order (stable among equal widths; ``padded_plan``).
+    Prefix sums of descending powers of two are multiples of every
+    following width, so every segment starts at a multiple of its own
+    padded width.
 
     Returns ``(src, tpos, base_src, base_pad, widths, total, starts)`` as
     the reference's ``padded_segment_layout`` does, with int64 tensors on
@@ -140,38 +161,43 @@ def padded_segment_layout(bounds, device: str | torch.device | None = None):
     their padded positions, ``base_src``/``base_pad`` each entry's
     original and padded segment start, ``widths`` the padded widths
     (descending), ``total`` the padded length and ``starts`` each laid
-    out segment's original start.  The arithmetic is on the host: one
-    integer per segment.
+    out segment's original start.  The arithmetic is on the host, one
+    integer per segment; those integers cross to a card from pinned
+    memory without waiting for it, and nothing is read back.
     """
     bt = torch.as_tensor(bounds)
     dev = torch.device(device) if device is not None else bt.device
     b = [int(x) for x in bt.tolist()]
     i64 = dict(dtype=torch.int64, device=dev)
     lens = [b[k + 1] - b[k] for k in range(len(b) - 1)]
-    act = [k for k, ln in enumerate(lens) if ln > 0]
-    if not act:
+    segs, Ws = padded_plan(lens)
+    if not segs:
         z = torch.zeros(0, **i64)
         return z, z, z, z, z, 0, z
-    W = [max(1 << (lens[k] - 1).bit_length(), _PAD_MIN) for k in act]
-    order = sorted(range(len(act)), key=lambda q: -W[q])   # stable
-    Ws = [W[q] for q in order]
-    Ls = [lens[act[q]] for q in order]
-    seg_starts = [b[act[q]] for q in order]
+    Ls = [lens[k] for k in segs]
+    seg_starts = [b[k] for k in segs]
     row_base, csl = [0], [0]
     for wd, ln in zip(Ws[:-1], Ls[:-1]):
         row_base.append(row_base[-1] + wd)
         csl.append(csl[-1] + ln)
-    Ls_t = torch.tensor(Ls, **i64)
     k = sum(Ls)
-    loc = torch.arange(k, **i64) - torch.repeat_interleave(
-        torch.tensor(csl, **i64), Ls_t)
-    base_src = torch.repeat_interleave(torch.tensor(seg_starts, **i64), Ls_t)
-    base_pad = torch.repeat_interleave(torch.tensor(row_base, **i64), Ls_t)
-    identity = (len(act) == len(lens) and b[0] == 0
-                and all(x >= y for x, y in zip(W[:-1], W[1:])))
+    # one crossing for the per-segment integers: (csl, starts, row base,
+    # lengths, widths) as the rows of one host tensor
+    per = to_device(torch.tensor([csl, seg_starts, row_base, Ls, Ws],
+                                 dtype=torch.int64), dev)
+    Ls_t = per[3]
+
+    def rep(x: torch.Tensor) -> torch.Tensor:
+        return torch.repeat_interleave(x, Ls_t, output_size=k)
+
+    loc = torch.arange(k, **i64) - rep(per[0])
+    base_src = rep(per[1])
+    base_pad = rep(per[2])
+    # tape order kept: no empty segment and no width reordered
+    identity = b[0] == 0 and segs == list(range(len(lens)))
     src = None if identity else base_src + loc
-    return (src, base_pad + loc, base_src, base_pad, torch.tensor(Ws, **i64),
-            sum(Ws), torch.tensor(seg_starts, **i64))
+    return (src, base_pad + loc, base_src, base_pad, per[4], sum(Ws),
+            per[1])
 
 
 def padded_tape_links(prev: torch.Tensor, nxt: torch.Tensor, layout
@@ -198,130 +224,6 @@ def padded_tape_links(prev: torch.Tensor, nxt: torch.Tensor, layout
     gocc = torch.zeros(total, dtype=torch.int32, device=dev)
     gocc[tpos] = 1
     return gprev, gnxt, gocc
-
-
-def _ro_token_replay(is_read_blk: torch.Tensor, prev_blk: torch.Tensor,
-                     nxt_blk: torch.Tensor, force_blk: torch.Tensor,
-                     cap: int) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """Exact RO (write-around) replay under capacity pressure, O(n).
-
-    A host loop over host copies of the tenant's block, taken once per
-    tenant (never element-wise reads of device tensors), as the
-    reference's ``_ro_token_replay``: every read
-    position ``j`` is a cache-slot token alive on ``(j, nxt[j])``; a
-    miss that overflows the partition evicts the minimum live token,
-    which is non-decreasing over time, so one forward pointer suffices.
-    Access ``i`` then hits iff its previous occurrence ``p`` was a read
-    whose token survived to its natural death (``death[p] == i``).
-
-    Returns (death, dirty, flushes) with the tensors on the block's
-    device: ``death[j]`` when token j left the cache (== ``nxt_blk[j]``
-    iff never evicted), ``dirty[j]`` the flag it carried, ``flushes`` the
-    dirty evictions.
-    """
-    n = int(is_read_blk.shape[0])
-    rd = is_read_blk.tolist()
-    pv = prev_blk.tolist()
-    death = nxt_blk.tolist()
-    dirty = force_blk.tolist()
-    flushes = 0
-    resident = 0
-    b = 0                                        # oldest-resident candidate
-    for t in range(n):
-        p = pv[t]
-        if rd[t]:
-            if p >= 0 and rd[p] and death[p] == t:
-                dirty[t] = dirty[p]              # hit: token renewal
-            else:
-                resident += 1                    # miss: install clean
-                if resident > cap:
-                    while not rd[b] or death[b] <= t:
-                        b += 1
-                    death[b] = t                 # evict oldest resident
-                    if dirty[b]:
-                        flushes += 1
-                    resident -= 1
-        elif p >= 0 and rd[p] and death[p] == t:
-            resident -= 1                        # write-hit: invalidate
-    dev = is_read_blk.device
-    return (torch.tensor(death, dtype=torch.int64, device=dev),
-            torch.tensor(dirty, dtype=torch.bool, device=dev), flushes)
-
-
-def _ro_token_replay_levels(is_read_blk: torch.Tensor, prev_blk: torch.Tensor,
-                            nxt_blk: torch.Tensor, force_blk: torch.Tensor,
-                            cap1: int, cap2: int, l2_end: int, clean2: bool
-                            ) -> tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor, int, int]:
-    """Exact two-level RO replay under eviction pressure, O(n).
-
-    The eviction-token loop of ``_ro_token_replay`` with a level per
-    token, as the reference's ``_ro_token_replay_levels``: recency within
-    a level is token-position order; a demotion moves L1's minimum live
-    token (forward pointer ``b1``, skipping demoted tokens) into L2; an
-    L2 overflow evicts the lowest live token (``b2``; always an L2 one,
-    since live L1 positions sit above every live L2 position).  An
-    invalidation frees a slot in whichever level holds the token; the
-    next install fills the hole without demoting.  ``clean2`` flushes a
-    dirty victim at the demotion instead of at its final eviction.
-    Positions below ``l2_end`` are the warm-L2 pseudo-reads, born in L2.
-    A host loop over host copies of the block, taken once.
-
-    Returns ``(death, dirty, lvl, flushes, demotions)`` with the tensors
-    on the block's device: ``death[j]`` when token j left the hierarchy
-    (== ``nxt_blk[j]`` iff never evicted from L2), ``dirty[j]`` its flag,
-    ``lvl[j]`` (int8) the level it died in, ``flushes`` the dirty
-    evictions and demotion flushes, ``demotions`` the L2 cache writes.
-    """
-    n = int(is_read_blk.shape[0])
-    rd = is_read_blk.tolist()
-    pv = prev_blk.tolist()
-    death = nxt_blk.tolist()
-    dirty = force_blk.tolist()
-    lvl = [1] * n
-    flushes = demotions = 0
-    res1 = res2 = 0
-    b1 = b2 = 0                                  # per-level victim candidates
-    for t in range(n):
-        if t < l2_end:
-            lvl[t] = 2                           # warm-L2 token: born in L2
-            res2 += 1
-            continue
-        p = pv[t]
-        if rd[t]:
-            if p >= 0 and rd[p] and death[p] == t:
-                dirty[t] = dirty[p]              # hit: token renewal
-                if lvl[p] == 1:
-                    continue                     # L1 hit: occupancy unchanged
-                res2 -= 1                        # L2 hit: promote out of L2
-            res1 += 1                            # install / rebirth into L1
-            if res1 > cap1:
-                while not rd[b1] or death[b1] <= t or lvl[b1] == 2:
-                    b1 += 1                      # min live L1 token
-                lvl[b1] = 2                      # demote into L2's MRU
-                if clean2 and dirty[b1]:
-                    flushes += 1                 # flush at the demotion
-                    dirty[b1] = False
-                res1 -= 1
-                res2 += 1
-                demotions += 1
-                if res2 > cap2:
-                    while not rd[b2] or death[b2] <= t:
-                        b2 += 1                  # min live token == L2 victim
-                    death[b2] = t                # evicted for good
-                    if dirty[b2]:
-                        flushes += 1
-                    res2 -= 1
-        elif p >= 0 and rd[p] and death[p] == t:
-            if lvl[p] == 1:                      # write-hit: invalidate the
-                res1 -= 1                        # holding level (a hole)
-            else:
-                res2 -= 1
-    dev = is_read_blk.device
-    return (torch.tensor(death, dtype=torch.int64, device=dev),
-            torch.tensor(dirty, dtype=torch.bool, device=dev),
-            torch.tensor(lvl, dtype=torch.int8, device=dev), flushes,
-            demotions)
 
 
 def simulate_many(traces: list[Trace], capacities=None, policies=None, *,
@@ -509,21 +411,38 @@ def simulate_many(traces: list[Trace], capacities=None, policies=None, *,
                 L = L - torch.where(per_access(both).bool(), U2, 0)
             lmax = torch.zeros(V, **i64).scatter_reduce(
                 0, tid, L, "amax").tolist()
-            for t in range(V):
-                if pol_codes[t] != 2:
-                    continue
-                c1, c2 = cap1_l[t], cap2_l[t]
-                ro_cap = c1 if c1 > 0 else c1 + c2
-                if lmax[t] <= ro_cap:
-                    continue
-                s, e = starts[t], ends[t]
-                blk = (is_read[s:e], prev[s:e] - s, nxt_c[s:e] - s,
-                       force_dirty[s:e])
-                if both[t]:
-                    tokens2[t] = _ro_token_replay_levels(
-                        *blk, c1, c2, l2_ends[t] - s, clean2_l[t])
-                else:
-                    tokens[t] = _ro_token_replay(*blk, ro_cap)
+            ro_caps = [c1 if c1 > 0 else c1 + c2
+                       for c1, c2 in zip(cap1_l, cap2_l)]
+            pressured = [t for t in range(V) if pol_codes[t] == 2
+                         and lmax[t] > ro_caps[t]]
+            one = [t for t in pressured if not both[t]]
+            two = [t for t in pressured if both[t]]
+            if dev.type == "cuda":
+                # every pressured tenant of the window in one kernel
+                # launch per kind (a CTA a tenant block)
+                tape = (is_read, prev, nxt_c, force_dirty)
+                if one:
+                    tokens.update(zip(one, ro_token_replays(
+                        *tape, [starts[t] for t in one],
+                        [ends[t] for t in one], [ro_caps[t] for t in one])))
+                if two:
+                    tokens2.update(zip(two, ro_token_replays_levels(
+                        *tape, [starts[t] for t in two],
+                        [ends[t] for t in two], [cap1_l[t] for t in two],
+                        [cap2_l[t] for t in two],
+                        [l2_ends[t] - starts[t] for t in two],
+                        [clean2_l[t] for t in two])))
+            else:
+                for t in pressured:
+                    s, e = starts[t], ends[t]
+                    blk = (is_read[s:e], prev[s:e] - s, nxt_c[s:e] - s,
+                           force_dirty[s:e])
+                    if both[t]:
+                        tokens2[t] = _ro_token_replay_levels(
+                            *blk, cap1_l[t], cap2_l[t], l2_ends[t] - s,
+                            clean2_l[t])
+                    else:
+                        tokens[t] = _ro_token_replay(*blk, ro_caps[t])
 
     # -------------------------------------------------- residency oracle
     hot = prev >= 0

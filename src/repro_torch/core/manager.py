@@ -31,10 +31,12 @@ on a phase change, an Alg.-3 write-ratio crossing, a tenant joining
 (``add_tenant``) or retiring, or every ``reconfig_interval`` windows.
 Windows in between accumulate in the Monitor, and the analyze that ends
 them re-counts the whole span.  Everything runs on the manager's
-``device`` — the CUDA card unless the caller asks for the CPU.  The
-reference's fault injection and degradation ladder and its device and
-sharded pipelines raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+``device`` — the CUDA card unless the caller asks for the CPU.  With
+``pipeline="device"`` each analyze runs through the device window
+pipeline (``core.device_pipeline``; percentile 100 only, below it the
+host pipeline).  The reference's sharded pipeline (item 4) and its fault
+injection and degradation ladder (item 3b) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -160,7 +162,10 @@ class ECICacheManager:
     ``None`` means the CUDA card (an error names ``device="cpu"`` when
     none is visible).  ``profile`` (a ``StageProfile``) times the stages
     of each window: ``tape``, ``ro_replay``, ``count``, ``replay``,
-    ``monitor`` and ``pgd``.  ``history_limit`` bounds the retained
+    ``monitor`` and ``pgd`` (the manager binds it to its ``device``).
+    ``pipeline`` is ``"host"`` (the fused host monitor, reusing the
+    replay's distances) or ``"device"`` (the device window pipeline,
+    which recounts; percentile 100 only).  ``history_limit`` bounds the retained
     decisions and events.
     """
 
@@ -192,16 +197,23 @@ class ECICacheManager:
         if engine not in ("batch", "lru"):
             raise ValueError(f"engine must be 'batch' or 'lru', got "
                              f"{engine!r}")
-        if pipeline != "host":
-            raise _not_ported(f"pipeline={pipeline!r}",
-                              "modules queue, item 3, device and shard "
-                              "pipelines")
+        if pipeline not in ("host", "device", "sharded"):
+            raise ValueError(f"pipeline must be 'host', 'device' or "
+                             f"'sharded', got {pipeline!r}")
+        if pipeline == "sharded":
+            raise _not_ported("pipeline='sharded'",
+                              "modules queue, item 4, core/shard_pipeline.py")
         if faults is not None or fault_tolerant:
             raise _not_ported("fault injection and the degradation ladder",
-                              "modules queue, item 3, faults.py with the "
-                              "device and shard pipelines")
+                              "modules queue, item 3b, faults.py and the "
+                              "ladder")
         self.device = resolve_device(device)
-        self.profile = profile
+        self.profile = (profile.bind(self.device) if profile is not None
+                        else None)
+        # "device" analyzes each window through the device window
+        # pipeline (one host sync a window); the host pipeline serves
+        # percentiles below 100
+        self.pipeline = pipeline
         self.capacity = int(capacity)
         self.capacity2 = int(capacity2)
         self.c_min = int(c_min)
@@ -361,16 +373,19 @@ class ECICacheManager:
         window_trd = window_trd or {}
         rate = self.effective_sample_rate()
         act = [i for i, t in enumerate(self.tenants) if t.active]
+        pipe = self.pipeline if self.percentile >= 100.0 else "host"
         with pstage(self.profile, "monitor"):
+            # the device pipeline recounts on the device: the replay's
+            # distances go to the host pipeline only
             mon = analyze_windows(
                 [self.tenants[i].window_trace() for i in act],
                 kind=self.rd_kind, percentile=self.percentile,
                 sample_rate=rate, window_seed=self.windows_analyzed,
                 sample_target=self.sample_target,
                 sample_floor=self.sample_floor,
-                precomputed_trd=(None if rate is not None
+                precomputed_trd=(None if rate is not None or pipe != "host"
                                  else [window_trd.get(i) for i in act]),
-                tenant_ids=act, device=self.device)
+                tenant_ids=act, pipeline=pipe, device=self.device)
         self.windows_analyzed += 1
         decision, floors = self._build_decision(mon, act, trigger)
         report = validate_decision(decision, self.capacity, self.capacity2,

@@ -27,7 +27,12 @@ over the kept accesses, and each tenant's error bar is
 ``1/sqrt(kept distinct addresses)``.  Every output equals the
 reference's host pipeline bit for bit.
 
-Not ported yet: the reference's device and sharded window programs.
+``pipeline="device"`` routes a window through the device window
+pipeline (``core.device_pipeline.monitor_window_device``: one sync a
+window, the fetch), on the exact and the sampled branch alike, with the
+same outputs bit for bit; it recounts even where distances were
+precomputed and needs percentile 100.  Not ported yet: the reference's
+sharded window program (``pipeline="sharded"``, ROADMAP item 4).
 """
 from __future__ import annotations
 
@@ -37,8 +42,10 @@ import math
 import torch
 
 from repro_torch.core.batch_sim import segment_links
+from repro_torch.core.device_pipeline import monitor_window_device
 from repro_torch.core.mrc import (BatchedHitRatioFunctions,
                                   build_hit_ratio_functions)
+from repro_torch.core.profile import StageProfile
 from repro_torch.core.reuse_distance import (auto_sample_rate, shards_hash,
                                              shards_salt, shards_threshold)
 from repro_torch.core.trace import Trace
@@ -96,21 +103,48 @@ def analyze_windows(traces: list[Trace], kind: str = "urd",
                     sample_target: int = 4096, sample_floor: int = 256,
                     precomputed_trd: list[torch.Tensor | None] | None = None,
                     tenant_ids: list[int] | None = None,
+                    pipeline: str = "host",
+                    profile: StageProfile | None = None,
                     device: str | torch.device | None = None
                     ) -> MonitorResult:
     """Analyze every tenant's Δt window in one fused pass (see module doc).
 
-    ``precomputed_trd[i]`` (exact path only) carries tenant i's raw
+    ``precomputed_trd[i]`` (host exact path only) carries tenant i's raw
     window-internal TRD sample tensor from the batch replay engine;
     missing entries are counted here.  ``sample_rate`` (a float in
     (0, 1] or ``"auto"``) turns on SHARDS; ``window_seed`` and
     ``tenant_ids`` (default: positions) pick each tenant's salt, and
-    ``sample_target``/``sample_floor`` tune ``"auto"``.  Runs on
+    ``sample_target``/``sample_floor`` tune ``"auto"``.
+    ``pipeline="device"`` runs the window through the device window
+    pipeline (percentile 100 only); ``profile`` (a ``StageProfile``)
+    records its stage times, host syncs and windows (on the host
+    pipeline: the pass as stage ``monitor`` and the window).  Runs on
     ``device`` (default: the CUDA card).
     """
     if kind not in ("trd", "urd"):
         raise ValueError(f"kind must be 'trd' or 'urd', got {kind!r}")
+    if pipeline not in ("host", "device", "sharded"):
+        raise ValueError(f"pipeline must be 'host', 'device' or 'sharded', "
+                         f"got {pipeline!r}")
+    if pipeline == "sharded":
+        raise NotImplementedError(
+            "pipeline='sharded' is not ported yet (ROADMAP: modules queue, "
+            "item 4, core/shard_pipeline.py)")
+    if pipeline != "host" and percentile < 100.0:
+        raise ValueError(f"pipeline={pipeline!r} computes URD sizes from "
+                         "the curve store (percentile=100); use the host "
+                         "pipeline for percentile < 100")
     dev = resolve_device(device)
+    if profile is not None:
+        profile.bind(dev)
+    if pipeline == "host" and profile is not None:
+        with profile.stage("monitor"):
+            out = analyze_windows(
+                traces, kind, percentile, sample_rate, window_seed,
+                sample_target, sample_floor, precomputed_trd, tenant_ids,
+                device=dev)
+        profile.windows += 1
+        return out
     n = len(traces)
     lens_l = [len(t) for t in traces]
     bounds = [0]
@@ -120,11 +154,22 @@ def analyze_windows(traces: list[Trace], kind: str = "urd",
     if sample_rate is not None:
         ids = list(tenant_ids) if tenant_ids is not None else list(range(n))
         return _sampled(traces, kind, percentile, sample_rate, window_seed,
-                        sample_target, sample_floor, ids, lens_l, dev)
+                        sample_target, sample_floor, ids, lens_l, dev,
+                        pipeline, profile)
     i64 = dict(dtype=torch.int64, device=dev)
-    lens = torch.tensor(lens_l, **i64)
+    f64 = dict(dtype=torch.float64, device=dev)
     is_read = (torch.cat([t.is_read.to(dev, torch.bool) for t in traces])
                if m else torch.zeros(0, dtype=torch.bool, device=dev))
+    if pipeline == "device":
+        addrs = (torch.cat([t.addrs.to(dev, torch.int64) for t in traces])
+                 if m else torch.zeros(0, **i64))
+        curves, urd, wr, _ = monitor_window_device(
+            addrs, is_read, bounds, lens_l, kind=kind, profile=profile,
+            device=dev)
+        return MonitorResult(curves.to(dev), urd.to(dev), wr.to(dev),
+                             torch.ones(n, **f64), torch.zeros(n, **f64),
+                             kind)
+    lens = torch.tensor(lens_l, **i64)
     tid = torch.repeat_interleave(torch.arange(n, **i64), lens)
 
     pre = precomputed_trd or []
@@ -159,7 +204,6 @@ def analyze_windows(traces: list[Trace], kind: str = "urd",
         dist = torch.where(smask, dist, -1)
     curves = build_hit_ratio_functions(dist, tid, n, lens, mask=smask)
     urd = _urd_sizes(dist, n, bounds, percentile, curves)
-    f64 = dict(dtype=torch.float64, device=dev)
     return MonitorResult(curves, urd, wr, torch.ones(n, **f64),
                          torch.zeros(n, **f64), kind)
 
@@ -198,7 +242,8 @@ def shards_subtape(traces: list[Trace], rates: list[float], window_seed: int,
 def _sampled(traces: list[Trace], kind: str, percentile: float,
              sample_rate: float | str, window_seed: int, sample_target: int,
              sample_floor: int, ids: list[int], lens_l: list[int],
-             dev: torch.device) -> MonitorResult:
+             dev: torch.device, pipeline: str = "host",
+             profile: StageProfile | None = None) -> MonitorResult:
     """The SHARDS branch of ``analyze_windows`` (see module doc)."""
     n = len(traces)
     if sample_rate == "auto":
@@ -214,10 +259,20 @@ def _sampled(traces: list[Trace], kind: str, percentile: float,
     addrs_s, read_s, kept = shards_subtape(traces, rates_l, window_seed, ids,
                                            dev)
     i64 = dict(dtype=torch.int64, device=dev)
-    tid_s = torch.repeat_interleave(torch.arange(n, **i64), kept)
     sub_bounds = torch.cat([torch.zeros(1, **i64), torch.cumsum(kept, 0)])
+    sb = sub_bounds.cpu()                  # the kept lengths, on the host
+    if pipeline == "device":
+        if profile is not None and dev.type == "cuda":
+            profile.sync()                 # that read, before the ingest
+        curves, urd, wr, distinct = monitor_window_device(
+            addrs_s, read_s, sb, lens_l, rates=rates_l, kind=kind,
+            profile=profile, device=dev)
+        curves, urd, wr = curves.to(dev), urd.to(dev), wr.to(dev)
+        return MonitorResult(curves, urd, wr, rates,
+                             _error_bars(distinct.tolist(), rates_l, dev),
+                             kind)
+    tid_s = torch.repeat_interleave(torch.arange(n, **i64), kept)
     prev, nxt_c, _, _ = segment_links(addrs_s, tid_s, sub_bounds[1:][tid_s])
-    sb = sub_bounds.cpu()
     sd = stack_distances_segments(prev, nxt_c, sb)
     dist = torch.where(sd >= 0,
                        torch.round(sd.to(torch.float64)
@@ -233,9 +288,16 @@ def _sampled(traces: list[Trace], kind: str, percentile: float,
     # error bars scale with the kept *distinct* addresses (the cold
     # accesses of the sub-tape)
     distinct = torch.bincount(tid_s[prev < 0], minlength=n).tolist()
-    # on the host: math.sqrt is correctly rounded, torch's CPU root not
-    # always, and the error bars must not depend on the device
-    errors = torch.tensor(
+    return MonitorResult(curves, urd, wr, rates,
+                         _error_bars(distinct, rates_l, dev), kind)
+
+
+def _error_bars(distinct: list[int], rates_l: list[float],
+                dev: torch.device) -> torch.Tensor:
+    """``1/sqrt(kept distinct addresses)`` per sampled tenant (0.0 where
+    exact), on the host: math.sqrt is correctly rounded, torch's CPU root
+    not always, and the error bars must not depend on the device."""
+    return torch.tensor(
         [min(1.0, 1.0 / math.sqrt(max(d, 1))) if r < 1.0 else 0.0
-         for d, r in zip(distinct, rates_l)], **f64)
-    return MonitorResult(curves, urd, wr, rates, errors, kind)
+         for d, r in zip(distinct, rates_l)], dtype=torch.float64,
+        device=dev)

@@ -171,6 +171,39 @@ class BatchedHitRatioFunctions:
                    torch.tensor([h.n_accesses for h in hs], dtype=torch.int64,
                                 device=dev))
 
+    @classmethod
+    def from_padded(cls, edges_p: torch.Tensor, heights_p: torch.Tensor,
+                    k: torch.Tensor, row_start: torch.Tensor,
+                    n_accesses: torch.Tensor) -> "BatchedHitRatioFunctions":
+        """Stack curves out of a padded curve store.
+
+        The device window pipeline (``core.device_pipeline``) leaves
+        tenant ``i``'s ``k[i]`` breakpoints at ``edges_p[row_start[i] :
+        row_start[i] + k[i]]`` (matching ``heights_p`` plateaus); this
+        gathers them into the compact stacked layout, prepending each
+        curve's 0-head as ``build_hit_ratio_functions`` does, on the
+        store's device (the pipeline calls it on the fetched host copy).
+        """
+        dev = edges_p.device
+        i64 = dict(dtype=torch.int64, device=dev)
+        k = torch.as_tensor(k, **i64)
+        row_start = torch.as_tensor(row_start, **i64)
+        off = torch.cat([torch.zeros(1, **i64), torch.cumsum(k + 1, 0)])
+        total_out = int(off[-1])
+        edges = torch.zeros(total_out, **i64)
+        heights = torch.zeros(total_out, dtype=torch.float64, device=dev)
+        total = int(k.sum())
+        if total:
+            def rep(x: torch.Tensor) -> torch.Tensor:
+                return torch.repeat_interleave(x, k, output_size=total)
+            rank = torch.arange(total, **i64) - rep(torch.cumsum(k, 0) - k)
+            src = rep(row_start) + rank
+            dst = rep(off[:-1] + 1) + rank
+            edges[dst] = edges_p[src]
+            heights[dst] = heights_p[src]
+        return cls(edges, heights, off,
+                   torch.clamp(torch.as_tensor(n_accesses, **i64), min=1))
+
     # ------------------------------------------------------------ queries
     @property
     def max_useful_sizes(self) -> torch.Tensor:

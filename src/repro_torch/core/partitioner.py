@@ -50,8 +50,10 @@ the second time on the residual curves.
 walk): grant the jump with the best latency-reduction density
 (Δlatency / Δblocks) until the budget is spent.  ``method="heap"`` is
 the reference's one-pop-at-a-time loop, on the host (the oracle);
-``method="fast"`` the vectorized walk on the curves' device, whose grant
-order, and so its allocation, is bit-identical to the heap's: each
+``method="fast"`` the vectorized walk on the curves' device, and
+``method="device"`` the device window pipeline's walk on a padded curve
+store, whose grant orders, and so their allocations, are bit-identical
+to the heap's: each
 tenant's chain of steps is reduced to its prefix-min density envelope,
 one stable sort merges the chains, and a prefix sum over Δc finds the
 budget cut and the partial grant.
@@ -106,14 +108,12 @@ def greedy_allocate(hs, capacity: int, t_fast: float, t_slow: float,
     ``min(c_min, urd size)`` (scaled down when even those do not fit) and
     the breakpoints are walked by best Δlatency/Δblocks until the budget
     is exhausted, the first step past it granted partially.  ``"fast"``
-    walks on the curves' device, ``"heap"`` on the host; both give the
-    same sizes.  Sizes and hit ratios come back on the host.
+    walks on the curves' device, ``"heap"`` on the host, ``"device"``
+    with the device window pipeline's walk
+    (``device_pipeline.greedy_walk_device``) on the curves' device; all
+    give the same sizes.  Sizes and hit ratios come back on the host.
     """
-    if method == "device":
-        raise NotImplementedError(
-            "greedy_allocate(method='device') is not ported yet (ROADMAP: "
-            "modules queue, item 3, device and shard pipelines)")
-    if method not in ("fast", "heap"):
+    if method not in ("fast", "heap", "device"):
         raise ValueError(f"method must be 'fast', 'heap' or 'device', got "
                          f"{method!r}")
     b = BatchedHitRatioFunctions.from_curves(hs)
@@ -140,6 +140,9 @@ def greedy_allocate(hs, capacity: int, t_fast: float, t_slow: float,
     if method == "heap":
         sizes = _greedy_walk_heap(b.to("cpu"), sizes.cpu(), budget,
                                   w.cpu(), gain).to(dev)
+    elif method == "device":
+        from repro_torch.core.device_pipeline import greedy_walk_device
+        sizes = greedy_walk_device(b, sizes, budget, w, gain)
     else:
         sizes = _greedy_walk_fast(b, sizes, budget, w, gain)
     return PartitionResult(

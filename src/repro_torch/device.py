@@ -1,9 +1,10 @@
-"""Where the port's entry points run: on the card unless asked otherwise."""
+"""Where the port's entry points run (on the card unless asked otherwise),
+and how host tensors cross to it."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "to_device"]
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -17,3 +18,14 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
         raise RuntimeError("no CUDA device is visible; pass device='cpu' to "
                            "run the port on the CPU")
     return dev
+
+
+def to_device(x: torch.Tensor, device: str | torch.device) -> torch.Tensor:
+    """``x`` on ``device``.  A host tensor crosses to a CUDA device from
+    pinned memory with ``non_blocking=True``: the copy is queued on the
+    current stream and the host does not wait for the card (a pageable
+    copy would synchronize the stream first).  Elsewhere ``x.to``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and x.device.type == "cpu":
+        return x.pin_memory().to(dev, non_blocking=True)
+    return x.to(dev)

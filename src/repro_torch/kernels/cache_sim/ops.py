@@ -13,6 +13,12 @@ power-of-two padded and self-aligned, and each distinct padded width is
 one call of ``kernel.cache_sim_segments_scan`` on a CUDA tensor, or of
 the merge-sort tree ``ref.cache_sim_segments_tree`` on a CPU tensor.
 
+``segment_counts_device`` is the same count on a tape that is already
+padded (the device window pipeline's count stage): one
+``cache_sim_segments_scan`` call per width group, the kernel on a CUDA
+tensor and the dense plain ``ref.cache_sim_segments_ref`` on a CPU one,
+with nothing read back to the host.
+
 ``residency_levels`` is the two-level replay's both-level residency
 (the reference's ``residency_levels_accel``): one
 ``kernel.cache_sim_levels_scan`` launch on a CUDA tensor, the merge-tree
@@ -35,8 +41,8 @@ from repro_torch.kernels.cache_sim.ref import (cache_sim_levels_ref,
                                                live_counts_delta,
                                                stack_distances_tree)
 
-__all__ = ["residency_levels", "ro_live_counts", "stack_distances",
-           "stack_distances_segments", "width_groups_of"]
+__all__ = ["residency_levels", "ro_live_counts", "segment_counts_device",
+           "stack_distances", "stack_distances_segments", "width_groups_of"]
 
 
 def stack_distances(prev: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
@@ -115,6 +121,34 @@ def width_groups_of(widths) -> tuple[tuple[int, int, int], ...]:
     return tuple(out)
 
 
+def _group_links(gprev: torch.Tensor, gnxt: torch.Tensor, gocc: torch.Tensor,
+                 lo: int, hi: int) -> tuple[torch.Tensor, ...]:
+    """Chunk-local int32 links of the width group ``[lo, hi)`` of a padded
+    tape."""
+    gp = gprev[lo:hi]
+    return (torch.where(gp >= 0, gp - lo, -1).to(torch.int32),
+            (gnxt[lo:hi] - lo).to(torch.int32),
+            gocc[lo:hi].to(torch.int32).contiguous())
+
+
+def segment_counts_device(gprev: torch.Tensor, gnxt: torch.Tensor,
+                          gocc: torch.Tensor, wg) -> torch.Tensor:
+    """int64 segment-restricted SD over a padded tape; -1 at cold and pad
+    rows.
+
+    ``gprev``/``gnxt``/``gocc`` are ``batch_sim.padded_tape_links``'s
+    links on the padded tape, ``wg`` its ``width_groups_of`` spans (host
+    integers): one ``cache_sim_segments_scan`` call per width group (on
+    a CPU tensor its plain version ``cache_sim_segments_ref``), nothing
+    read back to the host.
+    """
+    parts = []
+    for w, lo, hi in wg:
+        p, q, o = _group_links(gprev, gnxt, gocc, lo, hi)
+        parts.append(cache_sim_segments_scan(p, q, o, w))
+    return torch.cat(parts).to(torch.int64)
+
+
 def stack_distances_segments(prev: torch.Tensor, nxt: torch.Tensor,
                              bounds) -> torch.Tensor:
     """int64 SD per access of a multi-tenant tape; -1 where cold.
@@ -141,10 +175,7 @@ def stack_distances_segments(prev: torch.Tensor, nxt: torch.Tensor,
     gprev, gnxt, gocc = padded_tape_links(prev, nxt, lay)
     counts = torch.empty(total, dtype=torch.int64, device=dev)
     for w, lo, hi in width_groups_of(widths):
-        gp = gprev[lo:hi]
-        args = (torch.where(gp >= 0, gp - lo, -1).to(torch.int32),
-                (gnxt[lo:hi] - lo).to(torch.int32),
-                gocc[lo:hi].contiguous())
+        args = _group_links(gprev, gnxt, gocc, lo, hi)
         counts[lo:hi] = (cache_sim_segments_scan(*args, w)
                          if dev.type == "cuda"
                          else cache_sim_segments_tree(*args, w))

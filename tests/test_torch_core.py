@@ -299,13 +299,17 @@ def test_lru_cache_state_and_resize():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(pipeline="device"), "pipeline"),
+    (dict(pipeline="sharded", fault_tolerant=True), "pipeline"),
     (dict(fault_tolerant=True), "fault"),
     (dict(pipeline="sharded"), "pipeline"),
 ])
 def test_manager_refuses_knobs_off_the_slice(kw, match):
+    """The sharded pipeline (item 4) and the fault ladder (item 3b) are
+    refused; ``pipeline="device"`` is ported and builds."""
     with pytest.raises(NotImplementedError, match=match):
         make_manager("eci", 100, NAMES, device="cpu", **kw)
+    assert make_manager("eci", 100, NAMES, device="cpu",
+                        pipeline="device").pipeline == "device"
 
 
 def test_manager_retire_and_sampling_threshold():

@@ -26,6 +26,14 @@ edges: a tile +- 1, thousands of deaths on one word and deaths anywhere
 on the tape; widths on both sides of the shared-memory / global boundary,
 links that cross a block, every width group of a sampled MSR tape; and
 from call to call and tape to tape (no state kept between calls).
+The RO token replay kernels (``ro_token_replay_scan``,
+``ro_token_replay_levels_scan``) are held to their plain versions on
+pressured multi-block tapes (one-row blocks, capacity 0, warm L2, a clean
+L2) and through ``simulate_many``; the device window pipeline runs under
+``transfer_sanitizer`` (a planted sync raises; one sync a window, also in
+``run_stream``) and equals the CPU bit for bit, as do
+``analyze_windows(pipeline="device")``, ``greedy_allocate(method=
+"device")`` and the manager under ``pipeline="device"``.
 This module imports nothing of JAX, so it runs where JAX is absent.
 """
 import numpy as np
@@ -98,6 +106,13 @@ from repro_torch.kernels.paged_attention.ref import (LONG_ROWS,
                                                      paged_attention_split_ref,
                                                      sweep_arrays)
 from repro_torch.serve.engine import MultiTenantEngine, Request
+from repro_torch.core import StageProfile
+from repro_torch.core.device_pipeline import (DeviceWindowPipeline,
+                                              transfer_sanitizer)
+from repro_torch.kernels.ro_replay.kernel import (ro_token_replay_levels_scan,
+                                                  ro_token_replay_scan)
+from repro_torch.kernels.ro_replay.ref import (
+    ro_token_replay_blocks_ref, ro_token_replay_levels_blocks_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -1118,3 +1133,189 @@ def test_qwen3_smoke_engine_on_card_matches_cpu(card, capacity2):
         [(d.sizes.tolist(), d.policies) for d in c[3].history]
     torch.testing.assert_close(g[1].k_pages.cpu(), c[1].k_pages,
                                rtol=1e-5, atol=1e-5)
+
+
+# ---------------------- the RO token replays and the device window pipeline
+def _ro_tape(seed, device, blocks=6, n_max=5000, levels=False):
+    """A tape of tenant blocks under RO pressure (few addresses, mostly
+    reads), links severed at the blocks, warm-L2 rows at the head of the
+    two-level blocks, a one-row block, and each block's capacities
+    (capacity 0 on some single-level blocks)."""
+    rng = np.random.default_rng(seed)
+    lens = [int(x) for x in rng.integers(1, n_max, blocks)]
+    lens[1] = 1
+    addrs = [rng.integers(0, 40 + 20 * k, ln) for k, ln in enumerate(lens)]
+    bounds = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    tid = torch.as_tensor(np.repeat(np.arange(blocks), lens), device=device)
+    prev, nxt, _, _ = segment_links(
+        torch.as_tensor(np.concatenate(addrs), device=device), tid,
+        torch.as_tensor(bounds[1:], device=device)[tid])
+    m = int(bounds[-1])
+    rd = torch.as_tensor(rng.random(m) < 0.8, device=device)
+    force = torch.as_tensor(rng.random(m) < 0.3, device=device)
+    c1 = [int(x) for x in rng.integers(1 if levels else 0, 24, blocks)]
+    c2 = [int(x) for x in rng.integers(1, 24, blocks)]
+    l2e = [min(int(x), ln) if levels else 0
+           for x, ln in zip(rng.integers(0, 12, blocks), lens)]
+    clean2 = [bool(k % 2) for k in range(blocks)]
+    return (rd, prev, nxt, force), bounds, (c1, c2, l2e, clean2)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ro_token_replay_kernels_match_plain_on_card(card, seed):
+    """Both RO replay kernels against their plain versions, exactly: one
+    launch each for all blocks, one-row blocks, capacity 0, warm L2 and a
+    clean L2; a second call gives the same bits."""
+    for levels in (False, True):
+        tape, bounds, (c1, c2, l2e, cl) = _ro_tape(seed, card,
+                                                   levels=levels)
+        rd, prev, nxt, force = tape
+        args = (rd, prev.to(torch.int32), nxt.to(torch.int32), force,
+                bounds[:-1].tolist(), bounds[1:].tolist())
+        cpu = tuple(x.cpu() for x in args[:4]) + args[4:]
+        if levels:
+            kern, caps = ro_token_replay_levels_scan, (c1, c2, l2e, cl)
+            plain = ro_token_replay_levels_blocks_ref(
+                *(x.cpu() for x in tape), *args[4:], *caps)
+        else:
+            kern, caps = ro_token_replay_scan, (c1,)
+            plain = ro_token_replay_blocks_ref(
+                *(x.cpu() for x in tape), *args[4:], *caps)
+        before = kern.launches
+        got = kern(*args, *caps)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        for g, w in zip(got, plain):
+            assert torch.equal(g.cpu(), w)
+        for g, w in zip(kern(*args, *caps), got):
+            assert torch.equal(g, w)
+        assert all(torch.equal(a.cpu(), b) for a, b in
+                   zip(kern(*cpu[:4], *cpu[4:], *caps), plain))
+
+
+def test_simulate_many_ro_pressure_on_card_matches_cpu(card):
+    """RO tenants under pressure, one level and two, over warm windows:
+    the card replays them with one kernel launch per kind a window and
+    gives the CPU's results and states."""
+    rng = np.random.default_rng(7)
+    pols = ["ro", "ro", "wb", "ro", "ro"]
+    caps1 = [12, 0, 30, 8, 20]
+    caps2 = [0, 16, 0, 10, 30]
+    devs = (card, torch.device("cpu"))
+    side = [([LRUCache(c, dev) for c in caps1],
+             [LRUCache(c, dev) for c in caps2]) for dev in devs]
+    k1, k2 = ro_token_replay_scan, ro_token_replay_levels_scan
+    before = (k1.launches, k2.launches)
+    for _ in range(3):
+        traces = [Trace(torch.as_tensor(rng.integers(0, 60, 3000)),
+                        torch.as_tensor(rng.random(3000) < 0.8))
+                  for _ in pols]
+        res = [simulate_many(traces, policies=[WritePolicy(p) for p in pols],
+                             caches=c1, caches2=c2, flush_cost=10.0,
+                             t_fast2=4.0, device=dev)
+               for dev, (c1, c2) in zip(devs, side)]
+        assert res[0] == res[1]
+    assert (k1.launches - before[0], k2.launches - before[1]) == (3, 3)
+    (g1, g2), (c1, c2) = side
+    for a, b in zip(g1 + g2, c1 + c2):
+        assert all(torch.equal(x.cpu(), y)
+                   for x, y in zip(a.state_arrays(), b.state_arrays()))
+
+
+def _window_traces(seed, tenants, n_max, device="cpu"):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(tenants):
+        n = int(rng.integers(0, n_max)) if i % 7 else 0
+        out.append(Trace(torch.as_tensor(rng.integers(0, 200, n),
+                                         device=device),
+                         torch.as_tensor(rng.random(n) < 0.7,
+                                         device=device)))
+    return out
+
+
+def test_device_pipeline_card_matches_cpu_sanitized(card):
+    """``DeviceWindowPipeline`` on the card under ``transfer_sanitizer``
+    equals the same code on the CPU bit for bit (latency to rel 1e-12),
+    with one sync a window; ``run_stream`` pays one sync a window with
+    work and equals ``run``."""
+    wins = [_window_traces(s, 40, 3000) for s in (1, 2)]
+    wins.insert(1, [Trace(torch.zeros(0, dtype=torch.int64),
+                          torch.zeros(0, dtype=torch.bool))] * 40)
+    cap = 2500
+    gpu = DeviceWindowPipeline(cap, c_min=20, transfer_sanitize=True,
+                               device=card)
+    cpu = DeviceWindowPipeline(cap, c_min=20, device="cpu")
+    launches = cache_sim_segments_scan.launches
+    prof = StageProfile()
+    got = [gpu.run(w, profile=prof) for w in wins]
+    assert cache_sim_segments_scan.launches > launches
+    assert prof.syncs == 2 and prof.windows == 3
+    want = [cpu.run(w) for w in wins]
+    for g, w in zip(got, want):
+        for f in ("sizes", "urd_sizes", "hit_ratios", "write_ratios"):
+            assert torch.equal(getattr(g, f), getattr(w, f)), f
+        for f in ("edges", "heights", "offsets"):
+            assert torch.equal(getattr(g.curves, f), getattr(w.curves, f))
+        assert g.feasible == w.feasible
+        assert g.latency == pytest.approx(w.latency, rel=1e-12)
+    sprof = StageProfile()
+    stream = gpu.run_stream(wins, profile=sprof)
+    assert sprof.syncs == 2 and sprof.windows == 3
+    for a, b in zip(stream, got):
+        assert torch.equal(a.sizes, b.sizes) and a.latency == b.latency
+
+
+def test_transfer_sanitizer_raises_on_a_hidden_sync(card):
+    x = torch.arange(10, device=card)
+    with pytest.raises(RuntimeError):
+        with transfer_sanitizer(True, card):
+            x.sum().item()
+    with pytest.raises(RuntimeError):
+        with transfer_sanitizer(True, card):
+            torch.repeat_interleave(x, x)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    with transfer_sanitizer(False, card):
+        assert x.sum().item() == 45
+
+
+def test_device_monitor_and_walk_on_card_match_cpu(card):
+    """``analyze_windows(pipeline="device")``, exact and sampled, and
+    ``greedy_allocate(method="device")`` on the card equal the CPU's host
+    pipeline and heap walk."""
+    traces = _window_traces(5, 30, 4000)
+    dtr = [Trace(t.addrs.to(card), t.is_read.to(card)) for t in traces]
+    for kw in (dict(), dict(sample_rate=0.25, window_seed=3)):
+        got = analyze_windows(dtr, "urd", pipeline="device", device=card,
+                              **kw)
+        want = analyze_windows(traces, "urd", device="cpu", **kw)
+        for f in ("edges", "heights", "offsets", "n_accesses"):
+            assert torch.equal(getattr(got.curves, f).cpu(),
+                               getattr(want.curves, f))
+        for f in ("urd_sizes", "write_ratios", "expected_errors"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f))
+    cap = int(int(want.urd_sizes.sum()) * 0.3)
+    dev = greedy_allocate(got.curves, cap, 1.0, 20.0, c_min=10,
+                          method="device")
+    heap = greedy_allocate(want.curves, cap, 1.0, 20.0, c_min=10,
+                           method="heap")
+    assert dev.sizes.tolist() == heap.sizes.tolist()
+    assert torch.equal(dev.hit_ratios, heap.hit_ratios)
+
+
+def test_manager_device_pipeline_on_card_matches_host(card):
+    names = ["wdev_0", "hm_1", "prn_1", "web_0", "prxy_0", "ts_0"]
+    kw = dict(c_min=10, initial_blocks=40, t_fast=1.0, t_slow=20.0,
+              flush_cost=10.0)
+    d = make_manager("eci", 400, names, device=card, pipeline="device", **kw)
+    h = make_manager("eci", 400, names, device=card, **kw)
+    for w in range(3):
+        traces = [msr_trace(nm, 3000, seed=10 * w + i)
+                  for i, nm in enumerate(names)]
+        d.run_window(traces)
+        h.run_window(traces)
+        assert d.history[-1].sizes.tolist() == h.history[-1].sizes.tolist()
+        assert d.history[-1].policies == h.history[-1].policies
+    for a, b in zip(d.tenants, h.tenants):
+        assert a.result == b.result
+    assert d.summary() == h.summary()

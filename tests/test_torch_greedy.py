@@ -143,9 +143,13 @@ def test_two_level_solve_with_the_greedy(mix64, capacity2):
 
 
 def test_greedy_method_checks(mix64):
+    """``method="device"`` (the device window pipeline's walk, no longer
+    refused) gives the heap's allocation; an unknown method raises."""
     _, port = mix64
-    with pytest.raises(NotImplementedError, match="item 3"):
-        greedy_allocate(port, 100, **SIM, method="device")
+    dev = greedy_allocate(port, 100, **SIM, method="device")
+    heap = greedy_allocate(port, 100, **SIM, method="heap")
+    assert dev.sizes.tolist() == heap.sizes.tolist()
+    assert torch.equal(dev.hit_ratios, heap.hit_ratios)
     with pytest.raises(ValueError):
         greedy_allocate(port, 100, **SIM, method="lp")
 
