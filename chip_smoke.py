@@ -124,6 +124,28 @@ Phases:
      ``phase_detect=True, reconfig_interval=10**9``, on the card and the
      CPU: event logs, ``windows_analyzed``, decisions and per-tenant
      latencies equal;
+ 11b. fault injection and the degradation ladder (``fault_phase``): (a)
+     slice 1's deployment under ``pipeline="device"``,
+     ``demote_cooldown=2`` and ``FaultPlan.standard(16, 8, seed=0)`` plus
+     an in-rung device retry at window 2 and a dead device rung at window
+     5 (where the standard plan's host spec also kills the host rung, so
+     the window ends on the per-tenant rung), eight windows of 65,536
+     accesses a tenant on the card (launches counted a window, as in
+     phase 4), held to the same plan on the CPU under ``pipeline="host"``:
+     decisions (sizes, policies, feasibility, quarantined, degraded, held,
+     deferred), per-tenant counts, LRU states with their dirty bits,
+     latencies to rel 1e-12, summaries and event logs equal apart from the
+     card's one device step-down; the fingerprints (dirty loss, poisoned
+     and straggler windows, the tier failure, both step-downs) positive,
+     no violation actuated; each window's wall time, the per-tenant
+     rung's window beside a device-rung window; (b)
+     ``benchmarks/bench_faults.py``'s settings (capacity 8192, ``c_min``
+     256, ``demote_cooldown`` 2, 4 tenants of 2,500 accesses, seed 0):
+     the three ``FAULT_SCENARIOS`` through ``replay_scenario``, each with
+     its fingerprint, ``FaultPlan.standard(4, 8)`` reconverging to the
+     fault-free run within ``K = demote_cooldown + 2`` windows of the last
+     fault, and the disabled plan bit-identical to no plan, each card
+     equal to CPU in every decision and summary;
  12. the model layer, zamba2-7b at full width (``model_phase``): bf16
      from seed 0, ``prefill`` on 4 prompts of 2048 tokens (81
      ``mamba2_ssd`` and 13 ``flash_attention`` launches, counted), then 4
@@ -160,7 +182,12 @@ Phases:
      count, and at the first 1 and 4 captured rows;
      ``flash_attention`` at the captured prefill inputs the same way as in
      phase 12, and its share of a request's prefill; 2 layers at full
-     width in fp32, the card against the CPU;
+     width in fp32, the card against the CPU, then the same with the pool
+     crashing after the first step (``fail_tier(1)``; two steps with the
+     tier down, ``recover_tier(1)``, then to the end): tokens,
+     ``aborted_restarts``, summaries (the failure counters too) and
+     decisions equal card and CPU, the aborted requests' second prefill
+     counted in ``flash_attention``'s launches (phase 11b's part (c));
  14. time each kernel of the earlier slices at a full tape of its path
      (CUDA events) beside its plain version and the bound of the function
      it computes (the larger of its bytes at the memory rate and a tree
@@ -181,7 +208,9 @@ Phases:
      from their largest calls on the paths (phases 4-7), with the bound
      the larger of their bytes and the longest block's rows times one
      dependent L1 hit;
- 15. print the kernels line, the card line and, last, the result line.
+ 15. print the kernels line (each row's ``fault_launches``: its launches
+     in phase 11b and the pool crash), the card line and, last, the
+     result line.
 
 Exits non-zero, printing no result, when no card is visible or any
 phase fails.
@@ -303,6 +332,20 @@ CP_STREAM_SEEDS = (7, 8, None, 9)
 # the card-against-CPU check of the device pipeline at a small size (the
 # CPU counts each width group with the dense plain segments count)
 DP_SMALL = (32, 1000, 11)
+# the fault phase: slice 1's deployment for FAULT_WINDOWS windows under
+# FaultPlan.standard(16, FAULT_WINDOWS, seed=0) plus FAULT_DEVICE_SPECS
+# (window, count) of device-rung launch failures: an in-rung retry, then a
+# dead rung in the window whose host rung the standard plan kills; the
+# WB demotion lasts FAULT_COOLDOWN analyzes past a recovery
+FAULT_WINDOWS, FAULT_COOLDOWN = 8, 2
+FAULT_DEVICE_SPECS = ((2, 1), (5, 99))
+# benchmarks/bench_faults.py's CAPACITY, C_MIN, N_TENANTS, its _trace's
+# accesses and the smoke seed
+BF_CAPACITY, BF_C_MIN, BF_TENANTS, BF_ACCESSES, BF_SEED = 8192, 256, 4, \
+    2500, 0
+# the summary counters a fault run must leave positive (phase 11b)
+FAULT_FINGERPRINTS = ("dirty_loss", "poisoned_windows", "straggler_windows",
+                      "tier_failures", "device_stepdowns", "host_stepdowns")
 T_START = time.perf_counter()
 
 
@@ -1480,6 +1523,287 @@ def scenarios_phase(dev) -> collections.Counter:
     return launches
 
 
+def fault_plan_16():
+    """Phase 11b(a)'s plan: the standard plan of slice 1's deployment and
+    the device-rung specs of ``FAULT_DEVICE_SPECS``."""
+    from repro_torch.core import FaultPlan, FaultSpec
+    std = FaultPlan.standard(len(MSR_16), FAULT_WINDOWS, seed=0)
+    return FaultPlan(std.specs + tuple(
+        FaultSpec("pipeline", window=w, rung="device", count=n)
+        for w, n in FAULT_DEVICE_SPECS), seed=std.seed)
+
+
+def decision_key(d) -> tuple:
+    """Everything a decision says, on the host (sample rates too)."""
+    return (d.sizes.tolist(),
+            None if d.sizes2 is None else d.sizes2.tolist(),
+            [p.value for p in d.policies],
+            None if d.policies2 is None else [p.value for p in d.policies2],
+            bool(d.feasible), bool(d.quarantined), d.degraded, d.held,
+            d.deferred, d.guard,
+            None if d.sample_rates is None else d.sample_rates.tolist())
+
+
+def same_summaries(what: str, got: dict, want: dict, skip=()) -> None:
+    """Integers exactly, floats to rel 1e-12."""
+    assert set(got) == set(want), f"{what}: summary keys differ"
+    for k, v in want.items():
+        if k in skip:
+            continue
+        assert (got[k] == v if isinstance(v, int)
+                else abs(got[k] - v) <= 1e-12 * abs(v)), \
+            f"{what}: summary {k}: {got[k]} vs {v}"
+
+
+def device_extra(mgr) -> list:
+    """The device-rung step-downs a ``pipeline="device"`` manager logs."""
+    from repro_torch.core import DegradeEvent
+    return [e for e in mgr.events
+            if isinstance(e, DegradeEvent) and e.rung == "device"]
+
+
+def fault_deployment(dev, fwindows) -> collections.Counter:
+    """Phase 11b(a): slice 1's deployment under ``fault_plan_16()`` on the
+    card (``pipeline="device"``) against the CPU (``pipeline="host"``)."""
+    from repro_torch.core import StageProfile
+    plan = fault_plan_16()
+    kw = dict(faults=plan, demote_cooldown=FAULT_COOLDOWN)
+    prof = StageProfile(dev)
+    t0 = time.perf_counter()
+    g, grec = run_windows(dev, fwindows, MSR_16, 6000, profile=prof,
+                          pipeline="device", **kw)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c, crec = run_windows("cpu", fwindows, MSR_16, 6000, **kw)
+    cpu_s = time.perf_counter() - t0
+    launches = collections.Counter()
+    for x in grec["launches"]:
+        launches.update(x)
+    dead = dict(FAULT_DEVICE_SPECS)
+    # L1 blocks a window's replay runs with: the sizes going into it, none
+    # in the window whose start loses the tier (a replay at capacity 0
+    # counts nothing and launches no cache_sim_scan)
+    lost = {e.window for e in g.events if e.reason == "tier_loss"}
+    cap_in = [len(MSR_16) * 100] + [int(d.sizes.sum())
+                                     for d in list(g.history)[:-1]]
+    cap_in = [0 if w in lost else c for w, c in enumerate(cap_in)]
+    for w, d in enumerate(g.history):
+        evs = [f"{type(e).__name__[:-5]}:{e.reason}" + (f"@{e.rung}"
+                                                        if getattr(e, "rung", "")
+                                                        else "")
+               for e in g.events if e.window == w]
+        st = grec["stages"][w]
+        print(f"fault window {w}: {grec['walls'][w]:.3f} s on the card "
+              f"(CPU {crec['walls'][w]:.3f}), replayed at {cap_in[w]} L1 "
+              f"blocks, monitor {st['monitor']:.4f} s, "
+              f"pgd {st['pgd']:.4f} s; degraded={d.degraded or '-'} "
+              f"quarantined={d.quarantined} held={list(d.held)} "
+              f"deferred={list(d.deferred)} allocated={int(d.sizes.sum())} "
+              f"policies {dict(collections.Counter(p.value for p in d.policies))}"
+              f"; events {evs}; launches {json.dumps(grec['launches'][w])}")
+        lw = grec["launches"][w]
+        if cap_in[w] > 0:
+            assert lw["cache_sim_scan"] > 0, \
+                f"fault window {w}: no replay launch"
+        # the device rung dispatches (one segments launch a width group)
+        # except where every attempt died before the dispatch
+        ran = not (w in dead and dead[w] > g.retry_limit)
+        assert (lw["cache_sim_segments_scan"] > 0) == ran, \
+            f"fault window {w}: segments launches {lw}"
+        one, two = crec["host_tokens"][w]
+        got = tuple(lw[k] for k in RO_KERNELS)
+        assert got == (int(one > 0), int(two > 0)), \
+            f"fault window {w}: RO replay launches {got}, CPU host token " \
+            f"loops {(one, two)}"
+    tenant_w = [w for w, n in FAULT_DEVICE_SPECS if n > g.retry_limit][0]
+    calm = [w for w in range(1, len(fwindows))
+            if not any(e.window == w for e in g.events)
+            and w not in dead]
+    ref_w = calm[0] if calm else 0
+    print(f"per-tenant rung (window {tenant_w}): "
+          f"{grec['walls'][tenant_w]:.3f} s, monitor "
+          f"{grec['stages'][tenant_w]['monitor']:.4f} s, "
+          f"{grec['launches'][tenant_w]['cache_sim_scan']} cache_sim_scan "
+          f"launches; beside the device rung's window {ref_w}: "
+          f"{grec['walls'][ref_w]:.3f} s, monitor "
+          f"{grec['stages'][ref_w]['monitor']:.4f} s; card {card_s:.1f} s, "
+          f"CPU {cpu_s:.1f} s for {len(fwindows)} windows")
+
+    # the card against the CPU, window by window (a PGD tie is reported,
+    # and the windows after it are not compared, as in phase 4)
+    tie_at = None
+    for w, (dg, dc) in enumerate(zip(g.history, c.history)):
+        kg, kc = decision_key(dg), decision_key(dc)
+        assert kg[2:9] == kc[2:9], f"fault window {w}: {kg[2:9]} vs {kc[2:9]}"
+        compare_counts(w, grec["counts"][w], crec["counts"][w])
+        stage = pgd_tie(dg, dc, grec["curves"][w])
+        if stage is not None:
+            print(f"PGD TIE in fault window {w} ({stage}): card {kg[0]} vs "
+                  f"CPU {kc[0]}; later windows are not compared")
+            tie_at = w
+            break
+        assert kg == kc, f"fault window {w}: {kg} vs {kc}"
+        compare_states(f"fault window {w}", grec["states"][w],
+                       crec["states"][w])
+    assert len(g.history) == len(c.history) == len(fwindows)
+    extra = device_extra(g)
+    assert [(e.window, e.reason) for e in extra] == [(tenant_w, "stepdown")], \
+        extra
+    sg, sc = g.summary(), c.summary()
+    if tie_at is None:
+        assert [e for e in g.events if e not in extra] == list(c.events), \
+            "fault event logs differ"
+        same_summaries("fault deployment", sg, sc,
+                       skip=("device_stepdowns", "degrade_events"))
+        assert sg["degrade_events"] == sc["degrade_events"] + len(extra)
+    assert (sg["device_stepdowns"], sc["device_stepdowns"]) == (1, 0)
+    for k in FAULT_FINGERPRINTS:
+        assert sg[k] > 0, f"fault deployment: no {k}"
+    assert sg["guard_violations_actuated"] == 0
+    print(f"check: fault deployment (16 tenants, {len(fwindows)} windows, "
+          f"pipeline=\"device\") card == CPU pipeline=\"host\" (decisions, "
+          f"per-tenant counts, LRU states with dirty bits, latencies to rel "
+          f"1e-12, summaries, event logs) but the card's device step-down at "
+          f"window {tenant_w}; fingerprints "
+          f"{json.dumps({k: sg[k] for k in FAULT_FINGERPRINTS})}; "
+          f"guard quarantines {sg['guard_quarantines']}, lkg decisions "
+          f"{sg['lkg_decisions']}; launches {json.dumps(dict(launches))}")
+    return launches
+
+
+def bench_faults_trace(window: int, tenant: int):
+    """``benchmarks/bench_faults.py``'s ``_trace`` (its seed formula and
+    draws), as the port's tensor ``Trace``."""
+    from repro_torch.core import Trace
+    rng = np.random.default_rng(
+        (BF_SEED * 1_000_003 + window * 8_191 + tenant * 131) & 0x7FFFFFFF)
+    addrs = rng.integers(0, 2048, BF_ACCESSES)
+    return Trace(torch.as_tensor(addrs),
+                 torch.as_tensor(rng.random(BF_ACCESSES) < 0.55),
+                 f"t{tenant}")
+
+
+def bench_faults_phase(dev) -> collections.Counter:
+    """Phase 11b(b): bench_faults' scenarios, reconvergence and
+    default-off identity, on the card and the CPU."""
+    from repro_torch.core import ECICacheManager, FaultPlan
+    from repro_torch.data.scenarios import FAULT_SCENARIOS, replay_scenario
+    cuda = dev.type == "cuda"
+    launches = collections.Counter()
+
+    def factory(device, faults=None):
+        return lambda names: ECICacheManager(
+            BF_CAPACITY, list(names), c_min=BF_C_MIN,
+            initial_blocks=BF_C_MIN, faults=faults,
+            demote_cooldown=FAULT_COOLDOWN, t_fast=1.0, t_slow=20.0,
+            flush_cost=10.0, device=device)
+
+    def on_both(fn):
+        """fn(device) on the card (launches counted) and on the CPU."""
+        out = []
+        for device in (dev, torch.device("cpu")):
+            if cuda:
+                torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = fn(device)
+            if cuda:
+                torch.cuda.synchronize()
+            if device.type == "cuda":
+                launches.update(read_counts())
+            out.append((res, time.perf_counter() - t0))
+        return out
+
+    def same_runs(what, g, c):
+        assert [decision_key(d) for d in g.history] == \
+            [decision_key(d) for d in c.history], f"{what}: decisions"
+        assert list(g.events) == list(c.events), f"{what}: events"
+        same_summaries(what, g.summary(), c.summary())
+        _same_results(what, [t.result for t in g.tenants],
+                      [t.result for t in c.tenants])
+
+    fingerprint = {"faulted_tier_loss": "dirty_loss",
+                   "faulted_straggler_burst": "straggler_windows",
+                   "faulted_poisoned_join": "poisoned_windows"}
+    for name, build in FAULT_SCENARIOS.items():
+        fs = build(seed=BF_SEED)
+        ((g, gi), gs), ((c, ci), cs) = on_both(
+            lambda d: replay_scenario(fs.run, factory(d, fs.plan)))
+        assert gi == ci
+        same_runs(name, g, c)
+        s = g.summary()
+        assert s[fingerprint[name]] > 0, f"{name}: no {fingerprint[name]}"
+        assert s["guard_violations_actuated"] == 0
+        print(f"fault scenario {name}: card {gs:.2f} s, CPU {cs:.2f} s; "
+              f"{len(g.history)} windows; {fingerprint[name]} "
+              f"{s[fingerprint[name]]}, degrade events "
+              f"{s['degrade_events']}, lkg decisions {s['lkg_decisions']}")
+
+    names = [f"t{i}" for i in range(BF_TENANTS)]
+    plan = FaultPlan.standard(BF_TENANTS, 8, seed=BF_SEED)
+    k = plan.reconverge_bound(FAULT_COOLDOWN)
+    last = plan.last_fault_window()
+    n_windows = last + k + 2
+    tapes = [[bench_faults_trace(w, t) for t in range(BF_TENANTS)]
+             for w in range(max(n_windows, 8))]
+
+    def reconverge(device):
+        base, faulted = factory(device)(names), factory(device, plan)(names)
+        for mgr in (base, faulted):
+            for w in range(n_windows):
+                mgr.run_window(tapes[w])
+        return base, faulted
+
+    ((gb, gf), gs), ((cb, cf), cs) = on_both(reconverge)
+    same_runs("reconvergence, fault-free", gb, cb)
+    same_runs("reconvergence, faulted", gf, cf)
+    recovered_at = n_windows
+    for w in range(n_windows - 1, -1, -1):
+        db, df = gb.history[w], gf.history[w]
+        if not (db.sizes.tolist() == df.sizes.tolist()
+                and db.policies == df.policies
+                and db.sizes2.tolist() == df.sizes2.tolist()):
+            break
+        recovered_at = w
+    dirty = gf.summary()["dirty_loss"]
+    assert recovered_at - last <= k, (recovered_at, last, k)
+    assert 0 < dirty <= BF_CAPACITY, dirty
+    assert gf.summary()["guard_violations_actuated"] == 0
+
+    def disabled(device):
+        plain = factory(device)(names)
+        off = factory(device, FaultPlan((), seed=BF_SEED))(names)
+        for mgr in (plain, off):
+            for w in range(8):
+                mgr.run_window(tapes[w])
+        return plain, off
+
+    ((gp, go), ds), ((cp, co), dcs) = on_both(disabled)
+    for what, a, b in (("disabled plan (card)", go, gp),
+                       ("disabled plan (CPU)", co, cp),
+                       ("disabled plan, card vs CPU", go, co)):
+        same_runs(what, a, b)
+    assert go.summary() == gp.summary() and go.fault_tolerant
+    print(f"check: bench_faults' settings card == CPU (decisions, events, "
+          f"summaries, per-tenant counts): 3 fault scenarios with their "
+          f"fingerprints; FaultPlan.standard({BF_TENANTS}, 8) over "
+          f"{n_windows} windows recovers at window {recovered_at} (last "
+          f"fault {last}, K {k}; card {gs:.2f} s, CPU {cs:.2f} s), dirty "
+          f"loss {dirty}; the disabled plan bit-identical to no plan (card "
+          f"{ds:.2f} s, CPU {dcs:.2f} s); launches "
+          f"{json.dumps(dict(launches))}")
+    return launches
+
+
+def fault_phase(dev, fwindows) -> collections.Counter:
+    """Phase 11b: (a) and (b); (c) runs in the serving phase."""
+    launches = fault_deployment(dev, fwindows)
+    launches.update(bench_faults_phase(dev))
+    assert launches["cache_sim_scan"] > 0 and \
+        launches["cache_sim_segments_scan"] > 0
+    return launches
+
+
 def check_close(max_err: dict, name: str, what: str, got, want,
                 tol: float, scale: float = 1.0) -> float:
     """Float kernels: |got - want| <= tol * scale everywhere; records the
@@ -2094,7 +2418,7 @@ def free_cards() -> None:
 
 
 def serve_engine(cfg, params, dev, n_pages, capacity, c_min, initial,
-                 window):
+                 window, fault_tolerant=None):
     """The deployment: pool, manager, tiered cache and engine; the pool's
     ``allocate`` counts the engine's page-0 fallbacks (an unmanaged,
     tenant -2, allocation that returns None)."""
@@ -2105,7 +2429,8 @@ def serve_engine(cfg, params, dev, n_pages, capacity, c_min, initial,
                      cfg.head_dim, dtype=getattr(torch, cfg.dtype),
                      device=dev)
     mgr = ECICacheManager(capacity, ["chat", "batchjob"], c_min=c_min,
-                          initial_blocks=initial, device=dev)
+                          initial_blocks=initial,
+                          fault_tolerant=fault_tolerant, device=dev)
     tiered = TieredKVCache(pool, mgr, window_events=window)
     eng = MultiTenantEngine(cfg, params, tiered, page_size=SERVE_PAGE,
                             max_pages_per_seq=SERVE_MAX_PAGES)
@@ -2120,10 +2445,13 @@ def serve_engine(cfg, params, dev, n_pages, capacity, c_min, initial,
     return eng
 
 
-def serve_run(eng, traffic, new_tokens: int) -> dict:
+def serve_run(eng, traffic, new_tokens: int, crash: bool = False) -> dict:
     """Submit the traffic and run the engine to the end, timing each
-    prefill and decode step (host clock between synchronizes).  Returns
-    what the runs are compared on and the times."""
+    prefill and decode step (host clock between synchronizes).  With
+    ``crash`` the HBM pool fails after the first step
+    (``TieredKVCache.fail_tier(1)``), two steps run with it down, and it
+    recovers before the rest.  Returns what the runs are compared on and
+    the times."""
     from repro_torch.serve.engine import Request
     times = {"prefill": [], "decode": []}
     sync = (torch.cuda.synchronize if eng.device.type == "cuda"
@@ -2144,6 +2472,12 @@ def serve_run(eng, traffic, new_tokens: int) -> dict:
                            max_new_tokens=new_tokens))
     sync()
     t0 = time.perf_counter()
+    if crash:
+        eng.step()
+        eng.tiered.fail_tier(1)
+        eng.step()
+        eng.step()
+        eng.tiered.recover_tier(1)
     eng.run(4 * new_tokens)
     sync()
     wall = time.perf_counter() - t0
@@ -2160,6 +2494,9 @@ def serve_run(eng, traffic, new_tokens: int) -> dict:
                        [p.value for p in d.policies2], d.guard)
                       for d in mgr.history],
         "fallbacks": eng.fallbacks, "wall": wall, "times": times,
+        "aborted_restarts": eng.aborted_restarts,
+        "manager_failures": {k: mgr.summary()[k] for k in (
+            "dirty_loss", "tier_failures", "degrade_events")},
         "rebalance_s": rebalance_s, "rebalances": len(mgr.history),
         "prompt_tokens": sum(len(p) for _, p in traffic),
         "pages_written": len(eng.pool.meta),
@@ -2494,6 +2831,44 @@ def serving_phase(dev, max_err: dict) -> list[dict]:
           f"summaries, pool stats and decisions equal; prefill logits within "
           f"{rel_pre:.3g}, last decode logits within {rel_dec:.3g} of max "
           f"|logit| (tolerance 1e-5)")
+
+    # ----- (e) the same, the pool crashing after the first step (11b(c))
+    crashed = {}
+    for where, prm in ((dev, rp), (torch.device("cpu"), _to(rp, "cpu"))):
+        t0 = time.perf_counter()
+        zero_counts()
+        r = serve_run(serve_engine(rcfg, prm, where, **SERVE_REDUCED,
+                                   fault_tolerant=True),
+                      small, SERVE_REDUCED_NEW, crash=True)
+        crashed[where.type] = (r, read_counts(), time.perf_counter() - t0)
+    (g, glaunch, gs), (c, _, cs) = crashed[dev.type], crashed["cpu"]
+    compare_serving("pool crash card vs CPU", g, c)
+    assert g["tokens"] == c["tokens"], "pool crash: tokens differ"
+    assert g["tokens"] == out[dev.type][0]["tokens"], \
+        "pool crash: the restarted requests' tokens differ from the run " \
+        "without the crash"
+    assert g["aborted_restarts"] == c["aborted_restarts"] == len(small)
+    assert g["manager_failures"] == c["manager_failures"]
+    fs = g["summary"]
+    assert (fs["tier_failures"], fs["tiers_down"]) == (1, []) and \
+        fs["dropped_pages"] > 0 and g["manager_failures"]["tier_failures"] == 1
+    # every request prefilled twice: before the crash and after it
+    assert glaunch["flash_attention"] == \
+        (len(small) + g["aborted_restarts"]) * SERVE_REDUCED_LAYERS, glaunch
+    assert glaunch["paged_attention"] > 0
+    row["fault_launches"] = glaunch["paged_attention"]
+    fa_row["fault_launches"] = glaunch["flash_attention"]
+    print(f"check: pool crash after the first step, reduced depth, card "
+          f"({gs:.1f} s) vs CPU ({cs:.1f} s): tokens (equal to the run "
+          f"without the crash), aborted_restarts {g['aborted_restarts']}, "
+          f"summaries (tier_failures {fs['tier_failures']}, dropped_pages "
+          f"{fs['dropped_pages']}, dirty_loss {fs['dirty_loss']}, "
+          f"rerouted_writes {fs['rerouted_writes']}), the manager's "
+          f"{json.dumps(g['manager_failures'])} and decisions equal; "
+          f"flash_attention {glaunch['flash_attention']} launches "
+          f"({len(small)} first prefills and {g['aborted_restarts']} second "
+          f"ones x {SERVE_REDUCED_LAYERS} layers), paged_attention "
+          f"{glaunch['paged_attention']}")
     row["max_abs_err"] = max_err["paged_attention"]
     fa_row["max_abs_err"] = max_err["flash_attention"]
     return [row, fa_row]
@@ -2881,6 +3256,13 @@ def main() -> int:
     launches_sc = scenarios_phase(dev)
     print(f"phase seconds: scenarios {time.perf_counter() - t0:.1f} s")
 
+    # ----------------------- 11b. faults and the degradation ladder
+    t0 = time.perf_counter()
+    fwindows = make_windows(MSR_16, FAULT_WINDOWS)
+    launches_ft = fault_phase(dev, fwindows)
+    del fwindows
+    print(f"phase seconds: faults {time.perf_counter() - t0:.1f} s")
+
     # ------------------------------------ 12. the model layer, zamba2-7b
     t0 = time.perf_counter()
     model_rows = model_phase(dev, max_err)
@@ -3181,6 +3563,12 @@ def main() -> int:
     rows += [urd_row, urd_seed_row]
     rows.extend(model_rows)
     rows.extend(serve_rows)
+    # phase 11b's launches beside each row's own (the pool crash's are
+    # already on the serving rows)
+    for r in rows:
+        r["fault_launches"] = r.get("fault_launches", 0) + \
+            launches_ft[r["name"]]
+    print(f"fault phase launches: {json.dumps(dict(launches_ft))}")
     print(f"cache_sim_scan launches on the 256-tenant path: "
           f"{launches256['cache_sim_scan']}; total run "
           f"{time.perf_counter() - T_START:.1f} s")

@@ -35,10 +35,11 @@ quota vectors and both policy vectors through the pool's quota
 enforcement and the host tier's LRU trim: the Actuator.
 ``rebalance_seconds`` accumulates the wall time spent in that path.
 
-Tier failures (``fail_tier``/``recover_tier``) need the manager's
-degradation ladder and raise ``NotImplementedError`` naming ROADMAP §1
-item 3b; until then no tier is ever down, and ``summary()`` reports the
-failure counters as 0 (the keys the reference reports).
+Tier failures: ``fail_tier(level)`` crashes the HBM pool (1) or the
+managed host tier (2): its residents drop, dirty pages count as
+``dirty_loss``, the manager demotes the level's WB tenants
+(``note_tier_loss``), and traffic re-routes to the next tier until
+``recover_tier``.
 """
 from __future__ import annotations
 
@@ -66,7 +67,6 @@ class TierStats:
     demotions: int = 0              # HBM victims pushed into the host tier
     host_evictions: int = 0         # pages that fell off the managed host
     rerouted_writes: int = 0        # WB admissions sent to host: L1 down
-                                    # (never, until fail_tier is ported)
 
     @property
     def accesses(self) -> int:
@@ -106,6 +106,13 @@ class TieredKVCache:
         self._ev_read = np.empty(cap, bool)
         self._n_ev = 0
         self.rebalance_seconds = 0.0           # Actuator-path wall time
+        # tier-failure state (fail_tier/recover_tier): while a level is in
+        # ``_down`` its residents are gone and traffic re-routes to the
+        # next tier; the manager handles the policy and quota consequences
+        self._down: set[int] = set()
+        self.tier_failures = 0
+        self.dropped_pages = 0                 # residents lost to crashes
+        self.dirty_loss = 0                    # of those, dirty (WB) pages
 
     # ----------------------------------------------------------- app API
     def _addr(self, key: tuple) -> int:
@@ -141,39 +148,47 @@ class TieredKVCache:
         st = self.stats[tenant]
         self._record_event(tenant, self._addr(key), not fresh)
         served = "miss"
+        down1 = 1 in self._down
 
         if fresh:
-            if self.policies[tenant] is WritePolicy.WB:
+            if self.policies[tenant] is WritePolicy.WB and not down1:
                 pid, _ = self.pool.allocate(tenant, key,
                                             quota=self.quotas[tenant],
                                             dirty=True)
                 if pid is not None:
                     st.hbm_writes += 1
                     served = "hbm"
+            elif self.policies[tenant] is WritePolicy.WB:
+                # L1 down: a WB admission re-routes to the next tier (no
+                # HBM write, no dirty page that a second crash could lose)
+                st.rerouted_writes += 1
+                self._host_insert(tenant, key)
+                served = "host"
             else:                               # RO: write-around
                 st.bypassed_writes += 1
                 self._host_insert(tenant, key)
                 served = "host"
         else:
-            pid = self.pool.lookup(key)
+            pid = None if down1 else self.pool.lookup(key)
             if pid is not None:
                 st.hbm_hits += 1
                 served = "hbm"
             elif key in self.host and self._host_materialized(tenant, key):
                 st.host_hits += 1
                 served = "host"
-                # promote on proven reuse (the hierarchy's L2-hit rule)
-                if self.managed_host:
-                    self.host_lru[tenant].pop(key, None)
-                pid, _ = self.pool.allocate(tenant, key,
-                                            quota=self.quotas[tenant],
-                                            dirty=False)
-                if pid is not None:
-                    st.hbm_writes += 1
-                    st.promotions += 1
-                elif self.managed_host:
-                    # promotion refused (quota 0): keep it in host tier
-                    self._host_insert(tenant, key)
+                if not down1:
+                    # promote on proven reuse (the hierarchy's L2-hit rule)
+                    if self.managed_host:
+                        self.host_lru[tenant].pop(key, None)
+                    pid, _ = self.pool.allocate(tenant, key,
+                                                quota=self.quotas[tenant],
+                                                dirty=False)
+                    if pid is not None:
+                        st.hbm_writes += 1
+                        st.promotions += 1
+                    elif self.managed_host:
+                        # promotion refused (quota 0): keep it in host tier
+                        self._host_insert(tenant, key)
             else:
                 st.misses += 1
         if self._n_ev >= self.window_events:
@@ -183,7 +198,7 @@ class TieredKVCache:
     # ------------------------------------------------- managed host tier
     def _host_insert(self, tenant: int, key: tuple) -> None:
         """Admit/refresh a key at the host tier's MRU, enforcing its quota."""
-        if not self.managed_host or tenant < 0:
+        if not self.managed_host or tenant < 0 or 2 in self._down:
             return
         q = self.host_lru[tenant]
         q[key] = None
@@ -202,20 +217,64 @@ class TieredKVCache:
         self._host_insert(meta.tenant, meta.key)
 
     def _host_materialized(self, tenant: int, key: tuple) -> bool:
+        if 2 in self._down:
+            return False
         if not self.managed_host:
             # legacy: host tier retains every page ever computed
             return True
         return key in self.host_lru.get(tenant, ())
 
     # ------------------------------------------------------ tier failures
+    def tier_down(self, level: int) -> bool:
+        return level in self._down
+
     def fail_tier(self, level: int = 1) -> dict:
-        """Crash one tier (the reference's ``tiered.py:224``): not ported."""
-        raise _ladder_not_ported("fail_tier")
+        """Crash one tier: drop every resident page (pins do not survive a
+        device loss), count dirty pages as ``dirty_loss`` and notify the
+        manager (which demotes the level's WB tenants: paper §3's
+        reliability rationale).  Traffic re-routes to the next tier until
+        ``recover_tier``.  The pool's page tensors stay allocated: only
+        their metadata goes.  Returns ``{"dropped": n, "dirty": n}``."""
+        if level in self._down:
+            return {"dropped": 0, "dirty": 0}
+        if level == 1:
+            dropped = len(self.pool.meta)
+            dirty = sum(1 for m in self.pool.meta.values() if m.dirty)
+            # a crash is not an eviction: no demotion into the host tier,
+            # the data is gone
+            self.pool.meta.clear()
+            self.pool.by_key.clear()
+            self.pool.lru.clear()
+            self.pool.free = list(range(self.pool.n_pages - 1, -1, -1))
+        elif level == 2:
+            if not self.managed_host:
+                raise ValueError("tier 2 failure requires a managed host "
+                                 "tier (manager.capacity2 > 0)")
+            dropped = sum(len(q) for q in self.host_lru.values())
+            dirty = 0           # demoted and bypassed pages are recomputable
+            for i in self.host_lru:
+                self.host_lru[i] = OrderedDict()
+        else:
+            raise ValueError(f"unknown tier level {level}")
+        self._down.add(level)
+        self.tier_failures += 1
+        self.dropped_pages += dropped
+        self.dirty_loss += dirty
+        self.manager.note_tier_loss(level, dirty)
+        # the manager demotes the lost level's WB tenants at once
+        for i, t in enumerate(self.manager.tenants):
+            self.policies[i] = t.policy
+        return {"dropped": dropped, "dirty": dirty}
 
     def recover_tier(self, level: int = 1) -> None:
-        """Bring a failed tier back (the reference's ``tiered.py:261``):
-        not ported."""
-        raise _ladder_not_ported("recover_tier")
+        """Bring a failed tier back (empty): traffic returns, and the
+        manager starts the WB demotion cooldown."""
+        if level not in self._down:
+            return
+        self._down.discard(level)
+        self.manager.note_tier_recovery(level)
+        for i, t in enumerate(self.manager.tenants):
+            self.policies[i] = t.policy
 
     def add_tenant(self, name: str = "") -> int:
         """Tenant churn on the serving path: a workload joins mid-run.
@@ -293,6 +352,7 @@ class TieredKVCache:
             tot.bypassed_writes += s.bypassed_writes
             tot.demotions += s.demotions
             tot.host_evictions += s.host_evictions
+            tot.rerouted_writes += s.rerouted_writes
         return {
             "hbm_hit_ratio": tot.hit_ratio,
             "hbm_writes": tot.hbm_writes,
@@ -307,17 +367,9 @@ class TieredKVCache:
             "host_quotas": dict(self.host_quotas),
             "policies": {i: p.value for i, p in self.policies.items()},
             "rebalance_seconds": self.rebalance_seconds,
-            # no tier fails until fail_tier is ported (ROADMAP §1 item 3b)
-            "tier_failures": 0,
-            "dropped_pages": 0,
-            "dirty_loss": 0,
-            "rerouted_writes": 0,
-            "tiers_down": [],
+            "tier_failures": self.tier_failures,
+            "dropped_pages": self.dropped_pages,
+            "dirty_loss": self.dirty_loss,
+            "rerouted_writes": tot.rerouted_writes,
+            "tiers_down": sorted(self._down),
         }
-
-
-def _ladder_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"TieredKVCache.{what} is not ported yet: it drives the manager's "
-        f"note_tier_loss / note_tier_recovery, which come with the "
-        f"degradation ladder (ROADMAP §1 item 3b)")

@@ -9,9 +9,12 @@ from repro_torch.core.characterize import (PhaseDetector, PhaseEvent,
                                            WindowFeatures,
                                            characterize_trace,
                                            characterize_windows)
+from repro_torch.core.faults import (FAULT_KINDS, FaultPlan, FaultSpec,
+                                     InjectedFault)
 from repro_torch.core.guard import GuardReport, validate_decision
-from repro_torch.core.manager import (AnalyzerDecision, ECICacheManager,
-                                      ReconfigEvent, TenantState)
+from repro_torch.core.manager import (AnalyzerDecision, DegradeEvent,
+                                      ECICacheManager, ReconfigEvent,
+                                      TenantState)
 from repro_torch.core.monitor import MonitorResult, analyze_windows
 from repro_torch.core.mrc import (BatchedHitRatioFunctions, HitRatioFunction,
                                   build_hit_ratio_function,
@@ -38,8 +41,9 @@ from repro_torch.core.write_policy import (WritePolicy, assign_write_policy,
 
 __all__ = [
     "AccessClass", "AnalyzerDecision", "BatchedHitRatioFunctions",
-    "ECICacheManager", "GlobalLRUManager", "GuardReport", "HitRatioFunction",
-    "LRUCache", "MonitorResult", "PartitionResult", "PhaseDetector",
+    "DegradeEvent", "ECICacheManager", "FAULT_KINDS", "FaultPlan",
+    "FaultSpec", "GlobalLRUManager", "GuardReport", "HitRatioFunction",
+    "InjectedFault", "LRUCache", "MonitorResult", "PartitionResult", "PhaseDetector",
     "PhaseEvent", "RDResult", "ReconfigEvent", "SCHEMES", "SimResult",
     "StageProfile", "TenantState", "Trace", "TraceError", "WindowFeatures",
     "WritePolicy",

@@ -45,9 +45,12 @@ steps; this module keeps the whole window decision on the device:
 ``DeviceWindowPipeline`` adds the partition stage and the
 double-buffered ``run_stream``; ``greedy_walk_device`` runs the walk for
 ``greedy_allocate(method="device")`` on a curve store padded to a power
-of two per tenant.  The stages run eagerly: a CUDA graph per shape
-bucket is performance work (ROADMAP).  The sharded pipeline (``mesh=``)
-and fault injection (``launch_hook``) are not ported yet.
+of two per tenant.  ``monitor_window_device``'s ``launch_hook`` (fault
+injection: host Python, called after ingest, right before the dispatch,
+never inside the sanitized region) lets the manager's degradation ladder
+kill a device-rung launch.  The stages run eagerly: a CUDA graph per
+shape bucket is performance work (ROADMAP).  The sharded pipeline
+(``mesh=``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -448,12 +451,10 @@ def monitor_window_device(addrs: torch.Tensor, is_read: torch.Tensor,
     Returns ``(curves, urd_sizes, write_ratios, cold_counts)`` on the
     host, bit-identical to the host monitor; one host sync (the fetch).
     ``transfer_sanitize`` runs the dispatch under ``transfer_sanitizer``.
-    ``launch_hook`` (fault injection) is refused until item 3b.
+    ``launch_hook`` (fault injection) is called after ingest, right
+    before the dispatch (and before the trivial result of an all-empty
+    window), outside the sanitized region.
     """
-    if launch_hook is not None:
-        raise NotImplementedError(
-            "fault injection (launch_hook) is not ported yet (ROADMAP: "
-            "modules queue, item 3b, faults and the degradation ladder)")
     dev = resolve_device(device)
     if profile is not None:
         profile.bind(dev)
@@ -462,6 +463,8 @@ def monitor_window_device(addrs: torch.Tensor, is_read: torch.Tensor,
                        kind=kind, profile=profile, device=dev)
     if profile is not None:
         profile.windows += 1
+    if launch_hook is not None:
+        launch_hook()
     if ing is None:
         return _trivial_monitor(
             n, torch.clamp(torch.as_tensor(n_accesses, dtype=_I64), min=1))

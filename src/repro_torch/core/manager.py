@@ -34,33 +34,82 @@ them re-counts the whole span.  Everything runs on the manager's
 ``device`` — the CUDA card unless the caller asks for the CPU.  With
 ``pipeline="device"`` each analyze runs through the device window
 pipeline (``core.device_pipeline``; percentile 100 only, below it the
-host pipeline).  The reference's sharded pipeline (item 4) and its fault
-injection and degradation ladder (item 3b) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+host pipeline).  The reference's sharded pipeline (item 4) raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+
+Failure domains and the degradation ladder
+------------------------------------------
+With a ``FaultPlan`` attached (``faults=``, ``core.faults``) or
+``fault_tolerant=True``, the manager survives control-plane and tier
+failures instead of crashing or actuating garbage.  All of it is off by
+default, and the manager is then the fault-free one bit for bit.
+
+  * **Monitor ladder** (``_monitor_ladder``).  Each analyze walks the
+    rungs ``device -> host -> tenant`` (``host -> tenant`` for
+    ``pipeline="host"``): each non-terminal rung gets ``retry_limit``
+    retries (backoff ``backoff_base * 2**attempt`` seconds, at most 1,
+    0 = none); a failed device rung steps down to the fused host pass
+    (``device_stepdowns``), a failed host rung to per-tenant solo passes
+    on the manager's device (``host_stepdowns``), whose failed tenants
+    are quarantined at their last-known-good size and policy
+    (``tenant_quarantines``).  If every rung fails, the last-known-good
+    decision is re-applied (``lkg_decisions``).  **A rung fails on
+    ``InjectedFault`` only**: a kernel that fails to build or launch, a
+    CUDA error or an out-of-memory error propagates with its traceback,
+    and so does ``TraceError``.  (The reference catches every
+    ``Exception`` there; that would turn a broken kernel into a quiet step
+    down to the host.)
+  * **Decision guard.**  Every decision is validated (``core.guard``).
+    A tolerant manager retries a sampled analyze once exactly
+    (``sampled_exact_retries``; that retry catches nothing) and otherwise
+    quarantines the decision behind the last-known-good allocation
+    (``guard_quarantines``), rolling back the pass's Alg. 3 policy flips;
+    an intolerant one counts the shipped violation
+    (``guard_violations_actuated``).
+  * **Ingest validation.**  A malformed tape raises ``TraceError`` with
+    (tenant, window) coordinates; a tolerant ``run_window`` quarantines
+    the tenant-window instead (an empty tape, held at last-known-good;
+    ``poisoned_windows``).  A straggler's tape is held out of this
+    window's analyze and folded into the next (``straggler_windows``).
+  * **Tier loss and write-policy demotion.**  ``fail_tier(level)`` /
+    ``note_tier_loss`` drop the level's residents, count the lost dirty
+    blocks (``dirty_loss``: the cost the paper's Alg. 3 restricts WB to
+    bound) and demote every WB tenant of that level to ``demote_policy``
+    (default WT) for the outage plus ``demote_cooldown`` analyzes after
+    ``note_tier_recovery``.  While a level is down its budget is 0 and
+    the partitioner is ``greedy_allocate`` (the PGD box projection cannot
+    go below its floors).  A recovered manager matches the fault-free run
+    within ``K = demote_cooldown + 2`` windows of the last fault.
+
+Every degradation is a ``DegradeEvent`` in the shared ``events`` deque
+(beside the ``ReconfigEvent``s) and is counted once in ``summary()``.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Callable
 
 import torch
 
 from repro_torch.core.batch_sim import simulate_many
 from repro_torch.core.characterize import PhaseDetector, characterize_windows
+from repro_torch.core.faults import FaultPlan, InjectedFault
 from repro_torch.core.guard import validate_decision
-from repro_torch.core.monitor import analyze_windows
+from repro_torch.core.monitor import MonitorResult, analyze_windows
 from repro_torch.core.mrc import HitRatioFunction
-from repro_torch.core.partitioner import (PartitionResult, pgd_solve,
-                                          two_level_solve)
+from repro_torch.core.partitioner import (PartitionResult, greedy_allocate,
+                                          pgd_solve, two_level_solve)
 from repro_torch.core.profile import StageProfile, pstage
 from repro_torch.core.simulator import LRUCache, SimResult, simulate
-from repro_torch.core.trace import Trace, validate_trace_arrays
+from repro_torch.core.trace import (Trace, TraceError, validate_trace,
+                                    validate_trace_arrays)
 from repro_torch.core.write_policy import WritePolicy
 from repro_torch.device import resolve_device
 
 __all__ = ["TenantState", "AnalyzerDecision", "ReconfigEvent",
-           "ECICacheManager"]
+           "DegradeEvent", "ECICacheManager"]
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -114,6 +163,28 @@ class ReconfigEvent:
 
 
 @dataclasses.dataclass(frozen=True)
+class DegradeEvent:
+    """One degradation action (fault-tolerance telemetry).
+
+    Lives in the same ``events`` deque as ``ReconfigEvent`` (the same
+    ``window``/``tenant``/``reason`` contract).  reason: "tier_loss" /
+    "tier_recover" (``level``, ``blocks`` = lost dirty blocks),
+    "stepdown" (``rung`` = the rung that failed), "straggler",
+    "poisoned" (a quarantined tenant-window), "tenant_quarantine" (a solo
+    analyze failed), "guard_quarantine", "monitor_outage" (every rung
+    failed: last-known-good).  ``tenant`` is -1 for deployment-wide
+    events.
+    """
+
+    window: int
+    tenant: int
+    reason: str
+    level: int = 0
+    blocks: int = 0
+    rung: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
 class AnalyzerDecision:
     sizes: torch.Tensor                # int64[N] on the host
     policies: list[WritePolicy]
@@ -124,9 +195,20 @@ class AnalyzerDecision:
     policies2: list[WritePolicy] | None = None
     partition2: PartitionResult | None = None
     trigger: tuple[ReconfigEvent, ...] = ()
-    # guard violations detected (non-empty = an actuated violation)
+    # fault tolerance (all defaults on the healthy path): ``quarantined``
+    # marks a last-known-good fallback (sizes are the current
+    # allocations), ``guard`` the guard violations detected (non-empty and
+    # not quarantined = an actuated violation, intolerant managers only),
+    # ``degraded`` the degradation reason, ``held`` tenants kept out of
+    # this analyze (at their current size and policy), ``deferred``
+    # tenants whose window tape the Actuator keeps (stragglers)
+    quarantined: bool = False
     guard: tuple[str, ...] = ()
-    # the monitor's SHARDS rate per analyzed tenant (1.0 = exact)
+    degraded: str = ""
+    held: tuple[int, ...] = ()
+    deferred: tuple[int, ...] = ()
+    # the monitor's SHARDS rate per analyzed tenant (1.0 = exact; None on
+    # a last-known-good fallback)
     sample_rates: torch.Tensor | None = None
 
 
@@ -167,6 +249,13 @@ class ECICacheManager:
     replay's distances) or ``"device"`` (the device window pipeline,
     which recounts; percentile 100 only).  ``history_limit`` bounds the retained
     decisions and events.
+
+    ``faults`` (a ``FaultPlan``) and ``fault_tolerant`` arm the
+    degradation machinery (off by default; the module docstring has the
+    failure model): ``retry_limit`` retries a rung with ``backoff_base *
+    2**attempt`` seconds between (0 = no sleep, at most 1 s); on a tier
+    loss every WB tenant of the level demotes to ``demote_policy``
+    (default WT) for the outage plus ``demote_cooldown`` analyzes.
     """
 
     def __init__(self, capacity: int, tenant_names: list[str],
@@ -191,7 +280,11 @@ class ECICacheManager:
                  auto_sample_tenants: int = 256,
                  phase_detect: bool = False, reconfig_interval: int = 1,
                  pipeline: str = "host",
-                 faults=None, fault_tolerant: bool | None = None,
+                 faults: FaultPlan | None = None,
+                 fault_tolerant: bool | None = None,
+                 retry_limit: int = 2, backoff_base: float = 0.0,
+                 demote_cooldown: int = 2,
+                 demote_policy: WritePolicy | str = WritePolicy.WT,
                  device: str | torch.device | None = None,
                  profile: StageProfile | None = None):
         if engine not in ("batch", "lru"):
@@ -203,10 +296,6 @@ class ECICacheManager:
         if pipeline == "sharded":
             raise _not_ported("pipeline='sharded'",
                               "modules queue, item 4, core/shard_pipeline.py")
-        if faults is not None or fault_tolerant:
-            raise _not_ported("fault injection and the degradation ladder",
-                              "modules queue, item 3b, faults.py and the "
-                              "ladder")
         self.device = resolve_device(device)
         self.profile = (profile.bind(self.device) if profile is not None
                         else None)
@@ -253,11 +342,48 @@ class ECICacheManager:
         self._prev_sets: dict[int, torch.Tensor] = {}  # drift continuity
         self._joined: list[int] = []    # tenants added since last window
         self.reconfig_events = 0        # total events ever (deque is bounded)
-        self.guard_violations_observed = 0
-        self.guard_violations_actuated = 0
         # tenant-windows the batch engine replayed through the interpreter
         # (degenerate two-level windows only)
         self.ro_fallback_windows = 0
+        # ---------------- fault tolerance (see the module docstring) ------
+        # ``faults`` injects; ``fault_tolerant`` arms the ladder, guard
+        # and quarantine machinery (on exactly when a plan is attached,
+        # unless given).  With both off every path above is the
+        # fault-free manager's.
+        self.faults = faults
+        self.fault_tolerant = (faults is not None if fault_tolerant is None
+                               else bool(fault_tolerant))
+        self.retry_limit = max(int(retry_limit), 0)
+        self.backoff_base = float(backoff_base)
+        self.demote_cooldown = max(int(demote_cooldown), 0)
+        self.demote_policy = (WritePolicy(demote_policy)
+                              if isinstance(demote_policy, str)
+                              else demote_policy)
+        self._down_levels: set[int] = set()       # levels currently failed
+        self._tier_restore_at: dict[int, int] = {}  # level -> restore window
+        # (tenant, level) -> analyze count when the demotion expires (None:
+        # the level is still down; the expiry is stamped at recovery)
+        self._demoted_until: dict[tuple[int, int], int | None] = {}
+        self._held: set[int] = set()              # held out of this analyze
+        self._defer_clear: set[int] = set()       # straggler tapes to keep
+        self._cur_window = 0                      # window under analysis
+        self._accumulated: set[int] = set()       # multi-window tapes
+        self._lkg: AnalyzerDecision | None = None
+        # degrade counters (each increments once per event; in summary())
+        self.dirty_loss = 0
+        self.tier_failures = 0
+        self.guard_quarantines = 0
+        self.guard_violations_observed = 0
+        self.guard_violations_actuated = 0
+        self.sharded_stepdowns = 0      # the sharded rung is item 4: stays 0
+        self.device_stepdowns = 0
+        self.host_stepdowns = 0
+        self.tenant_quarantines = 0
+        self.lkg_decisions = 0
+        self.sampled_exact_retries = 0
+        self.poisoned_windows = 0
+        self.straggler_windows = 0
+        self.degrade_events = 0
 
     # ------------------------------------------------------------- Monitor
     def record(self, tenant: int, addrs, is_read) -> None:
@@ -305,11 +431,164 @@ class ECICacheManager:
             return "auto"
         return self.sample_rate
 
-    def _build_decision(self, mon, act: list[int],
+    def _record_degrade(self, ev: DegradeEvent) -> None:
+        self.events.append(ev)
+        self.degrade_events += 1
+
+    def _launch_hook(self, win: int, rung: str, attempt: int):
+        """Fault-injection hook for one monitor launch (None = no plan)."""
+        if self.faults is None or not self.faults.enabled:
+            return None
+
+        def hook() -> None:
+            if self.faults.launch_should_fail(win, rung, attempt):
+                raise InjectedFault(
+                    f"injected {rung} launch failure "
+                    f"(window={win}, attempt={attempt})")
+        return hook
+
+    def _monitor_kwargs(self, act: list[int]) -> dict:
+        return dict(kind=self.rd_kind, percentile=self.percentile,
+                    sample_rate=self.effective_sample_rate(),
+                    window_seed=self.windows_analyzed,
+                    sample_target=self.sample_target,
+                    sample_floor=self.sample_floor, tenant_ids=act,
+                    device=self.device)
+
+    def _per_tenant_monitor(self, act: list[int], traces: list[Trace],
+                            kw: dict, win: int
+                            ) -> tuple[MonitorResult, list[int]]:
+        """The bottom rung: a solo host-pipeline analyze per tenant, so one
+        bad tenant no longer takes the whole deployment's analyze down.
+        A tenant whose launch fails (``InjectedFault``) is quarantined
+        (held at last-known-good)."""
+        curves, urds, wrs, rates, errs, ok = [], [], [], [], [], []
+        for trace, i in zip(traces, act):
+            try:
+                m = analyze_windows([trace], **{**kw, "tenant_ids": [i]},
+                                    pipeline="host",
+                                    fault_hook=self._launch_hook(
+                                        win, "tenant", 0))
+            except InjectedFault:
+                self._held.add(i)
+                self.tenant_quarantines += 1
+                self._record_degrade(
+                    DegradeEvent(win, i, "tenant_quarantine"))
+                continue
+            ok.append(i)
+            curves.append(m.curves[0])
+            urds.append(int(m.urd_sizes[0]))
+            wrs.append(float(m.write_ratios[0]))
+            rates.append(float(m.sample_rates[0]))
+            errs.append(float(m.expected_errors[0]))
+        f64 = dict(dtype=torch.float64, device=self.device)
+        mon = MonitorResult(curves, torch.tensor(urds, dtype=torch.int64,
+                                                 device=self.device),
+                            torch.tensor(wrs, **f64),
+                            torch.tensor(rates, **f64),
+                            torch.tensor(errs, **f64), self.rd_kind)
+        return mon, ok
+
+    def _monitor_ladder(self, act: list[int],
+                        window_trd: dict[int, torch.Tensor]
+                        ) -> tuple[MonitorResult | None, list[int]]:
+        """Run the monitor pass down the degradation ladder.
+
+        Returns ``(result, analyzed tenants)``; ``result`` is None only
+        when every rung failed (a total outage: last-known-good).
+        Without fault tolerance this is the single fused call.  A rung
+        fails on ``InjectedFault`` only; any other error propagates."""
+        rate = self.effective_sample_rate()
+        pipe = self.pipeline if self.percentile >= 100.0 else "host"
+        traces = [self.tenants[i].window_trace() for i in act]
+        # the device pipeline recounts on the device: the replay's
+        # distances go to the host pipeline only, and not for a deferred
+        # (straggler) tape, which spans more than one window
+        pre = ([None if i in self._accumulated else window_trd.get(i)
+                for i in act]
+               if rate is None and pipe == "host" else None)
+        kw = self._monitor_kwargs(act)
+        if not self.fault_tolerant:
+            mon = analyze_windows(traces, precomputed_trd=pre, pipeline=pipe,
+                                  **kw)
+            self.windows_analyzed += 1
+            return mon, act
+        win = self._cur_window
+        attempts = self.retry_limit + 1
+        for rung in (["device"] if pipe == "device" else []) + ["host"]:
+            for attempt in range(attempts):
+                try:
+                    mon = analyze_windows(
+                        traces,
+                        precomputed_trd=(pre if rung == "host" else None),
+                        pipeline=rung,
+                        fault_hook=self._launch_hook(win, rung, attempt),
+                        **kw)
+                    self.windows_analyzed += 1
+                    return mon, act
+                except InjectedFault:
+                    if self.backoff_base > 0 and attempt + 1 < attempts:
+                        time.sleep(min(self.backoff_base * (2 ** attempt),
+                                       1.0))
+            if rung == "device":
+                self.device_stepdowns += 1
+            else:
+                self.host_stepdowns += 1
+            self._record_degrade(DegradeEvent(win, -1, "stepdown",
+                                              rung=rung))
+        # the bottom rung, one attempt: solo passes per tenant
+        mon, ok = self._per_tenant_monitor(act, traces, kw, win)
+        if not ok and act:
+            return None, act       # every solo pass died too: an outage
+        self.windows_analyzed += 1
+        return mon, ok
+
+    def _fallback_decision(self, trigger: tuple[ReconfigEvent, ...],
+                           reason: str,
+                           violations: tuple[str, ...] = ()
+                           ) -> AnalyzerDecision:
+        """Last-known-good: keep every tenant at its current size and
+        policy."""
+        self.lkg_decisions += 1
+        sizes = self.allocated_sizes()
+        sizes2 = self.allocated_sizes2()
+        act = torch.tensor([i for i, t in enumerate(self.tenants)
+                            if t.active], dtype=torch.int64)
+        part = PartitionResult(sizes[act], False, 0.0,
+                               torch.zeros(act.numel(),
+                                           dtype=torch.float64))
+        decision = AnalyzerDecision(
+            sizes, [t.policy for t in self.tenants], False, part,
+            sizes2=sizes2, policies2=[t.policy2 for t in self.tenants],
+            partition2=None, trigger=tuple(trigger), quarantined=True,
+            guard=tuple(violations), degraded=reason,
+            deferred=tuple(sorted(self._defer_clear)))
+        self._record_degrade(DegradeEvent(self._cur_window, -1, reason))
+        self.history.append(decision)
+        return decision
+
+    def _apply_demotions(self) -> None:
+        """Hold the WB tenants of a failed (and recovering) tier on the
+        demoted policy until ``demote_cooldown`` analyzes after
+        recovery."""
+        if not self._demoted_until:
+            return
+        for (i, lv), until in list(self._demoted_until.items()):
+            if until is not None and self.windows_analyzed >= until:
+                del self._demoted_until[(i, lv)]
+                continue
+            t = self.tenants[i]
+            if lv == 1 and t.policy is WritePolicy.WB:
+                t.policy = self.demote_policy
+            elif lv == 2 and t.policy2 is WritePolicy.WB:
+                t.policy2 = self.demote_policy
+
+    def _build_decision(self, mon: MonitorResult, act: list[int],
+                        held: set[int],
                         trigger: tuple[ReconfigEvent, ...]
-                        ) -> tuple[AnalyzerDecision, torch.Tensor]:
-        """Alg. 3 + Eq. 2 over one monitor result.  Returns the decision
-        and the guard floors."""
+                        ) -> tuple[AnalyzerDecision, torch.Tensor, int]:
+        """Alg. 3 + Eq. 2 over one monitor result.  Returns the decision,
+        the guard floors and the partitioned L1 budget."""
         urd = mon.urd_sizes.tolist()
         wrs = mon.write_ratios.tolist()
         for k, i in enumerate(act):
@@ -326,11 +605,28 @@ class ECICacheManager:
                     # clean at a stricter threshold
                     t.policy2 = (WritePolicy.RO if wrs[k] >= self.w_threshold2
                                  else WritePolicy.WB)
+        self._apply_demotions()
+
+        down1 = 1 in self._down_levels
+        down2 = 2 in self._down_levels
+        cap1, cap2 = self.capacity, self.capacity2
+        pfn = self.partition_fn
+        if self.fault_tolerant and (down1 or down2 or held):
+            # held tenants keep their partitions: the rest share the
+            # residual budget; a down level's budget is 0
+            held_sz = sum(int(self.tenants[i].cache.capacity) for i in held)
+            held_sz2 = sum(int(self.tenants[i].cache2.capacity)
+                           for i in held)
+            cap1 = 0 if down1 else max(self.capacity - held_sz, 0)
+            cap2 = 0 if down2 else max(self.capacity2 - held_sz2, 0)
+            if down1 or down2 or cap1 <= 0:
+                # the discrete greedy takes an empty budget exactly (the
+                # PGD box projection cannot go below its floors)
+                pfn = greedy_allocate
         with pstage(self.profile, "pgd"):
             part, part2 = two_level_solve(
-                mon.curves, self.capacity, self.capacity2, self.t_fast,
-                self.t_fast2, self.t_slow, c_min=self.c_min,
-                partition_fn=self.partition_fn)
+                mon.curves, cap1, cap2, self.t_fast, self.t_fast2,
+                self.t_slow, c_min=self.c_min, partition_fn=pfn)
         n_ten = len(self.tenants)
         sizes_full = torch.zeros(n_ten, dtype=torch.int64)
         sizes2_full = torch.zeros(n_ten, dtype=torch.int64)
@@ -341,10 +637,15 @@ class ECICacheManager:
         for i, t in enumerate(self.tenants):
             if not t.active:
                 continue
+            if i in held:
+                sizes_full[i] = t.cache.capacity
+                sizes2_full[i] = t.cache2.capacity
+                continue
             sizes_full[i] = part_sizes[k]
             if part2_sizes is not None:
                 sizes2_full[i] = part2_sizes[k]
-            floors[i] = min(self.c_min, t.urd_size)
+            if not down1:
+                floors[i] = min(self.c_min, t.urd_size)
             k += 1
         decision = AnalyzerDecision(sizes_full,
                                     [t.policy for t in self.tenants],
@@ -354,8 +655,11 @@ class ECICacheManager:
                                                for t in self.tenants],
                                     partition2=part2,
                                     trigger=tuple(trigger),
+                                    held=tuple(sorted(held)),
+                                    deferred=tuple(sorted(
+                                        self._defer_clear & held)),
                                     sample_rates=mon.sample_rates.cpu())
-        return decision, floors
+        return decision, floors, cap1
 
     def analyze(self, window_trd: dict[int, torch.Tensor] | None = None,
                 trigger: tuple[ReconfigEvent, ...] = ()
@@ -368,51 +672,161 @@ class ECICacheManager:
         per-tenant TRD sample tensors the batch engine already counted,
         which the exact path reuses instead of re-counting.  The decision
         is checked by the guard; a violation is recorded on the decision
-        (and counted when actuated).
+        (and counted when actuated).  With fault tolerance the monitor
+        pass walks the degradation ladder and a violating or unobtainable
+        decision degrades to the last-known-good allocation (module
+        docstring).
         """
         window_trd = window_trd or {}
-        rate = self.effective_sample_rate()
-        act = [i for i, t in enumerate(self.tenants) if t.active]
-        pipe = self.pipeline if self.percentile >= 100.0 else "host"
+        held = {i for i in self._held if self.tenants[i].active}
+        act = [i for i, t in enumerate(self.tenants)
+               if t.active and i not in held]
+        # the guard's rollback point: a quarantined decision must not leak
+        # the corrupted pass's Alg. 3 policy flips
+        pol_snap = [(t.policy, t.policy2) for t in self.tenants]
         with pstage(self.profile, "monitor"):
-            # the device pipeline recounts on the device: the replay's
-            # distances go to the host pipeline only
-            mon = analyze_windows(
-                [self.tenants[i].window_trace() for i in act],
-                kind=self.rd_kind, percentile=self.percentile,
-                sample_rate=rate, window_seed=self.windows_analyzed,
-                sample_target=self.sample_target,
-                sample_floor=self.sample_floor,
-                precomputed_trd=(None if rate is not None or pipe != "host"
-                                 else [window_trd.get(i) for i in act]),
-                tenant_ids=act, pipeline=pipe, device=self.device)
-        self.windows_analyzed += 1
-        decision, floors = self._build_decision(mon, act, trigger)
-        report = validate_decision(decision, self.capacity, self.capacity2,
-                                   floors=floors,
-                                   floor_budget=self.capacity)
-        if not report.ok:
-            self.guard_violations_observed += len(report.violations)
-            decision = dataclasses.replace(decision,
-                                           guard=report.violations)
-        self.history.append(decision)
-        return decision
+            mon, act = self._monitor_ladder(act, window_trd)
+        try:
+            if mon is None:
+                return self._fallback_decision(trigger, "monitor_outage")
+            held = {i for i in self._held if self.tenants[i].active}
+            if self.faults is not None:
+                self.faults.corrupt_monitor(mon, act, self._cur_window)
+            decision, floors, budget = self._build_decision(
+                mon, act, held, trigger)
+            report = validate_decision(decision, self.capacity,
+                                       self.capacity2, floors=floors,
+                                       floor_budget=budget)
+            if not report.ok:
+                self.guard_violations_observed += len(report.violations)
+                if self.fault_tolerant:
+                    retried = False
+                    if any(r < 1.0 for r in mon.sample_rates.tolist()):
+                        # a sampled pass can violate by estimation noise:
+                        # retry once exactly before giving up on the
+                        # window (any error here propagates)
+                        self.sampled_exact_retries += 1
+                        retried = True
+                        kw = {**self._monitor_kwargs(act),
+                              "sample_rate": None}
+                        mon2 = analyze_windows(
+                            [self.tenants[i].window_trace() for i in act],
+                            pipeline="host", **kw)
+                        self.windows_analyzed += 1
+                        if self.faults is not None:
+                            self.faults.corrupt_monitor(
+                                mon2, act, self._cur_window)
+                        decision, floors, budget = self._build_decision(
+                            mon2, act, held, trigger)
+                        report = validate_decision(
+                            decision, self.capacity, self.capacity2,
+                            floors=floors, floor_budget=budget)
+                        if not report.ok:
+                            self.guard_violations_observed += \
+                                len(report.violations)
+                    if not report.ok:
+                        self.guard_quarantines += 1
+                        for t, (p, p2) in zip(self.tenants, pol_snap):
+                            t.policy, t.policy2 = p, p2
+                        return self._fallback_decision(
+                            trigger, "guard_quarantine", report.violations)
+                else:
+                    # intolerant: the violation will be actuated; count it
+                    # so garbage never ships silently
+                    decision = dataclasses.replace(
+                        decision, guard=report.violations)
+            if report.ok:
+                self._lkg = decision
+            self.history.append(decision)
+            return decision
+        finally:
+            self._held = set()
+            self._defer_clear = set()
 
     # ------------------------------------------------------------ Actuator
     def actuate(self, decision: AnalyzerDecision) -> None:
-        if decision.guard:
-            # a violating decision is shipped; count it so garbage never
-            # actuates silently
+        if decision.guard and not decision.quarantined:
+            # an intolerant manager ships the violating decision; count it
+            # once so garbage never actuates silently
             self.guard_violations_actuated += 1
         sizes2 = (decision.sizes2 if decision.sizes2 is not None
                   else torch.zeros(len(self.tenants), dtype=torch.int64))
-        for t, size, size2 in zip(self.tenants, decision.sizes.tolist(),
-                                  sizes2.tolist()):
+        defer = set(decision.deferred)
+        for i, (t, size, size2) in enumerate(zip(
+                self.tenants, decision.sizes.tolist(), sizes2.tolist())):
             if t.active:
                 t.cache.resize(int(size))
                 if self.capacity2 > 0 or t.cache2.capacity > 0:
                     t.cache2.resize(int(size2))
-                t.clear_window()
+                if i not in defer:
+                    t.clear_window()
+        # deferred (straggler) tapes now span more than one window: their
+        # single-window distances are invalid at the next analyze
+        self._accumulated = defer
+
+    # ------------------------------------------------- tier failure domain
+    def fail_tier(self, level: int, duration: int | None = None) -> int:
+        """The cache device of hierarchy ``level`` (1 = L1, 2 = L2)
+        crashes: drop every tenant's residents on that level, count the
+        lost dirty blocks (``dirty_loss``) and demote WB tenants (see
+        ``note_tier_loss``).  ``duration`` (trace replay) restores the
+        tier after that many windows; ``None`` waits for
+        ``note_tier_recovery``.  Returns the dirty-block count."""
+        dirty = 0
+        for t in self.tenants:
+            cache = t.cache if level == 1 else t.cache2
+            if len(cache):
+                _, d = cache.state_arrays()
+                if d is not None:
+                    dirty += int(d.sum())
+            cache.resize(0)
+        self.note_tier_loss(level, dirty)
+        if duration is not None:
+            self._tier_restore_at[level] = \
+                self.windows_run + max(int(duration), 1)
+        return dirty
+
+    def note_tier_loss(self, level: int, dirty_blocks: int = 0) -> None:
+        """Register a tier failure (the serving path's ``TieredKVCache``
+        calls this after dropping its own residents).  Marks the level
+        down (its budget is 0 until recovery) and demotes every WB tenant
+        on it to ``demote_policy`` (paper §3: WB's dirty blocks are what
+        a cache-device crash loses)."""
+        self.tier_failures += 1
+        self.dirty_loss += int(dirty_blocks)
+        self._down_levels.add(int(level))
+        for i, t in enumerate(self.tenants):
+            if not t.active:
+                continue
+            pol = t.policy if level == 1 else t.policy2
+            if pol is WritePolicy.WB:
+                # the expiry is stamped at recovery (None: still down)
+                self._demoted_until.setdefault((i, int(level)), None)
+                if level == 1:
+                    t.policy = self.demote_policy
+                else:
+                    t.policy2 = self.demote_policy
+        self._record_degrade(DegradeEvent(
+            self.windows_run, -1, "tier_loss", level=int(level),
+            blocks=int(dirty_blocks)))
+
+    def note_tier_recovery(self, level: int) -> None:
+        """The failed tier is back: restore its budget and start the WB
+        demotion cooldown (``demote_cooldown`` analyzes)."""
+        level = int(level)
+        if level not in self._down_levels:
+            return
+        self._down_levels.discard(level)
+        self._tier_restore_at.pop(level, None)
+        until = self.windows_analyzed + 1 + self.demote_cooldown
+        for key, u in list(self._demoted_until.items()):
+            if key[1] == level and u is None:
+                self._demoted_until[key] = until
+        self._record_degrade(DegradeEvent(
+            self.windows_run, -1, "tier_recover", level=level))
+
+    def tier_is_down(self, level: int) -> bool:
+        return int(level) in self._down_levels
 
     # --------------------------------------------------------- trace replay
     def _accumulate(self, t: TenantState, res: SimResult) -> None:
@@ -440,6 +854,49 @@ class ECICacheManager:
         self.events.extend(events)
         self.reconfig_events += len(events)
 
+    def _fault_preamble(self, traces: list[Trace | None],
+                        win: int) -> list[Trace | None]:
+        """Apply the window's scheduled faults and quarantine bad tapes.
+
+        Runs only on a tolerant (or fault-injected) manager: restores the
+        tiers whose outage expired, injects the plan's tape corruption,
+        tier losses and stragglers, and validates every incoming tape (a
+        malformed one is replaced by an empty tape, its tenant held at
+        last-known-good, instead of raising)."""
+        for lv, at in list(self._tier_restore_at.items()):
+            if win >= at:
+                self.note_tier_recovery(lv)
+        self._held = set()
+        self._defer_clear = set()
+        if self.faults is not None and self.faults.enabled:
+            traces = self.faults.corrupt_traces(traces, win)
+            for spec in self.faults.at(win, "tier_loss"):
+                if spec.level not in self._down_levels:
+                    self.fail_tier(spec.level, duration=spec.duration)
+            for i in sorted(self.faults.stragglers(win)):
+                if 0 <= i < len(traces) and traces[i] is not None \
+                        and self.tenants[i].active:
+                    self._held.add(i)
+                    self._defer_clear.add(i)
+                    self.straggler_windows += 1
+                    self._record_degrade(DegradeEvent(win, i, "straggler"))
+        if self.fault_tolerant:
+            for i, tr in enumerate(traces):
+                if tr is None:
+                    continue
+                try:
+                    validate_trace(tr, tenant=i, window=win)
+                except TraceError:
+                    traces[i] = Trace(
+                        torch.zeros(0, dtype=torch.int64,
+                                    device=self.device),
+                        torch.zeros(0, dtype=torch.bool,
+                                    device=self.device), tr.name)
+                    self._held.add(i)
+                    self.poisoned_windows += 1
+                    self._record_degrade(DegradeEvent(win, i, "poisoned"))
+        return traces
+
     def run_window(self, traces: list[Trace | None]) -> None:
         """Replay one Δt window for every tenant, then analyze + actuate.
 
@@ -449,6 +906,9 @@ class ECICacheManager:
         clock triggers it; the replay half always runs.
         """
         win = self.windows_run
+        self._cur_window = win
+        if self.fault_tolerant or self.faults is not None:
+            traces = self._fault_preamble(list(traces), win)
         events = self._drain_joined(win)
         for i, tr in enumerate(traces):
             if tr is None and self.tenants[i].active:
@@ -556,7 +1016,20 @@ class ECICacheManager:
             "windows_run": self.windows_run,
             "windows_analyzed": self.windows_analyzed,
             "reconfig_events": self.reconfig_events,
-            # decisions that broke a guard invariant (all 0 when healthy)
+            # the degrade telemetry (each counter increments once per
+            # event; all 0 on a healthy fault-free run)
+            "dirty_loss": self.dirty_loss,
+            "tier_failures": self.tier_failures,
+            "guard_quarantines": self.guard_quarantines,
             "guard_violations_observed": self.guard_violations_observed,
             "guard_violations_actuated": self.guard_violations_actuated,
+            "sharded_stepdowns": self.sharded_stepdowns,
+            "device_stepdowns": self.device_stepdowns,
+            "host_stepdowns": self.host_stepdowns,
+            "tenant_quarantines": self.tenant_quarantines,
+            "lkg_decisions": self.lkg_decisions,
+            "sampled_exact_retries": self.sampled_exact_retries,
+            "poisoned_windows": self.poisoned_windows,
+            "straggler_windows": self.straggler_windows,
+            "degrade_events": self.degrade_events,
         }

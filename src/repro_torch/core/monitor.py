@@ -31,8 +31,12 @@ reference's host pipeline bit for bit.
 pipeline (``core.device_pipeline.monitor_window_device``: one sync a
 window, the fetch), on the exact and the sampled branch alike, with the
 same outputs bit for bit; it recounts even where distances were
-precomputed and needs percentile 100.  Not ported yet: the reference's
-sharded window program (``pipeline="sharded"``, ROADMAP item 4).
+precomputed and needs percentile 100.  ``fault_hook`` (fault injection,
+the manager's degradation ladder) is called once at the pipeline's
+dispatch boundary, as in the reference: on the host pipeline right before
+the count, on the device pipeline right before its dispatch.  Not ported
+yet: the reference's sharded window program (``pipeline="sharded"``,
+ROADMAP item 4).
 """
 from __future__ import annotations
 
@@ -105,8 +109,8 @@ def analyze_windows(traces: list[Trace], kind: str = "urd",
                     tenant_ids: list[int] | None = None,
                     pipeline: str = "host",
                     profile: StageProfile | None = None,
-                    device: str | torch.device | None = None
-                    ) -> MonitorResult:
+                    device: str | torch.device | None = None,
+                    fault_hook=None) -> MonitorResult:
     """Analyze every tenant's Δt window in one fused pass (see module doc).
 
     ``precomputed_trd[i]`` (host exact path only) carries tenant i's raw
@@ -119,7 +123,8 @@ def analyze_windows(traces: list[Trace], kind: str = "urd",
     pipeline (percentile 100 only); ``profile`` (a ``StageProfile``)
     records its stage times, host syncs and windows (on the host
     pipeline: the pass as stage ``monitor`` and the window).  Runs on
-    ``device`` (default: the CUDA card).
+    ``device`` (default: the CUDA card).  ``fault_hook`` (fault
+    injection) is called once at the dispatch boundary (module doc).
     """
     if kind not in ("trd", "urd"):
         raise ValueError(f"kind must be 'trd' or 'urd', got {kind!r}")
@@ -142,7 +147,7 @@ def analyze_windows(traces: list[Trace], kind: str = "urd",
             out = analyze_windows(
                 traces, kind, percentile, sample_rate, window_seed,
                 sample_target, sample_floor, precomputed_trd, tenant_ids,
-                device=dev)
+                device=dev, fault_hook=fault_hook)
         profile.windows += 1
         return out
     n = len(traces)
@@ -155,7 +160,7 @@ def analyze_windows(traces: list[Trace], kind: str = "urd",
         ids = list(tenant_ids) if tenant_ids is not None else list(range(n))
         return _sampled(traces, kind, percentile, sample_rate, window_seed,
                         sample_target, sample_floor, ids, lens_l, dev,
-                        pipeline, profile)
+                        pipeline, profile, fault_hook)
     i64 = dict(dtype=torch.int64, device=dev)
     f64 = dict(dtype=torch.float64, device=dev)
     is_read = (torch.cat([t.is_read.to(dev, torch.bool) for t in traces])
@@ -165,10 +170,12 @@ def analyze_windows(traces: list[Trace], kind: str = "urd",
                  if m else torch.zeros(0, **i64))
         curves, urd, wr, _ = monitor_window_device(
             addrs, is_read, bounds, lens_l, kind=kind, profile=profile,
-            device=dev)
+            launch_hook=fault_hook, device=dev)
         return MonitorResult(curves.to(dev), urd.to(dev), wr.to(dev),
                              torch.ones(n, **f64), torch.zeros(n, **f64),
                              kind)
+    if fault_hook is not None:
+        fault_hook()
     lens = torch.tensor(lens_l, **i64)
     tid = torch.repeat_interleave(torch.arange(n, **i64), lens)
 
@@ -243,7 +250,8 @@ def _sampled(traces: list[Trace], kind: str, percentile: float,
              sample_rate: float | str, window_seed: int, sample_target: int,
              sample_floor: int, ids: list[int], lens_l: list[int],
              dev: torch.device, pipeline: str = "host",
-             profile: StageProfile | None = None) -> MonitorResult:
+             profile: StageProfile | None = None,
+             fault_hook=None) -> MonitorResult:
     """The SHARDS branch of ``analyze_windows`` (see module doc)."""
     n = len(traces)
     if sample_rate == "auto":
@@ -266,11 +274,13 @@ def _sampled(traces: list[Trace], kind: str, percentile: float,
             profile.sync()                 # that read, before the ingest
         curves, urd, wr, distinct = monitor_window_device(
             addrs_s, read_s, sb, lens_l, rates=rates_l, kind=kind,
-            profile=profile, device=dev)
+            profile=profile, launch_hook=fault_hook, device=dev)
         curves, urd, wr = curves.to(dev), urd.to(dev), wr.to(dev)
         return MonitorResult(curves, urd, wr, rates,
                              _error_bars(distinct.tolist(), rates_l, dev),
                              kind)
+    if fault_hook is not None:
+        fault_hook()
     tid_s = torch.repeat_interleave(torch.arange(n, **i64), kept)
     prev, nxt_c, _, _ = segment_links(addrs_s, tid_s, sub_bounds[1:][tid_s])
     sd = stack_distances_segments(prev, nxt_c, sb)

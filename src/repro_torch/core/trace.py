@@ -128,6 +128,10 @@ class Trace:
     def __len__(self) -> int:
         return int(self.addrs.shape[0])
 
+    def slice(self, start: int, stop: int) -> "Trace":
+        return Trace(self.addrs[start:stop], self.is_read[start:stop],
+                     self.name)
+
 
 def prev_next_occurrence(addrs: torch.Tensor
                          ) -> tuple[torch.Tensor, torch.Tensor]:

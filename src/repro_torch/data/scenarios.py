@@ -2,9 +2,9 @@
 
 A copy of ``repro.data.scenarios`` for the port: the traces come from the
 port's ``data.traces.generate_trace`` (numpy draws, bit-identical to the
-reference's), laid out as the port's tensor ``Trace``.  The reference's
-fault scenarios (``FaultScenario``, ``faulted_*``) wait for the port of
-``core/faults.py`` and are left out here.
+reference's), laid out as the port's tensor ``Trace``; the fault
+scenarios (``FaultScenario``, ``FAULT_SCENARIOS``) carry the port's
+``core.faults.FaultPlan``.
 
 The trace suite that exercises the *online* half of ECI-Cache: every
 scenario is a sequence of Δt windows per tenant where each tenant moves
@@ -54,13 +54,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.faults import FaultPlan, FaultSpec
 from repro_torch.core.trace import Trace
 from repro_torch.data.traces import WorkloadProfile, generate_trace
 
 __all__ = [
     "Phase", "ScenarioRun", "SCENARIOS",
+    "FaultScenario", "FAULT_SCENARIOS",
     "PH_MIXED", "PH_READ_HOT", "PH_WRITE_BATCH", "PH_BURST", "PH_SCAN",
     "diurnal", "bursty", "churn", "scan_flood", "correlated",
+    "faulted_tier_loss", "faulted_straggler_burst", "faulted_poisoned_join",
     "build_scenario", "replay_scenario", "per_tenant_latency",
 ]
 
@@ -316,6 +319,73 @@ SCENARIOS = {
     "churn": churn,
     "scan_flood": scan_flood,
     "correlated": correlated,
+}
+
+
+# ------------------------------------------------------- fault scenarios
+@dataclasses.dataclass(frozen=True)
+class FaultScenario:
+    """A labeled chaos case: a workload scenario plus the fault schedule
+    to run it under.  ``plan`` tenant indices are *manager* tenant indices
+    (scenario order for window-0 tenants, ``add_tenant`` order for later
+    joiners; see ``replay_scenario``)."""
+
+    name: str
+    run: ScenarioRun
+    plan: FaultPlan
+    description: str = ""
+
+
+def faulted_tier_loss(seed: int = 0) -> FaultScenario:
+    """L1 device loss in the middle of a write-batch phase (diurnal
+    night): dirty WB windows are in flight, so the crash exercises the
+    dirty-loss count, the immediate WB demotion and the cooldown after
+    recovery."""
+    run = diurnal(n_tenants=4, cycles=2, seed=seed)     # 12 windows
+    plan = FaultPlan((
+        FaultSpec("tier_loss", window=4, level=1, duration=2),
+    ), seed=seed)
+    return FaultScenario("faulted_tier_loss", run, plan,
+                         "L1 loss at window 4 for 2 windows, inside the "
+                         "first night phase")
+
+
+def faulted_straggler_burst(seed: int = 0) -> FaultScenario:
+    """Straggler tapes exactly at the correlated phase-change window: the
+    manager must hold the late tenants at last-known-good while
+    re-partitioning everyone else through the spike, then fold the
+    deferred tapes in."""
+    run = correlated(seed=seed)                         # 8 windows, switch@4
+    plan = FaultPlan((
+        FaultSpec("straggler", window=4, tenant=0, duration=2),
+        FaultSpec("straggler", window=4, tenant=2),
+        FaultSpec("pipeline", window=4, rung="host", count=1),
+    ), seed=seed)
+    return FaultScenario("faulted_straggler_burst", run, plan,
+                         "two stragglers plus one launch retry at the "
+                         "correlated switch window")
+
+
+def faulted_poisoned_join(seed: int = 0) -> FaultScenario:
+    """A tenant joins mid-run already emitting corrupt tapes: the ingest
+    validator must quarantine the newcomer (an empty window, held sizing)
+    without disturbing the stable tenants or the same-window joiner."""
+    run = churn(seed=seed)                              # 10 windows
+    # churn's manager layout: stable0-2 -> 0..2, retiree -> 3,
+    # shifter (joins w2) -> 4, joiner (joins w3) -> 5
+    plan = FaultPlan((
+        FaultSpec("poison", window=3, tenant=5, duration=2),
+    ), seed=seed)
+    return FaultScenario("faulted_poisoned_join", run, plan,
+                         "the window-3 joiner's first two tapes are "
+                         "poisoned")
+
+
+#: name -> builder (all deterministic in their ``seed`` kwarg)
+FAULT_SCENARIOS = {
+    "faulted_tier_loss": faulted_tier_loss,
+    "faulted_straggler_burst": faulted_straggler_burst,
+    "faulted_poisoned_join": faulted_poisoned_join,
 }
 
 

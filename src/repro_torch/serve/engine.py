@@ -24,8 +24,11 @@ The ECI manager observes the event stream; every ``window_events`` it
 re-partitions page quotas and write policies across tenants (Actuator =
 ``BlockPool.enforce_quota``).  Pages served from the HBM pool avoid the
 host-tier fetch penalty.  The engine runs on the device of its
-parameters and pool.  The MoE family raises ``NotImplementedError``
-naming ROADMAP §1 item 2.
+parameters and pool.  While the HBM pool is down
+(``TieredKVCache.fail_tier(1)``) ``step`` admits nothing: the in-flight
+requests, whose KV is gone, are aborted and requeued from their prompts
+(``aborted_restarts``), and new work waits for ``recover_tier``.  The MoE
+family raises ``NotImplementedError`` naming ROADMAP §1 item 2.
 """
 from __future__ import annotations
 
@@ -117,6 +120,7 @@ class MultiTenantEngine:
         self.waiting: list[Request] = []
         self._rid = 0
         self.completed: list[Request] = []
+        self.aborted_restarts = 0    # requests restarted after a pool crash
 
     # ------------------------------------------------------------ intake
     def submit(self, req: Request) -> None:
@@ -216,8 +220,30 @@ class MultiTenantEngine:
                     self.pool.unpin(pid)      # reuse), but become evictable
         self.active = [r for r in self.active if not r.done]
 
+    # ----------------------------------------------------- tier failures
+    def _requeue_active(self) -> None:
+        """After an HBM-pool crash every in-flight request's KV is gone:
+        abort them and restart from the prompt (put at the front of
+        ``waiting``, so they are admitted first once the tier recovers)."""
+        for r in self.active:
+            for pid in r.pages:
+                self.pool.unpin(pid)       # a no-op after the crash
+            r.pages = []
+            r.generated = []
+            r.length = 0
+            r.done = False
+            self.aborted_restarts += 1
+        self.waiting[:0] = self.active
+        self.active = []
+
     # -------------------------------------------------------------- loop
     def step(self) -> None:
+        if self.tiered.tier_down(1):
+            # admission control: no prefill or decode against a dead pool;
+            # in-flight work restarts once, new work waits for recovery
+            if self.active:
+                self._requeue_active()
+            return
         while self.waiting:
             self._prefill_one(self.waiting.pop(0))
         self._decode_batch()

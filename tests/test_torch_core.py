@@ -19,6 +19,7 @@ from repro.core import trace as ref_trace
 from repro.core.mrc import build_hit_ratio_functions as build_ref
 from repro.data.traces import msr_trace as msr_trace_ref
 from repro_torch.core import guard, make_manager, monitor, partitioner
+from repro_torch.core.faults import FaultPlan, FaultSpec
 from repro_torch.core import trace as pt_trace
 from repro_torch.core.manager import AnalyzerDecision
 from repro_torch.core.mrc import (BatchedHitRatioFunctions,
@@ -300,16 +301,21 @@ def test_lru_cache_state_and_resize():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(pipeline="sharded", fault_tolerant=True), "pipeline"),
-    (dict(fault_tolerant=True), "fault"),
+    (dict(pipeline="sharded", faults=FaultPlan(
+        (FaultSpec("pipeline", window=1, rung="sharded"),))), "item 4"),
     (dict(pipeline="sharded"), "pipeline"),
 ])
 def test_manager_refuses_knobs_off_the_slice(kw, match):
-    """The sharded pipeline (item 4) and the fault ladder (item 3b) are
-    refused; ``pipeline="device"`` is ported and builds."""
+    """The sharded pipeline (item 4) is refused, with or without faults;
+    ``pipeline="device"`` and the fault ladder (item 3b) are ported and
+    build."""
     with pytest.raises(NotImplementedError, match=match):
         make_manager("eci", 100, NAMES, device="cpu", **kw)
     assert make_manager("eci", 100, NAMES, device="cpu",
                         pipeline="device").pipeline == "device"
+    mgr = make_manager("eci", 100, NAMES, device="cpu", fault_tolerant=True,
+                       pipeline="device")
+    assert mgr.fault_tolerant and mgr.faults is None
 
 
 def test_manager_retire_and_sampling_threshold():

@@ -28,6 +28,7 @@ from repro_torch.core.device_pipeline import (DeviceWindowPipeline,
                                               WindowDecision, ingest_window,
                                               monitor_window_device,
                                               transfer_sanitizer)
+from repro_torch.core.faults import FaultPlan, FaultSpec
 from repro_torch.core.mrc import (BatchedHitRatioFunctions,
                                   HitRatioFunction)
 
@@ -139,6 +140,10 @@ def test_device_pipeline_rejects_percentile():
 
 
 def test_device_pipeline_refuses_mesh_and_launch_hook():
+    """``mesh=`` (item 4) is refused; ``launch_hook`` (item 3b, ported) is
+    called once a window after ingest, before the dispatch and before an
+    all-empty window's trivial result, and a raising hook stops the
+    window."""
     with pytest.raises(NotImplementedError, match="item 4"):
         DeviceWindowPipeline(100, mesh=object(), device=CPU)
     raw = _rand_traces(1)
@@ -146,8 +151,25 @@ def test_device_pipeline_refuses_mesh_and_launch_hook():
     r = torch.as_tensor(np.concatenate([y for _, y in raw]))
     lens = [len(x) for x, _ in raw]
     bounds = np.concatenate([[0], np.cumsum(lens)]).tolist()
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        monitor_window_device(a, r, bounds, lens, launch_hook=lambda: None,
+    calls, prof = [], StageProfile(CPU)
+    got = monitor_window_device(
+        a, r, bounds, lens, profile=prof,
+        launch_hook=lambda: calls.append(prof.windows), device=CPU)
+    want = monitor_window_device(a, r, bounds, lens, device=CPU)
+    assert calls == [1]                     # after ingest's window count
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    assert torch.equal(got[0].heights, want[0].heights)
+    empty = torch.zeros(0, dtype=torch.int64)
+    monitor_window_device(empty, empty.bool(), [0, 0], [0],
+                          launch_hook=lambda: calls.append("empty"),
+                          device=CPU)
+    assert calls == [1, "empty"]
+
+    def dead():
+        raise RuntimeError("launch refused")
+    with pytest.raises(RuntimeError, match="launch refused"):
+        monitor_window_device(a, r, bounds, lens, launch_hook=dead,
                               device=CPU)
 
 
@@ -402,13 +424,23 @@ def test_manager_device_pipeline_sampled_and_percentile():
 
 
 def test_manager_refuses_sharded_and_faults_naming_items():
+    """The sharded pipeline stays refused (item 4), with faults too; the
+    fault ladder (item 3b) is ported and builds under both pipelines."""
     names = ["a", "b"]
+    plan = FaultPlan((FaultSpec("pipeline", window=0, rung="device"),))
     with pytest.raises(NotImplementedError, match="item 4"):
         ECICacheManager(100, names, pipeline="sharded", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        ECICacheManager(100, names, faults=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        ECICacheManager(100, names, fault_tolerant=True, device=CPU)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        ECICacheManager(100, names, pipeline="sharded", faults=plan,
+                        device=CPU)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        ECICacheManager(100, names, pipeline="sharded", fault_tolerant=True,
+                        device=CPU)
+    mgr = ECICacheManager(100, names, pipeline="device", faults=plan,
+                          device=CPU)
+    assert mgr.fault_tolerant and mgr.faults is plan
+    assert ECICacheManager(100, names, fault_tolerant=True,
+                           device=CPU).fault_tolerant
     with pytest.raises(ValueError, match="pipeline"):
         ECICacheManager(100, names, pipeline="tpu", device=CPU)
 

@@ -33,7 +33,9 @@ L2) and through ``simulate_many``; the device window pipeline runs under
 ``transfer_sanitizer`` (a planted sync raises; one sync a window, also in
 ``run_stream``) and equals the CPU bit for bit, as do
 ``analyze_windows(pipeline="device")``, ``greedy_allocate(method=
-"device")`` and the manager under ``pipeline="device"``.
+"device")`` and the manager under ``pipeline="device"``.  The
+degradation ladder steps a dead device rung down to the host rung on the
+card with the CPU's host run's decisions.
 This module imports nothing of JAX, so it runs where JAX is absent.
 """
 import numpy as np
@@ -1319,3 +1321,47 @@ def test_manager_device_pipeline_on_card_matches_host(card):
     for a, b in zip(d.tenants, h.tenants):
         assert a.result == b.result
     assert d.summary() == h.summary()
+
+
+def test_device_rung_stepdown_on_card_matches_cpu_host(card):
+    """The degradation ladder on the card: a dead device rung at window 2
+    steps down to the host rung (one ``device_stepdowns``), beside a tier
+    loss, a straggler and a NaN curve; every decision, per-tenant count,
+    LRU state (dirty bits included) and event equals the same plan's run
+    on the CPU under ``pipeline="host"``, apart from that one step-down."""
+    from repro_torch.core import DegradeEvent, FaultPlan, FaultSpec
+    names = ["wdev_0", "hm_1", "prn_1", "web_0"]
+    plan = FaultPlan((FaultSpec("tier_loss", window=1, level=1),
+                      FaultSpec("pipeline", window=2, rung="device",
+                                count=99),
+                      FaultSpec("straggler", window=2, tenant=1),
+                      FaultSpec("curve_nan", window=3, tenant=2)), seed=0)
+    kw = dict(c_min=10, initial_blocks=40, t_fast=1.0, t_slow=20.0,
+              flush_cost=10.0, faults=plan, demote_cooldown=1)
+    g = make_manager("eci", 400, names, device=card, pipeline="device", **kw)
+    c = make_manager("eci", 400, names, device="cpu", **kw)
+    for w in range(4):
+        traces = [msr_trace(nm, 3000, seed=10 * w + i)
+                  for i, nm in enumerate(names)]
+        g.run_window(traces)
+        c.run_window(traces)
+    for dg, dc in zip(g.history, c.history):
+        assert dg.sizes.tolist() == dc.sizes.tolist()
+        assert dg.policies == dc.policies and dg.feasible == dc.feasible
+        assert (dg.quarantined, dg.degraded, dg.held, dg.deferred,
+                dg.guard) == (dc.quarantined, dc.degraded, dc.held,
+                              dc.deferred, dc.guard)
+    for a, b in zip(g.tenants, c.tenants):
+        assert a.result == b.result
+        assert all(torch.equal(x.cpu(), y)
+                   for x, y in zip(a.cache.state_arrays(),
+                                   b.cache.state_arrays()))
+    extra = [e for e in g.events
+             if isinstance(e, DegradeEvent) and e.rung == "device"]
+    assert [(e.window, e.reason) for e in extra] == [(2, "stepdown")]
+    assert [e for e in g.events if e not in extra] == list(c.events)
+    sg, sc = g.summary(), c.summary()
+    assert (sg.pop("device_stepdowns"), sc.pop("device_stepdowns")) == (1, 0)
+    assert sg.pop("degrade_events") == sc.pop("degrade_events") + 1
+    assert sg == sc
+    assert sc["dirty_loss"] > 0 and sc["guard_quarantines"] == 1

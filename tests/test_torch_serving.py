@@ -496,12 +496,19 @@ def test_stack_distances_and_wb_writes_match_reference(name):
 
 # ------------------------------------------------ what is not ported yet
 def test_tier_failures_and_moe_raise_naming_their_item():
+    """MoE stays refused (item 2); tier failures (item 3b) are ported:
+    the pool crash drops its pages, the manager notes the loss, and the
+    recovery brings the tier back (tests/test_torch_faults.py holds them
+    to the reference)."""
     pool, mgr, tiered = _tiered()
-    for fn in (tiered.fail_tier, tiered.recover_tier):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            fn(1)
+    for k in range(4):
+        tiered.access_page(0, ("t0", k), fresh=True)
+    assert tiered.fail_tier(1) == {"dropped": 4, "dirty": 4}
     s = tiered.summary()
-    assert s["tiers_down"] == [] and s["tier_failures"] == 0
+    assert s["tiers_down"] == [1] and s["tier_failures"] == 1
+    assert s["dirty_loss"] == 4 and mgr.tier_is_down(1)
+    tiered.recover_tier(1)
+    assert tiered.summary()["tiers_down"] == [] and not mgr.tier_is_down(1)
     moe = configs.get_smoke_config("qwen2_moe_a2_7b")
     with pytest.raises(NotImplementedError, match="item 2"):
         MultiTenantEngine(moe, {"embed": torch.zeros(1)}, tiered)
