@@ -69,7 +69,10 @@ Phases:
      ``ro_replay`` stage is printed beside PERF.md section 5's; then the
      same windows through ``pipeline="device"`` on the card, decisions,
      event logs, per-tenant counts and LRU states equal to the host
-     pipeline's run;
+     pipeline's run; then through ``pipeline="sharded"`` on 8 logical
+     shards of the card (the script's stand-in for ``control_plane_mesh``;
+     every shard launching ``cache_sim_segments_scan``), all of it equal to
+     the ``pipeline="device"`` run;
   5. drive the SHARDS path — ``make_manager("eci", 96000, ...)`` over 256
      tenants (the 16 MSR profiles x 16), two windows of 65,536 accesses
      per tenant, which the manager monitors sampled by itself (rate
@@ -114,6 +117,15 @@ Phases:
      one and 9, equal to ``run``; ``greedy_allocate(method="device")`` on
      the fused curves against the heap walk; and the pipeline on the card
      against the CPU at ``synthetic_mix(32, 1000, seed=11)``, bit for bit;
+     then ``DeviceWindowPipeline(mesh=)`` on 1, 2 and 8 logical shards of
+     the card under ``transfer_sanitize=True``, timed in turns with the
+     single-device pipeline: every output bit for bit with it (latency to
+     rel 1e-12), sizes and hit ratios with the heap walk, one sync a
+     window, ``cache_sim_segments_scan`` launched once a width group on
+     every shard (counted); ``run_stream`` over the 8-shard mesh against
+     the single-device pipeline's windows; and each mesh on the card
+     against the same mesh on the CPU and the card's single-device
+     pipeline at ``synthetic_mix(32, 1000, seed=11)``;
  10. the remaining schemes on slice 1's deployment: ``static`` and
      ``reuse_intensity`` (every window launching ``live_count_scan``)
      driven as in phase 4, and ``GlobalLRUManager`` on the card against
@@ -145,7 +157,12 @@ Phases:
      its fingerprint, ``FaultPlan.standard(4, 8)`` reconverging to the
      fault-free run within ``K = demote_cooldown + 2`` windows of the last
      fault, and the disabled plan bit-identical to no plan, each card
-     equal to CPU in every decision and summary;
+     equal to CPU in every decision and summary; (d) slice 1's deployment
+     for 3 windows under ``pipeline="sharded"`` over the default mesh
+     (every card) with a dead sharded rung at window 1, against the same
+     plan under ``pipeline="device"`` on the card: decisions, latencies,
+     per-tenant counts, LRU states, events and summaries equal but the
+     one sharded step-down;
  12. the model layer, zamba2-7b at full width (``model_phase``): bf16
      from seed 0, ``prefill`` on 4 prompts of 2048 tokens (81
      ``mamba2_ssd`` and 13 ``flash_attention`` launches, counted), then 4
@@ -209,8 +226,9 @@ Phases:
      the larger of their bytes and the longest block's rows times one
      dependent L1 hit;
  15. print the kernels line (each row's ``fault_launches``: its launches
-     in phase 11b and the pool crash), the card line and, last, the
-     result line.
+     in phase 11b and the pool crash; ``cache_sim_segments_scan``'s
+     launches include the sharded runs of phases 4 and 9), the card line
+     and, last, the result line.
 
 Exits non-zero, printing no result, when no card is visible or any
 phase fails.
@@ -219,6 +237,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -332,6 +351,12 @@ CP_STREAM_SEEDS = (7, 8, None, 9)
 # the card-against-CPU check of the device pipeline at a small size (the
 # CPU counts each width group with the dense plain segments count)
 DP_SMALL = (32, 1000, 11)
+# the sharded window pipeline on logical shards of the one card: phase 9
+# at each count, the 16-tenant manager (phase 4) at the last; phase 11b's
+# short sharded run: SHARDED_FAULT_WINDOWS windows over the default mesh
+# with a dead sharded rung at SHARDED_FAULT_WINDOW
+SHARD_COUNTS = (1, 2, 8)
+SHARDED_FAULT_WINDOWS, SHARDED_FAULT_WINDOW = 3, 1
 # the fault phase: slice 1's deployment for FAULT_WINDOWS windows under
 # FaultPlan.standard(16, FAULT_WINDOWS, seed=0) plus FAULT_DEVICE_SPECS
 # (window, count) of device-rung launch failures: an in-rung retry, then a
@@ -1275,19 +1300,163 @@ def device_pipeline_phase(dev, traces, capacity: int, fused, heap,
           f"synthetic_mix{DP_SMALL[:2]}, seed {DP_SMALL[2]}, capacity "
           f"{cap_small} (every output bit for bit, latency to rel 1e-12; "
           f"feasible={g.feasible})")
-    return counts["cache_sim_segments_scan"]
+    return counts["cache_sim_segments_scan"], dec, g
+
+
+def same_decision(what: str, got, want, exact_latency: bool = False) -> None:
+    """Two ``WindowDecision``s: every tensor bit for bit, latency to rel
+    1e-12 (or exactly)."""
+    for f in ("sizes", "urd_sizes", "hit_ratios", "write_ratios"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu()), \
+            f"{what}: {f}"
+    for f in ("edges", "heights", "offsets", "n_accesses"):
+        assert torch.equal(getattr(got.curves, f).cpu(),
+                           getattr(want.curves, f).cpu()), f"{what}: {f}"
+    assert got.feasible == want.feasible, f"{what}: feasibility"
+    assert (got.latency == want.latency if exact_latency else
+            abs(got.latency - want.latency) <= 1e-12 * abs(want.latency)), \
+        f"{what}: latency {got.latency} vs {want.latency}"
+
+
+def sharded_pipeline_phase(dev, traces, capacity, single, heap,
+                           small_card) -> int:
+    """Phase 9, third part: the 1024-tenant window through
+    ``DeviceWindowPipeline(mesh=)`` on 1, 2 and 8 logical shards of the
+    card under ``transfer_sanitize=True``, timed in turns with the
+    single-device pipeline in the same loop: every output bit for bit
+    with the single-device decision (latency to rel 1e-12) and sizes and
+    hit ratios with the heap walk, one sync a window, every shard
+    launching ``cache_sim_segments_scan`` once a width group;
+    ``run_stream`` over the 8-shard mesh against the single-device
+    pipeline's windows; and each mesh on the card against the same mesh
+    on the CPU and the card's single-device pipeline at ``DP_SMALL``.
+    Returns the segments launches of the last timed run at each count and
+    of the stream."""
+    from repro_torch.core import StageProfile, Trace
+    from repro_torch.core.device_pipeline import DeviceWindowPipeline
+    from repro_torch.core.shard_pipeline import ingest_window_sharded
+    from repro_torch.data.traces import synthetic_mix
+    from repro_torch.distributed import ShardMesh
+    one = DeviceWindowPipeline(capacity, c_min=CP_C_MIN,
+                               transfer_sanitize=True, device=dev)
+    lens = [len(t) for t in traces]
+    bounds = np.concatenate([[0], np.cumsum(lens)]).tolist()
+    addrs = torch.cat([t.addrs for t in traces])
+    reads = torch.cat([t.is_read for t in traces])
+    launches = 0
+    for k in SHARD_COUNTS:
+        mesh = ShardMesh((dev,) * k)
+        pipe = DeviceWindowPipeline(capacity, c_min=CP_C_MIN,
+                                    transfer_sanitize=True, mesh=mesh)
+        groups = len(ingest_window_sharded(addrs, reads, bounds, lens,
+                                           mesh=mesh).key[0])
+        walls = {"single": [], "sharded": []}
+        for rep in range(4):                 # the first warms the caches
+            for name, p in (("single", one), ("sharded", pipe)):
+                prof = StageProfile(dev)
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                dec = p.run(traces, profile=prof)
+                walls[name].append(time.perf_counter() - t0)
+                counts = read_counts()
+                assert prof.syncs_per_window == 1 and prof.windows == 1, \
+                    prof.report()
+                if name == "single":
+                    stages = prof.times
+        seg = counts["cache_sim_segments_scan"]
+        assert seg == k * groups, (k, groups, counts)
+        launches += seg
+        same_decision(f"{k} shards vs one device", dec, single)
+        assert dec.sizes.tolist() == heap.sizes.tolist(), "sizes vs heap"
+        assert torch.equal(dec.hit_ratios, heap.hit_ratios)
+        print(f"control plane DeviceWindowPipeline(mesh={k} logical "
+              f"shard{'s' if k > 1 else ''} of the card).run "
+              f"(transfer_sanitize=True, CPU traces): "
+              f"{[round(x, 4) for x in walls['sharded']]} s, the "
+              f"single-device pipeline in turn "
+              f"{[round(x, 4) for x in walls['single']]} s (the first run "
+              f"of each warms); sharded stages "
+              f"{json.dumps({k_: round(v, 4) for k_, v in prof.times.items()})}"
+              f", single-device {json.dumps({k_: round(v, 4) for k_, v in stages.items()})}"
+              f"; {groups} width group{'s' if groups > 1 else ''} a shard, "
+              f"cache_sim_segments_scan launches {seg}; launches "
+              f"{json.dumps(counts)}")
+    print(f"check: DeviceWindowPipeline(mesh=) at {SHARD_COUNTS} logical "
+          f"shards == the single-device pipeline (curves, URD sizes, write "
+          f"ratios, sizes, hit ratios bit for bit, latency to rel 1e-12) == "
+          f"heap walk (sizes, hit ratios), one sync a window, every shard "
+          f"launching cache_sim_segments_scan once a width group")
+    empty = [Trace(torch.zeros(0, dtype=torch.int64),
+                   torch.zeros(0, dtype=torch.bool))] * CP_TENANTS
+    wins = [empty if sd is None else synthetic_mix(CP_TENANTS, CP_ACCESSES,
+                                                   seed=sd)
+            for sd in CP_STREAM_SEEDS]
+    pipe = DeviceWindowPipeline(capacity, c_min=CP_C_MIN,
+                                transfer_sanitize=True,
+                                mesh=ShardMesh((dev,) * SHARD_COUNTS[-1]))
+    sprof = StageProfile(dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    stream = pipe.run_stream(wins, profile=sprof)
+    t_stream = time.perf_counter() - t0
+    seg = read_counts()["cache_sim_segments_scan"]
+    launches += seg
+    for k, (a, w) in enumerate(zip(stream, wins)):
+        same_decision(f"sharded stream window {k}", a, one.run(w))
+    assert sprof.syncs == len(wins) - 1 and sprof.windows == len(wins), \
+        sprof.report()
+    print(f"check: run_stream over the {SHARD_COUNTS[-1]}-shard mesh, "
+          f"windows of seeds {CP_STREAM_SEEDS} (None: empty) == the "
+          f"single-device pipeline's run of each, {sprof.syncs} syncs for "
+          f"{sprof.windows} windows; stream {t_stream:.3f} s; "
+          f"cache_sim_segments_scan launches {seg}")
+    small = synthetic_mix(*DP_SMALL[:2], seed=DP_SMALL[2])
+    cap_small = DP_SMALL[0] * CP_C_MIN * 2
+    for k in SHARD_COUNTS:
+        g = DeviceWindowPipeline(cap_small, c_min=CP_C_MIN,
+                                 transfer_sanitize=True,
+                                 mesh=ShardMesh((dev,) * k)).run(small)
+        c = DeviceWindowPipeline(cap_small, c_min=CP_C_MIN,
+                                 mesh=ShardMesh(("cpu",) * k)).run(small)
+        same_decision(f"{k} shards, card vs CPU", g, c)
+        same_decision(f"{k} shards vs the card's single device", g,
+                      small_card)
+    print(f"check: DeviceWindowPipeline(mesh=) card == the same mesh on "
+          f"the CPU == the card's single-device pipeline at "
+          f"synthetic_mix{DP_SMALL[:2]}, seed {DP_SMALL[2]}, at "
+          f"{SHARD_COUNTS} logical shards (every output bit for bit, latency "
+          f"to rel 1e-12)")
+    return launches
+
+
+@contextlib.contextmanager
+def default_mesh(mesh):
+    """``mesh`` (logical shards of the card) as the sharded pipeline's
+    default mesh in place of ``control_plane_mesh``'s (every card), for
+    this script's runs only; the port has no switch for it."""
+    import repro_torch.core.shard_pipeline as sp
+    real = sp.control_plane_mesh
+    sp.control_plane_mesh = lambda n_shards=None, device=None: mesh
+    try:
+        yield
+    finally:
+        sp.control_plane_mesh = real
 
 
 def manager_device_phase(dev, path, windows, names, capacity, host_run,
-                         **kw) -> None:
-    """The manager under ``pipeline="device"`` on the card against the
-    same windows' host-pipeline run on the card: decisions, event logs,
-    per-tenant counts and LRU states equal."""
+                         pipeline="device", against="the host pipeline's",
+                         **kw):
+    """The manager under ``pipeline`` ("device" or "sharded") on the card
+    against another run of the same windows on the card (``against``: the
+    host pipeline's, or the device pipeline's): decisions, event logs,
+    per-tenant counts and LRU states equal.  Returns the run."""
     from repro_torch.core import StageProfile
     gpu, grec = host_run
     t0 = time.perf_counter()
     mgr, rec = run_windows(dev, windows, names, capacity,
-                           profile=StageProfile(dev), pipeline="device", **kw)
+                           profile=StageProfile(dev), pipeline=pipeline, **kw)
     wall = time.perf_counter() - t0
     for w, (dd, dh) in enumerate(zip(mgr.history, gpu.history)):
         assert dd.sizes.tolist() == dh.sizes.tolist(), f"{path} {w}: sizes"
@@ -1300,13 +1469,16 @@ def manager_device_phase(dev, path, windows, names, capacity, host_run,
                        rec["states"][w], grec["states"][w])
     assert [(e.window, e.tenant, e.reason) for e in mgr.events] == \
         [(e.window, e.tenant, e.reason) for e in gpu.events]
-    print(f"check: {path} manager, pipeline=\"device\", {len(windows)} "
-          f"window(s) on the card ({wall:.1f} s; monitor "
+    print(f"check: {path} manager, pipeline=\"{pipeline}\", "
+          f"{len(windows)} window(s) on the card ({wall:.1f} s; monitor "
           f"{[round(x['monitor'], 4) for x in rec['stages']]} s a window, "
-          f"host pipeline "
+          f"{against} "
           f"{[round(x['monitor'], 4) for x in grec['stages'][:len(windows)]]}"
-          f") == the host pipeline's run (decisions, events, per-tenant "
-          f"counts, LRU states)")
+          f"; segments launches "
+          f"{[x['cache_sim_segments_scan'] for x in rec['launches']]}) == "
+          f"{against} run (decisions, events, per-tenant counts, LRU "
+          f"states)")
+    return mgr, rec
 
 
 def table3_phase(dev) -> collections.Counter:
@@ -1348,11 +1520,12 @@ def table3_phase(dev) -> collections.Counter:
     return launches
 
 
-def control_plane_phase(dev) -> tuple[collections.Counter, int]:
+def control_plane_phase(dev) -> tuple[collections.Counter, int, int]:
     """Phase 9: the 1024-tenant control plane, seed and fused rows on the
     card, the heap walk on the CPU, then ``DeviceWindowPipeline``
-    (``device_pipeline_phase``).  Returns the seed row's launches and the
-    device pipeline's segments launches."""
+    (``device_pipeline_phase``) and its sharded twin
+    (``sharded_pipeline_phase``).  Returns the seed row's launches and the
+    device and sharded pipelines' segments launches."""
     from repro_torch.core import (Trace, analyze_windows,
                                   build_hit_ratio_function, greedy_allocate,
                                   urd_cache_blocks, write_ratio)
@@ -1417,10 +1590,14 @@ def control_plane_phase(dev) -> tuple[collections.Counter, int]:
     print(f"check: control plane seed row == fused row == heap walk "
           f"(curves bit for bit, allocations {int(heap.sizes.sum())} blocks"
           f", feasible={heap.feasible}, hit ratios bit for bit)")
-    segments = device_pipeline_phase(dev, traces, capacity,
-                                     rows["fused"][:2], heap,
-                                     rows["fused"][3])
-    return rows["seed"][2], segments
+    segments, single, small_card = device_pipeline_phase(
+        dev, traces, capacity, rows["fused"][:2], heap, rows["fused"][3])
+    t0 = time.perf_counter()
+    sharded = sharded_pipeline_phase(dev, traces, capacity, single, heap,
+                                     small_card)
+    print(f"phase seconds: the sharded pipeline {time.perf_counter() - t0:.1f}"
+          f" s")
+    return rows["seed"][2], segments, sharded
 
 
 def global_lru_phase(dev, windows) -> None:
@@ -1795,10 +1972,66 @@ def bench_faults_phase(dev) -> collections.Counter:
     return launches
 
 
+def sharded_fault_run(dev, fwindows) -> collections.Counter:
+    """Phase 11b(d): slice 1's deployment under ``pipeline="sharded"``
+    over the default mesh (every card) with a dead sharded rung at window
+    ``SHARDED_FAULT_WINDOW``, against the same plan's run under
+    ``pipeline="device"`` on the card (where the sharded spec never
+    fires): decisions, latencies, per-tenant counts, LRU states, events
+    and summaries equal but the one sharded step-down."""
+    from repro_torch.core import (DegradeEvent, FaultPlan, FaultSpec,
+                                  StageProfile)
+    from repro_torch.distributed import control_plane_mesh
+    plan = FaultPlan((FaultSpec("pipeline", window=SHARDED_FAULT_WINDOW,
+                                rung="sharded", count=99),), seed=0)
+    runs, walls = {}, {}
+    for pipe in ("sharded", "device"):
+        t0 = time.perf_counter()
+        runs[pipe] = run_windows(dev, fwindows, MSR_16, 6000,
+                                 profile=StageProfile(dev), pipeline=pipe,
+                                 faults=plan, demote_cooldown=FAULT_COOLDOWN)
+        walls[pipe] = time.perf_counter() - t0
+    (s, srec), (d, drec) = runs["sharded"], runs["device"]
+    launches = collections.Counter()
+    for w, (ds, dd) in enumerate(zip(s.history, d.history)):
+        assert decision_key(ds) == decision_key(dd), f"sharded fault {w}"
+        assert ds.partition.latency == dd.partition.latency
+        compare_counts(w, srec["counts"][w], drec["counts"][w], rel=0.0)
+        compare_states(f"sharded fault window {w}", srec["states"][w],
+                       drec["states"][w])
+        lw = srec["launches"][w]
+        launches.update(lw)
+        assert lw["cache_sim_segments_scan"] > 0, (w, lw)
+        print(f"sharded fault window {w}: {srec['walls'][w]:.3f} s on the "
+              f"card (pipeline=\"device\": {drec['walls'][w]:.3f}), monitor "
+              f"{srec['stages'][w]['monitor']:.4f} s (device "
+              f"{drec['stages'][w]['monitor']:.4f}); launches {json.dumps(lw)}")
+    assert len(s.history) == len(fwindows)
+    extra = [e for e in s.events
+             if isinstance(e, DegradeEvent) and e.rung == "sharded"]
+    assert [(e.window, e.reason) for e in extra] == \
+        [(SHARDED_FAULT_WINDOW, "stepdown")], extra
+    assert [e for e in s.events if e not in extra] == list(d.events)
+    ss, sd = s.summary(), d.summary()
+    assert (ss.pop("sharded_stepdowns"), sd.pop("sharded_stepdowns")) == \
+        (1, 0)
+    assert ss.pop("degrade_events") == sd.pop("degrade_events") + 1
+    same_summaries("sharded fault run", ss, sd)
+    print(f"check: sharded fault run ({len(fwindows)} windows, "
+          f"pipeline=\"sharded\" over the default mesh of "
+          f"{control_plane_mesh(device=dev).size} card(s), the sharded rung "
+          f"dead at window {SHARDED_FAULT_WINDOW}) == the same plan under "
+          f"pipeline=\"device\" (decisions, latencies, per-tenant counts, "
+          f"LRU states, events, summaries) but its one sharded step-down; "
+          f"card {walls['sharded']:.1f} s and {walls['device']:.1f} s")
+    return launches
+
+
 def fault_phase(dev, fwindows) -> collections.Counter:
-    """Phase 11b: (a) and (b); (c) runs in the serving phase."""
+    """Phase 11b: (a), (b) and (d); (c) runs in the serving phase."""
     launches = fault_deployment(dev, fwindows)
     launches.update(bench_faults_phase(dev))
+    launches.update(sharded_fault_run(dev, fwindows[:SHARDED_FAULT_WINDOWS]))
     assert launches["cache_sim_scan"] > 0 and \
         launches["cache_sim_segments_scan"] > 0
     return launches
@@ -3141,10 +3374,25 @@ def main() -> int:
     ro_path_checks("16-tenant", ro16, check, ro_timed)
     del ro16
     t0 = time.perf_counter()
-    manager_device_phase(dev, "16-tenant", windows, MSR_16, 6000, run16)
+    dev16 = manager_device_phase(dev, "16-tenant", windows, MSR_16, 6000,
+                                 run16)
     print(f"phase seconds: the 16-tenant manager under pipeline=\"device\" "
           f"{time.perf_counter() - t0:.1f} s")
     del run16
+    from repro_torch.distributed import ShardMesh
+    t0 = time.perf_counter()
+    with default_mesh(ShardMesh((dev,) * SHARD_COUNTS[-1])):
+        _, rec_sh16 = manager_device_phase(
+            dev, f"16-tenant ({SHARD_COUNTS[-1]} logical shards)", windows,
+            MSR_16, 6000, dev16, pipeline="sharded",
+            against="the device pipeline's")
+    seg_sh16 = [x["cache_sim_segments_scan"] for x in rec_sh16["launches"]]
+    assert all(x > 0 and x % SHARD_COUNTS[-1] == 0 for x in seg_sh16), \
+        seg_sh16
+    segments_sh16 = sum(seg_sh16)
+    print(f"phase seconds: the 16-tenant manager under pipeline="
+          f"\"sharded\" {time.perf_counter() - t0:.1f} s")
+    del dev16, rec_sh16
 
     # ------------------------------------------------ 5. the SHARDS path
     t0 = time.perf_counter()
@@ -3236,7 +3484,7 @@ def main() -> int:
 
     # ------------------------- 9. the thousand-tenant control plane
     t0 = time.perf_counter()
-    launches_cp, segments_dp = control_plane_phase(dev)
+    launches_cp, segments_dp, segments_sh = control_plane_phase(dev)
     print(f"phase seconds: control plane {time.perf_counter() - t0:.1f} s")
 
     # ----------------------------------------- 10. the remaining schemes
@@ -3434,14 +3682,17 @@ def main() -> int:
           f"function's bytes {16 * m / 1e6:.1f} MB)")
     print(f"cache_sim_segments_scan launches: 256-tenant path "
           f"{launches256['cache_sim_segments_scan']}, the control plane's "
-          f"DeviceWindowPipeline.run {segments_dp}")
+          f"DeviceWindowPipeline.run {segments_dp}, its sharded runs "
+          f"(mesh= at {SHARD_COUNTS} logical shards and run_stream) "
+          f"{segments_sh}, the 16-tenant manager under pipeline=\"sharded\" "
+          f"{segments_sh16}")
     rows.append({
         "name": "cache_sim_segments_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/cache_sim/csrc/"
                   "cache_sim_segments.cu",
         "replaces": "src/repro/kernels/cache_sim/kernel.py:136",
         "launches": (launches256["cache_sim_segments_scan"]
-                     + segments_dp),
+                     + segments_dp + segments_sh + segments_sh16),
         "max_abs_err": max_err["cache_sim_segments_scan"],
         "ms": seg_ms, "plain_ms": seg_plain, "bound_ms": bnd,
         "bound_by": bnd_by, "library_ms": None})

@@ -9,6 +9,11 @@ from repro_torch.core.characterize import (PhaseDetector, PhaseEvent,
                                            WindowFeatures,
                                            characterize_trace,
                                            characterize_windows)
+from repro_torch.core.device_pipeline import (DeviceWindowPipeline,
+                                              WindowDecision,
+                                              greedy_walk_device,
+                                              monitor_window_device,
+                                              transfer_sanitizer)
 from repro_torch.core.faults import (FAULT_KINDS, FaultPlan, FaultSpec,
                                      InjectedFault)
 from repro_torch.core.guard import GuardReport, validate_decision
@@ -41,23 +46,26 @@ from repro_torch.core.write_policy import (WritePolicy, assign_write_policy,
 
 __all__ = [
     "AccessClass", "AnalyzerDecision", "BatchedHitRatioFunctions",
-    "DegradeEvent", "ECICacheManager", "FAULT_KINDS", "FaultPlan",
-    "FaultSpec", "GlobalLRUManager", "GuardReport", "HitRatioFunction",
-    "InjectedFault", "LRUCache", "MonitorResult", "PartitionResult", "PhaseDetector",
-    "PhaseEvent", "RDResult", "ReconfigEvent", "SCHEMES", "SimResult",
-    "StageProfile", "TenantState", "Trace", "TraceError", "WindowFeatures",
-    "WritePolicy",
+    "DegradeEvent", "DeviceWindowPipeline", "ECICacheManager",
+    "FAULT_KINDS", "FaultPlan", "FaultSpec", "GlobalLRUManager",
+    "GuardReport", "HitRatioFunction", "InjectedFault", "LRUCache",
+    "MonitorResult", "PartitionResult", "PhaseDetector", "PhaseEvent",
+    "RDResult", "ReconfigEvent", "SCHEMES", "SimResult", "StageProfile",
+    "TenantState", "Trace", "TraceError", "WindowDecision",
+    "WindowFeatures", "WritePolicy",
     "aggregate_latency", "analyze_windows", "assign_write_policy",
     "assign_write_policy_levels", "auto_sample_rate",
     "build_hit_ratio_function", "build_hit_ratio_functions",
     "characterize_trace", "characterize_windows", "classify_accesses",
-    "greedy_allocate", "make_manager", "max_rd", "padded_segment_layout",
+    "greedy_allocate", "greedy_walk_device", "make_manager", "max_rd",
+    "monitor_window_device", "padded_segment_layout",
     "padded_tape_links", "pgd_solve", "prev_next_occurrence",
     "rebalance_levels", "request_type_mix", "reuse_distances",
     "reuse_distances_fast", "reuse_distances_vectorized",
     "sampled_reuse_distances", "segment_links", "shards_keep_mask",
     "shards_salt", "simulate", "simulate_batch", "simulate_many",
-    "stack_distances", "total_cache_writes_wb", "two_level_solve",
+    "stack_distances", "total_cache_writes_wb", "transfer_sanitizer",
+    "two_level_solve",
     "urd_cache_blocks", "validate_decision", "validate_trace",
     "validate_trace_arrays", "write_ratio",
 ]

@@ -49,8 +49,9 @@ of two per tenant.  ``monitor_window_device``'s ``launch_hook`` (fault
 injection: host Python, called after ingest, right before the dispatch,
 never inside the sanitized region) lets the manager's degradation ladder
 kill a device-rung launch.  The stages run eagerly: a CUDA graph per
-shape bucket is performance work (ROADMAP).  The sharded pipeline
-(``mesh=``) is not ported yet.
+shape bucket is performance work (ROADMAP).  ``DeviceWindowPipeline(
+mesh=...)`` runs the same stages per shard over a ``ShardMesh``
+(``core.shard_pipeline``).
 """
 from __future__ import annotations
 
@@ -70,7 +71,8 @@ from repro_torch.kernels.cache_sim.ops import (segment_counts_device,
 __all__ = ["DeviceWindowPipeline", "StageProfile", "WindowDecision",
            "WindowIngest", "count_stage", "curve_stage", "eval_at",
            "greedy_walk_device", "ingest_window", "monitor_window_device",
-           "partition_stage", "transfer_sanitizer", "walk", "wr_stage"]
+           "partition_stage", "transfer_sanitizer", "walk", "write_counts",
+           "wr_stage"]
 
 _I64, _F64 = torch.int64, torch.float64
 _SENT = 1 << 62                 # above every real sample + 1
@@ -285,13 +287,17 @@ def curve_stage(ing: WindowIngest, dist: torch.Tensor
     return edges_p, hgt_p, kcnt, urd
 
 
-def wr_stage(ing: WindowIngest, dist: torch.Tensor) -> torch.Tensor:
-    """Alg. 3 write ratios: write re-touches over the (kept) accesses."""
+def write_counts(ing: WindowIngest, dist: torch.Tensor) -> torch.Tensor:
+    """Write re-touches per tenant (int64)."""
     d = ing.dev
     wflag = ((dist >= 0) & ~d["gread"]).to(_I64)
-    wcnt = torch.zeros(ing.n, dtype=_I64, device=dist.device).index_add_(
+    return torch.zeros(ing.n, dtype=_I64, device=dist.device).index_add_(
         0, d["gtid"], wflag)
-    return wcnt.to(_F64) / d["wr_den"].to(_F64)
+
+
+def wr_stage(ing: WindowIngest, dist: torch.Tensor) -> torch.Tensor:
+    """Alg. 3 write ratios: write re-touches over the (kept) accesses."""
+    return write_counts(ing, dist).to(_F64) / ing.dev["wr_den"].to(_F64)
 
 
 def eval_at(edges_p, hgt_p, kcnt, gtid, grank, row_start,
@@ -503,19 +509,20 @@ class DeviceWindowPipeline:
     ``run_stream(windows)`` queues window t+1's ingest and dispatch
     before window t's fetch.  ``device`` defaults to the card.
     ``transfer_sanitize`` (off by default; the same decisions when on)
-    runs every dispatch under ``transfer_sanitizer``.  ``mesh`` (the
-    sharded pipeline) is refused until item 4.
+    runs every dispatch under ``transfer_sanitizer``.  A ``mesh`` (a
+    ``ShardMesh``) routes every window through the sharded pipeline
+    (``core.shard_pipeline``: each shard's stages on its device, the
+    budget cut on the mesh's first device, which is then ``device``), with
+    the same decisions bit for bit and one sync a window per mesh.
     """
 
     def __init__(self, capacity: int, t_fast: float = 1.0,
                  t_slow: float = 20.0, c_min: int = 0, kind: str = "urd",
                  weights=None, transfer_sanitize: bool = False, mesh=None,
                  device: str | torch.device | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded window pipeline (mesh=) is not ported yet "
-                "(ROADMAP: modules queue, item 4, core/shard_pipeline.py)")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.devices[0] if mesh is not None
+                       else resolve_device(device))
         self.capacity = int(capacity)
         self.t_fast, self.t_slow = float(t_fast), float(t_slow)
         self.c_min = int(c_min)
@@ -541,14 +548,26 @@ class DeviceWindowPipeline:
         else:
             addrs = torch.zeros(0, dtype=_I64)
             is_read = torch.zeros(0, dtype=torch.bool)
-        ing = ingest_window(addrs, is_read, bounds, lens, kind=self.kind,
-                            profile=profile, device=self.device)
+        if self.mesh is not None:
+            from repro_torch.core.shard_pipeline import ingest_window_sharded
+            ing = ingest_window_sharded(addrs, is_read, bounds, lens,
+                                        mesh=self.mesh, kind=self.kind,
+                                        profile=profile)
+        else:
+            ing = ingest_window(addrs, is_read, bounds, lens, kind=self.kind,
+                                profile=profile, device=self.device)
         return ing, len(traces), torch.clamp(torch.tensor(lens, dtype=_I64),
                                              min=1)
 
     def _dispatch(self, ing: WindowIngest,
                   profile: StageProfile | None = None) -> tuple:
         dev, san = ing.device, self.transfer_sanitize
+        if self.mesh is not None:
+            from repro_torch.core.shard_pipeline import \
+                dispatch_decision_sharded
+            return dispatch_decision_sharded(
+                ing, self.capacity, self.c_min, self._host_weights(ing.n),
+                self.t_fast, self.t_slow, profile, san)
         # the weights cross before the sanitized region
         w_t = to_device(self._host_weights(ing.n), dev)
         part_args = (self.capacity, self.c_min, w_t, self.t_fast,

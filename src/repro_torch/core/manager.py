@@ -34,8 +34,9 @@ them re-counts the whole span.  Everything runs on the manager's
 ``device`` — the CUDA card unless the caller asks for the CPU.  With
 ``pipeline="device"`` each analyze runs through the device window
 pipeline (``core.device_pipeline``; percentile 100 only, below it the
-host pipeline).  The reference's sharded pipeline (item 4) raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+host pipeline); with ``pipeline="sharded"`` through the sharded window
+pipeline over the default shard mesh (``core.shard_pipeline``, the
+manager's device's ``control_plane_mesh``), with the same decisions.
 
 Failure domains and the degradation ladder
 ------------------------------------------
@@ -45,10 +46,14 @@ failures instead of crashing or actuating garbage.  All of it is off by
 default, and the manager is then the fault-free one bit for bit.
 
   * **Monitor ladder** (``_monitor_ladder``).  Each analyze walks the
-    rungs ``device -> host -> tenant`` (``host -> tenant`` for
-    ``pipeline="host"``): each non-terminal rung gets ``retry_limit``
-    retries (backoff ``backoff_base * 2**attempt`` seconds, at most 1,
-    0 = none); a failed device rung steps down to the fused host pass
+    rungs ``sharded -> device -> host -> tenant`` from the manager's
+    ``pipeline`` down (``device -> host -> tenant`` for
+    ``pipeline="device"``, ``host -> tenant`` for ``"host"``): each
+    non-terminal rung gets ``retry_limit`` retries (backoff
+    ``backoff_base * 2**attempt`` seconds, at most 1, 0 = none); a failed
+    sharded rung (a shard's launch failure kills the whole window's mesh
+    program) steps down to the single-device pipeline
+    (``sharded_stepdowns``), a failed device rung to the fused host pass
     (``device_stepdowns``), a failed host rung to per-tenant solo passes
     on the manager's device (``host_stepdowns``), whose failed tenants
     are quarantined at their last-known-good size and policy
@@ -110,10 +115,6 @@ from repro_torch.device import resolve_device
 
 __all__ = ["TenantState", "AnalyzerDecision", "ReconfigEvent",
            "DegradeEvent", "ECICacheManager"]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
 
 
 @dataclasses.dataclass
@@ -246,9 +247,10 @@ class ECICacheManager:
     of each window: ``tape``, ``ro_replay``, ``count``, ``replay``,
     ``monitor`` and ``pgd`` (the manager binds it to its ``device``).
     ``pipeline`` is ``"host"`` (the fused host monitor, reusing the
-    replay's distances) or ``"device"`` (the device window pipeline,
-    which recounts; percentile 100 only).  ``history_limit`` bounds the retained
-    decisions and events.
+    replay's distances), ``"device"`` (the device window pipeline, which
+    recounts; percentile 100 only) or ``"sharded"`` (the same over the
+    default shard mesh of ``device``).  ``history_limit`` bounds the
+    retained decisions and events.
 
     ``faults`` (a ``FaultPlan``) and ``fault_tolerant`` arm the
     degradation machinery (off by default; the module docstring has the
@@ -293,15 +295,12 @@ class ECICacheManager:
         if pipeline not in ("host", "device", "sharded"):
             raise ValueError(f"pipeline must be 'host', 'device' or "
                              f"'sharded', got {pipeline!r}")
-        if pipeline == "sharded":
-            raise _not_ported("pipeline='sharded'",
-                              "modules queue, item 4, core/shard_pipeline.py")
         self.device = resolve_device(device)
         self.profile = (profile.bind(self.device) if profile is not None
                         else None)
         # "device" analyzes each window through the device window
-        # pipeline (one host sync a window); the host pipeline serves
-        # percentiles below 100
+        # pipeline (one host sync a window), "sharded" through its mesh
+        # twin; the host pipeline serves percentiles below 100
         self.pipeline = pipeline
         self.capacity = int(capacity)
         self.capacity2 = int(capacity2)
@@ -375,7 +374,7 @@ class ECICacheManager:
         self.guard_quarantines = 0
         self.guard_violations_observed = 0
         self.guard_violations_actuated = 0
-        self.sharded_stepdowns = 0      # the sharded rung is item 4: stays 0
+        self.sharded_stepdowns = 0
         self.device_stepdowns = 0
         self.host_stepdowns = 0
         self.tenant_quarantines = 0
@@ -501,7 +500,7 @@ class ECICacheManager:
         rate = self.effective_sample_rate()
         pipe = self.pipeline if self.percentile >= 100.0 else "host"
         traces = [self.tenants[i].window_trace() for i in act]
-        # the device pipeline recounts on the device: the replay's
+        # the device pipelines recount on the device: the replay's
         # distances go to the host pipeline only, and not for a deferred
         # (straggler) tape, which spans more than one window
         pre = ([None if i in self._accumulated else window_trd.get(i)
@@ -515,7 +514,9 @@ class ECICacheManager:
             return mon, act
         win = self._cur_window
         attempts = self.retry_limit + 1
-        for rung in (["device"] if pipe == "device" else []) + ["host"]:
+        rungs = {"sharded": ["sharded", "device"],
+                 "device": ["device"]}.get(pipe, []) + ["host"]
+        for rung in rungs:
             for attempt in range(attempts):
                 try:
                     mon = analyze_windows(
@@ -530,7 +531,9 @@ class ECICacheManager:
                     if self.backoff_base > 0 and attempt + 1 < attempts:
                         time.sleep(min(self.backoff_base * (2 ** attempt),
                                        1.0))
-            if rung == "device":
+            if rung == "sharded":
+                self.sharded_stepdowns += 1
+            elif rung == "device":
                 self.device_stepdowns += 1
             else:
                 self.host_stepdowns += 1

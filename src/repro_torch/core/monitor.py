@@ -31,12 +31,13 @@ reference's host pipeline bit for bit.
 pipeline (``core.device_pipeline.monitor_window_device``: one sync a
 window, the fetch), on the exact and the sampled branch alike, with the
 same outputs bit for bit; it recounts even where distances were
-precomputed and needs percentile 100.  ``fault_hook`` (fault injection,
-the manager's degradation ladder) is called once at the pipeline's
-dispatch boundary, as in the reference: on the host pipeline right before
-the count, on the device pipeline right before its dispatch.  Not ported
-yet: the reference's sharded window program (``pipeline="sharded"``,
-ROADMAP item 4).
+precomputed and needs percentile 100.  ``pipeline="sharded"`` does the
+same across the default shard mesh (``core.shard_pipeline.
+monitor_window_sharded`` over ``control_plane_mesh(device=device)``: one
+sync a window per mesh).  ``fault_hook`` (fault injection, the manager's
+degradation ladder) is called once at the pipeline's dispatch boundary,
+as in the reference: on the host pipeline right before the count, on the
+device and sharded pipelines right before their dispatch.
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ from repro_torch.core.mrc import (BatchedHitRatioFunctions,
 from repro_torch.core.profile import StageProfile
 from repro_torch.core.reuse_distance import (auto_sample_rate, shards_hash,
                                              shards_salt, shards_threshold)
+from repro_torch.core.shard_pipeline import monitor_window_sharded
 from repro_torch.core.trace import Trace
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cache_sim.ops import (stack_distances,
@@ -81,6 +83,14 @@ class MonitorResult:
     sample_rates: torch.Tensor
     expected_errors: torch.Tensor
     kind: str
+
+
+def _window_pipeline(pipeline: str):
+    """The window pipeline behind ``pipeline="device"`` or ``"sharded"``
+    (one signature; the sharded one over the default mesh on ``device``),
+    looked up when called."""
+    return (monitor_window_device if pipeline == "device"
+            else monitor_window_sharded)
 
 
 def _urd_sizes(dist: torch.Tensor, n_tenants: int, bounds: list[int],
@@ -120,7 +130,8 @@ def analyze_windows(traces: list[Trace], kind: str = "urd",
     ``tenant_ids`` (default: positions) pick each tenant's salt, and
     ``sample_target``/``sample_floor`` tune ``"auto"``.
     ``pipeline="device"`` runs the window through the device window
-    pipeline (percentile 100 only); ``profile`` (a ``StageProfile``)
+    pipeline and ``pipeline="sharded"`` through the sharded one over the
+    default mesh (percentile 100 only); ``profile`` (a ``StageProfile``)
     records its stage times, host syncs and windows (on the host
     pipeline: the pass as stage ``monitor`` and the window).  Runs on
     ``device`` (default: the CUDA card).  ``fault_hook`` (fault
@@ -131,10 +142,6 @@ def analyze_windows(traces: list[Trace], kind: str = "urd",
     if pipeline not in ("host", "device", "sharded"):
         raise ValueError(f"pipeline must be 'host', 'device' or 'sharded', "
                          f"got {pipeline!r}")
-    if pipeline == "sharded":
-        raise NotImplementedError(
-            "pipeline='sharded' is not ported yet (ROADMAP: modules queue, "
-            "item 4, core/shard_pipeline.py)")
     if pipeline != "host" and percentile < 100.0:
         raise ValueError(f"pipeline={pipeline!r} computes URD sizes from "
                          "the curve store (percentile=100); use the host "
@@ -165,10 +172,10 @@ def analyze_windows(traces: list[Trace], kind: str = "urd",
     f64 = dict(dtype=torch.float64, device=dev)
     is_read = (torch.cat([t.is_read.to(dev, torch.bool) for t in traces])
                if m else torch.zeros(0, dtype=torch.bool, device=dev))
-    if pipeline == "device":
+    if pipeline != "host":
         addrs = (torch.cat([t.addrs.to(dev, torch.int64) for t in traces])
                  if m else torch.zeros(0, **i64))
-        curves, urd, wr, _ = monitor_window_device(
+        curves, urd, wr, _ = _window_pipeline(pipeline)(
             addrs, is_read, bounds, lens_l, kind=kind, profile=profile,
             launch_hook=fault_hook, device=dev)
         return MonitorResult(curves.to(dev), urd.to(dev), wr.to(dev),
@@ -269,10 +276,10 @@ def _sampled(traces: list[Trace], kind: str, percentile: float,
     i64 = dict(dtype=torch.int64, device=dev)
     sub_bounds = torch.cat([torch.zeros(1, **i64), torch.cumsum(kept, 0)])
     sb = sub_bounds.cpu()                  # the kept lengths, on the host
-    if pipeline == "device":
+    if pipeline != "host":
         if profile is not None and dev.type == "cuda":
             profile.sync()                 # that read, before the ingest
-        curves, urd, wr, distinct = monitor_window_device(
+        curves, urd, wr, distinct = _window_pipeline(pipeline)(
             addrs_s, read_s, sb, lens_l, rates=rates_l, kind=kind,
             profile=profile, launch_hook=fault_hook, device=dev)
         curves, urd, wr = curves.to(dev), urd.to(dev), wr.to(dev)

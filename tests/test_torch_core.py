@@ -4,8 +4,8 @@ Each ported module is fed the same numpy-seeded inputs as its reference
 counterpart: trace classification, curves (``mrc``), the monitor
 (precomputed and recounted distances), the PGD partitioner (its float32
 relaxed optimum bit for bit against the reference's jitted loop), the
-guard, the LRU state, the manager's refusal of knobs that leave the
-ported slice, and its switch to SHARDS sampling.
+guard, the LRU state, the manager's options (the sharded pipeline with
+and without faults), and its switch to SHARDS sampling.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -299,23 +299,27 @@ def test_lru_cache_state_and_resize():
     assert c.resize(10).numel() == 0 and c.capacity == 10
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(pipeline="sharded", fault_tolerant=True), "pipeline"),
+@pytest.mark.parametrize("kw,tolerant", [
+    (dict(pipeline="sharded", fault_tolerant=True), True),
     (dict(pipeline="sharded", faults=FaultPlan(
-        (FaultSpec("pipeline", window=1, rung="sharded"),))), "item 4"),
-    (dict(pipeline="sharded"), "pipeline"),
+        (FaultSpec("pipeline", window=1, rung="sharded"),))), True),
+    (dict(pipeline="sharded"), False),
 ])
-def test_manager_refuses_knobs_off_the_slice(kw, match):
-    """The sharded pipeline (item 4) is refused, with or without faults;
-    ``pipeline="device"`` and the fault ladder (item 3b) are ported and
-    build."""
-    with pytest.raises(NotImplementedError, match=match):
-        make_manager("eci", 100, NAMES, device="cpu", **kw)
+def test_manager_refuses_knobs_off_the_slice(kw, tolerant):
+    """The sharded pipeline (ported) builds with or without faults and
+    keeps its options; so do ``pipeline="device"`` and the fault ladder;
+    an unknown pipeline is refused."""
+    mgr = make_manager("eci", 100, NAMES, device="cpu", **kw)
+    assert mgr.pipeline == "sharded" and mgr.fault_tolerant == tolerant
+    assert mgr.faults is kw.get("faults")
     assert make_manager("eci", 100, NAMES, device="cpu",
                         pipeline="device").pipeline == "device"
     mgr = make_manager("eci", 100, NAMES, device="cpu", fault_tolerant=True,
                        pipeline="device")
     assert mgr.fault_tolerant and mgr.faults is None
+    with pytest.raises(ValueError, match="pipeline"):
+        make_manager("eci", 100, NAMES, device="cpu", pipeline="tpu", **{
+            k: v for k, v in kw.items() if k != "pipeline"})
 
 
 def test_manager_retire_and_sampling_threshold():

@@ -31,6 +31,7 @@ from repro_torch.core.device_pipeline import (DeviceWindowPipeline,
 from repro_torch.core.faults import FaultPlan, FaultSpec
 from repro_torch.core.mrc import (BatchedHitRatioFunctions,
                                   HitRatioFunction)
+from repro_torch.distributed import ShardMesh
 
 CPU = "cpu"
 
@@ -131,21 +132,26 @@ def test_device_pipeline_rejects_percentile():
     with pytest.raises(ValueError, match="percentile"):
         analyze_windows(_port(_rand_traces(0)), "urd", percentile=90.0,
                         pipeline="device", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        analyze_windows(_port(_rand_traces(0)), "urd", pipeline="sharded",
-                        device=CPU)
+    with pytest.raises(ValueError, match="percentile"):
+        analyze_windows(_port(_rand_traces(0)), "urd", percentile=90.0,
+                        pipeline="sharded", device=CPU)
     with pytest.raises(ValueError, match="pipeline"):
         analyze_windows(_port(_rand_traces(0)), "urd", pipeline="tpu",
                         device=CPU)
 
 
 def test_device_pipeline_refuses_mesh_and_launch_hook():
-    """``mesh=`` (item 4) is refused; ``launch_hook`` (item 3b, ported) is
-    called once a window after ingest, before the dispatch and before an
-    all-empty window's trivial result, and a raising hook stops the
+    """``mesh=`` (the sharded pipeline, ported) builds and runs on the
+    mesh's first device with the single-device decision; ``launch_hook``
+    is called once a window after ingest, before the dispatch and before
+    an all-empty window's trivial result, and a raising hook stops the
     window."""
-    with pytest.raises(NotImplementedError, match="item 4"):
-        DeviceWindowPipeline(100, mesh=object(), device=CPU)
+    mesh = ShardMesh((CPU, CPU))
+    pipe = DeviceWindowPipeline(100, mesh=mesh)
+    assert pipe.mesh is mesh and pipe.device == torch.device(CPU)
+    _eq(pipe.run(_port(_rand_traces(2))).sizes,
+        DeviceWindowPipeline(100, device=CPU).run(
+            _port(_rand_traces(2))).sizes)
     raw = _rand_traces(1)
     a = torch.as_tensor(np.concatenate([x for x, _ in raw]))
     r = torch.as_tensor(np.concatenate([y for _, y in raw]))
@@ -424,18 +430,20 @@ def test_manager_device_pipeline_sampled_and_percentile():
 
 
 def test_manager_refuses_sharded_and_faults_naming_items():
-    """The sharded pipeline stays refused (item 4), with faults too; the
-    fault ladder (item 3b) is ported and builds under both pipelines."""
+    """The sharded pipeline (ported) builds, with faults and tolerant too,
+    as the fault ladder does under the device pipeline; an unknown
+    pipeline is refused."""
     names = ["a", "b"]
     plan = FaultPlan((FaultSpec("pipeline", window=0, rung="device"),))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ECICacheManager(100, names, pipeline="sharded", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ECICacheManager(100, names, pipeline="sharded", faults=plan,
-                        device=CPU)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ECICacheManager(100, names, pipeline="sharded", fault_tolerant=True,
-                        device=CPU)
+    mgr = ECICacheManager(100, names, pipeline="sharded", device=CPU)
+    assert mgr.pipeline == "sharded" and not mgr.fault_tolerant
+    mgr = ECICacheManager(100, names, pipeline="sharded", faults=plan,
+                          device=CPU)
+    assert mgr.fault_tolerant and mgr.faults is plan
+    mgr = ECICacheManager(100, names, pipeline="sharded",
+                          fault_tolerant=True, device=CPU)
+    assert mgr.fault_tolerant and mgr.faults is None
+    assert mgr.summary()["sharded_stepdowns"] == 0
     mgr = ECICacheManager(100, names, pipeline="device", faults=plan,
                           device=CPU)
     assert mgr.fault_tolerant and mgr.faults is plan

@@ -17,12 +17,15 @@ held exactly, latency floats to rel 1e-12; ``corrupt_traces`` gives the
 reference's tapes element for element; the guard and ingest cases of the
 reference's file give the same violations and errors.
 
-The reference's device rung cannot run on this host (ROADMAP §3, R1), so
-the port's device rung (``pipeline="device"`` on the CPU) is held to the
-reference's host pipeline under the same plan: the same decisions, one
-``device_stepdowns`` and one extra ``stepdown`` event.  Two cases pin the
-port's one deliberate difference: the ladder steps down on
-``InjectedFault`` only, and any other error at a rung propagates.
+The reference's device and sharded rungs cannot run on this host
+(ROADMAP §3, R1), so the port's device rung (``pipeline="device"`` on the
+CPU) and sharded rung (``pipeline="sharded"`` on 1, 2 and 8 logical CPU
+shards) are held to the reference's host pipeline under the same plan:
+the same decisions, one ``device_stepdowns`` (``sharded_stepdowns``) and
+one extra ``stepdown`` event a killed rung; the chaos suite also runs
+against the sharded top rung.  Cases at each rung pin the port's one
+deliberate difference: the ladder steps down on ``InjectedFault`` only,
+and any other error at a rung propagates.
 """
 import dataclasses
 from functools import lru_cache
@@ -36,6 +39,7 @@ from hypothesis import given, settings, strategies as st
 
 import repro.data.scenarios as scen_ref
 import repro_torch.core.monitor as pt_monitor
+import repro_torch.core.shard_pipeline as pt_shard
 import repro_torch.data.scenarios as scen
 from oracle import examples
 from repro.cache import BlockPool as RefBlockPool
@@ -56,6 +60,7 @@ from repro_torch.core import (ECICacheManager, FaultPlan, FaultSpec,
                               validate_decision, validate_trace_arrays)
 from repro_torch.core.manager import AnalyzerDecision, DegradeEvent
 from repro_torch.core.partitioner import PartitionResult
+from repro_torch.distributed import ShardMesh
 
 SIM = dict(t_fast=1.0, t_slow=20.0)
 CPU = "cpu"
@@ -463,27 +468,41 @@ def test_sampled_violation_retries_exact_before_quarantine():
 
 
 # =========================================== the device rung (fault R1)
-def _device_vs_host(specs, n_windows, **kw):
-    """The port's device rung on the CPU against the reference's host
-    pipeline under the same plan: the decisions are equal; the port adds
-    one ``device`` step-down per window its device specs kill."""
+_DEVICE_RUNGS = ("sharded", "device")
+
+
+def _device_vs_host(specs, n_windows, pipeline="device", **kw):
+    """The port's device (or sharded) rung on the CPU against the
+    reference's host pipeline under the same plan: the decisions are
+    equal; the port adds one ``device`` (``sharded``) step-down per window
+    its device (sharded) specs kill."""
     ref, port = managers(plans(specs), ref_kw=dict(pipeline="host"),
-                         pipeline="device", **kw)
+                         pipeline=pipeline, **kw)
     run_windows(ref, n_windows)
     run_windows(port, n_windows)
     extra = [e for e in port.events
-             if isinstance(e, DegradeEvent) and e.rung == "device"]
+             if isinstance(e, DegradeEvent) and e.rung in _DEVICE_RUNGS]
     rest = [(type(e).__name__, *dataclasses.astuple(e)) for e in port.events
-            if not (isinstance(e, DegradeEvent) and e.rung == "device")]
+            if not (isinstance(e, DegradeEvent) and e.rung in _DEVICE_RUNGS)]
     assert rest == event_log(ref)
     assert [decision_key(d) for d in port.history] == \
         [decision_key(d) for d in ref.history]
     same_summary(port.summary(), ref.summary(),
-                 skip=("device_stepdowns", "degrade_events"))
+                 skip=("sharded_stepdowns", "device_stepdowns",
+                       "degrade_events"))
     s, sr = port.summary(), ref.summary()
-    assert s["device_stepdowns"] == len(extra)
+    for rung in _DEVICE_RUNGS:
+        assert s[f"{rung}_stepdowns"] == sum(e.rung == rung for e in extra)
     assert s["degrade_events"] == sr["degrade_events"] + len(extra)
     return port, extra
+
+
+def _shards(mp, n_shards):
+    """The sharded pipeline's default mesh: ``n_shards`` logical CPU
+    shards."""
+    mesh = ShardMesh((CPU,) * n_shards)
+    mp.setattr(pt_shard, "control_plane_mesh",
+               lambda n_shards=None, device=None: mesh)
 
 
 def test_device_rung_failure_steps_down_to_host():
@@ -511,6 +530,56 @@ def test_device_rung_under_the_standard_plan():
     assert s["dirty_loss"] > 0 and s["poisoned_windows"] > 0
     assert s["straggler_windows"] > 0 and s["tier_failures"] > 0
     assert s["guard_violations_actuated"] == 0
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 8])
+def test_sharded_rung_failure_steps_down_to_device(monkeypatch, n_shards):
+    """A shard's launch failure kills the whole sharded rung for the
+    window: exactly one sharded -> device step-down, and the device rung
+    still delivers a full decision, equal to the reference's host ladder
+    under the same plan."""
+    _shards(monkeypatch, n_shards)
+    port, extra = _device_vs_host(
+        [dict(kind="pipeline", window=2, rung="sharded", count=99)], 4,
+        pipeline="sharded", retry_limit=1)
+    s = port.summary()
+    assert s["sharded_stepdowns"] == 1
+    assert s["device_stepdowns"] == 0 and s["host_stepdowns"] == 0
+    assert [(e.window, e.reason, e.rung) for e in extra] == \
+        [(2, "stepdown", "sharded")]
+    assert not port.history[2].quarantined
+    assert s["guard_violations_actuated"] == 0
+
+
+def test_sharded_and_device_rungs_dead_step_down_to_host(monkeypatch):
+    """Both mesh rungs dead in one window: a sharded and a device
+    step-down, then the fused host pass."""
+    _shards(monkeypatch, 2)
+    port, extra = _device_vs_host(
+        [dict(kind="pipeline", window=1, rung="sharded", count=99),
+         dict(kind="pipeline", window=1, rung="device", count=99)], 3,
+        pipeline="sharded", retry_limit=0)
+    assert [(e.window, e.rung) for e in extra] == [(1, "sharded"),
+                                                  (1, "device")]
+    assert port.summary()["host_stepdowns"] == 0
+
+
+@pytest.mark.parametrize("error", [
+    RuntimeError("CUDA error: unspecified launch failure"),
+    torch.OutOfMemoryError("CUDA out of memory"),
+])
+def test_non_injected_error_at_the_sharded_rung_propagates(monkeypatch,
+                                                            error):
+    """A shard whose kernel fails to build or launch is not a rung
+    failure: the error reaches the caller, no step-down."""
+    def broken(*a, **k):
+        raise error
+    monkeypatch.setattr(pt_monitor, "monitor_window_sharded", broken)
+    _, port = managers(fault_tolerant=True, pipeline="sharded")
+    with pytest.raises(type(error), match=str(error)[:10]):
+        run_windows(port, 1)
+    assert port.summary()["sharded_stepdowns"] == 0
+    assert not degrade_events(port)
 
 
 @pytest.mark.parametrize("error", [
@@ -616,6 +685,37 @@ def test_chaos_matches_reference_and_reconverges(seed):
     for d in port.history:
         if not d.quarantined:
             assert validate_decision(d, port.capacity, port.capacity2).ok
+
+
+@settings(max_examples=examples(3), deadline=None)
+@given(st.integers(0, 10**6))
+def test_chaos_sharded_pipeline_reconverges(seed):
+    """Chaos schedules against the sharded top rung (``FaultPlan.chaos``
+    draws ``rung="sharded"`` pipeline faults) on 2 logical shards: the
+    tolerant sharded manager steps down the ladder as needed, never
+    actuates a violation and reconverges to the fault-free sharded run,
+    which decides as the reference's host manager."""
+    plan = FaultPlan.chaos(3, 10, seed=seed, max_faults=3)
+    n = plan.last_fault_window() + plan.reconverge_bound(2) + 1
+    with pytest.MonkeyPatch.context() as mp:
+        _shards(mp, 2)
+        ref, base = managers(ref_kw=dict(pipeline="host"),
+                             pipeline="sharded")
+        _, faulted = managers((None, plan), ref_kw=dict(pipeline="host"),
+                              pipeline="sharded")
+        for mgr in (ref, base, faulted):
+            run_windows(mgr, n, base=seed % 1000)
+    assert [decision_key(d) for d in base.history] == \
+        [decision_key(d) for d in ref.history]
+    s = faulted.summary()
+    assert s["guard_violations_actuated"] == 0
+    assert s["sharded_stepdowns"] == sum(
+        e.rung == "sharded" for e in degrade_events(faulted, "stepdown"))
+    assert _final_state(base) == _final_state(faulted)
+    for d in faulted.history:
+        if not d.quarantined:
+            assert validate_decision(d, faulted.capacity,
+                                     faulted.capacity2).ok
 
 
 # ================================================== the fault scenarios

@@ -35,7 +35,12 @@ L2) and through ``simulate_many``; the device window pipeline runs under
 ``analyze_windows(pipeline="device")``, ``greedy_allocate(method=
 "device")`` and the manager under ``pipeline="device"``.  The
 degradation ladder steps a dead device rung down to the host rung on the
-card with the CPU's host run's decisions.
+card with the CPU's host run's decisions.  The sharded window pipeline
+runs at 1, 2 and 8 logical shards on the card (``cache_sim_segments_scan``
+launched on every shard, one sync a window per mesh under the sanitizer)
+and equals the CPU's and ``pipeline="device"``'s bit for bit, through
+``DeviceWindowPipeline(mesh=)``, ``run_stream``, ``analyze_windows`` and
+the manager, whose dead sharded rung steps down to the device rung.
 This module imports nothing of JAX, so it runs where JAX is absent.
 """
 import numpy as np
@@ -1365,3 +1370,110 @@ def test_device_rung_stepdown_on_card_matches_cpu_host(card):
     assert sg.pop("degrade_events") == sc.pop("degrade_events") + 1
     assert sg == sc
     assert sc["dirty_loss"] > 0 and sc["guard_quarantines"] == 1
+
+
+# ------------------------------------------------ the sharded pipeline
+def _logical_mesh(device, k):
+    from repro_torch.distributed import ShardMesh
+    return ShardMesh((device,) * k)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 8])
+def test_sharded_pipeline_card_matches_cpu_and_device(card, n_shards):
+    """``DeviceWindowPipeline(mesh=)`` on ``n_shards`` logical shards of the
+    card, under the sanitizer, equals the same mesh on the CPU and the
+    card's single-device pipeline bit for bit (latency to rel 1e-12), one
+    sync a window, every shard launching ``cache_sim_segments_scan`` once
+    a width group; ``run_stream`` over the mesh equals ``run``."""
+    from repro_torch.core.shard_pipeline import ingest_window_sharded
+    wins = [_window_traces(s, 40, 3000) for s in (1, 2)]
+    wins.insert(1, [Trace(torch.zeros(0, dtype=torch.int64),
+                          torch.zeros(0, dtype=torch.bool))] * 40)
+    cap = 2500
+    mesh = _logical_mesh(card, n_shards)
+    gpu = DeviceWindowPipeline(cap, c_min=20, transfer_sanitize=True,
+                               mesh=mesh)
+    cpu = DeviceWindowPipeline(cap, c_min=20,
+                               mesh=_logical_mesh(torch.device("cpu"),
+                                                  n_shards))
+    one = DeviceWindowPipeline(cap, c_min=20, device=card)
+    prof = StageProfile()
+    got = []
+    for w in wins:
+        before = cache_sim_segments_scan.launches
+        got.append(gpu.run(w, profile=prof))
+        if sum(len(t) for t in w):
+            lens = [len(t) for t in w]
+            bounds = np.concatenate([[0], np.cumsum(lens)]).tolist()
+            ing = ingest_window_sharded(
+                torch.cat([t.addrs for t in w]),
+                torch.cat([t.is_read for t in w]), bounds, lens, mesh=mesh)
+            assert cache_sim_segments_scan.launches - before == \
+                n_shards * len(ing.key[0])
+    assert prof.syncs == 2 and prof.windows == 3
+    for g, c, d in zip(got, [cpu.run(w) for w in wins],
+                       [one.run(w) for w in wins]):
+        for want in (c, d):
+            for f in ("sizes", "urd_sizes", "hit_ratios", "write_ratios"):
+                assert torch.equal(getattr(g, f), getattr(want, f)), f
+            for f in ("edges", "heights", "offsets"):
+                assert torch.equal(getattr(g.curves, f),
+                                   getattr(want.curves, f))
+            assert g.feasible == want.feasible
+            assert g.latency == pytest.approx(want.latency, rel=1e-12)
+    sprof = StageProfile()
+    stream = gpu.run_stream(wins, profile=sprof)
+    assert sprof.syncs == 2 and sprof.windows == 3
+    for a, b in zip(stream, got):
+        assert torch.equal(a.sizes, b.sizes) and a.latency == b.latency
+
+
+def test_sharded_monitor_and_manager_on_card(card, monkeypatch):
+    """``control_plane_mesh()`` is every visible card;
+    ``analyze_windows(pipeline="sharded")`` over it, exact and sampled,
+    equals the CPU's host pipeline; on a 2-shard logical mesh the manager
+    under ``pipeline="sharded"`` decides as under ``pipeline="device"``,
+    and a dead sharded rung steps down to the device rung once."""
+    import repro_torch.core.shard_pipeline as sp
+    from repro_torch.core import FaultPlan, FaultSpec
+    from repro_torch.distributed import control_plane_mesh
+    mesh = control_plane_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    assert all(d.type == "cuda" for d in mesh.devices)
+    traces = _window_traces(5, 30, 4000)
+    dtr = [Trace(t.addrs.to(card), t.is_read.to(card)) for t in traces]
+    for kw in (dict(), dict(sample_rate=0.25, window_seed=3)):
+        got = analyze_windows(dtr, "urd", pipeline="sharded", device=card,
+                              **kw)
+        want = analyze_windows(traces, "urd", device="cpu", **kw)
+        for f in ("edges", "heights", "offsets", "n_accesses"):
+            assert torch.equal(getattr(got.curves, f).cpu(),
+                               getattr(want.curves, f))
+        for f in ("urd_sizes", "write_ratios", "expected_errors"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f))
+    two = _logical_mesh(card, 2)
+    monkeypatch.setattr(sp, "control_plane_mesh",
+                        lambda n_shards=None, device=None: two)
+    names = ["wdev_0", "hm_1", "prn_1", "web_0"]
+    plan = FaultPlan((FaultSpec("pipeline", window=1, rung="sharded",
+                                count=99),), seed=0)
+    kw = dict(c_min=10, initial_blocks=40, t_fast=1.0, t_slow=20.0,
+              flush_cost=10.0)
+    s = make_manager("eci", 400, names, device=card, pipeline="sharded", **kw)
+    f = make_manager("eci", 400, names, device=card, pipeline="sharded",
+                     faults=plan, **kw)
+    d = make_manager("eci", 400, names, device=card, pipeline="device", **kw)
+    for w in range(3):
+        traces = [msr_trace(nm, 3000, seed=10 * w + i)
+                  for i, nm in enumerate(names)]
+        for mgr in (s, f, d):
+            mgr.run_window(traces)
+        for mgr in (s, f):
+            assert mgr.history[-1].sizes.tolist() == \
+                d.history[-1].sizes.tolist()
+            assert mgr.history[-1].policies == d.history[-1].policies
+    for a, b in zip(s.tenants, d.tenants):
+        assert a.result == b.result
+    assert s.summary() == d.summary()
+    sf = f.summary()
+    assert sf["sharded_stepdowns"] == 1 and sf["device_stepdowns"] == 0
