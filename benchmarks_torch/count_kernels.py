@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the interval-count kernels at the shapes their paths give them.
+"""Time the interval-count kernels and the RO token replays at the shapes
+their paths give them.
 
     PYTHONPATH=src python benchmarks_torch/count_kernels.py [--src DIR]
         [--reps 20] [--tapes FILE]
@@ -29,9 +30,23 @@ delta form of the live count).
 * ``cache_sim_segments_scan`` at the 256-tenant path's window-0 sampled
   tape (``chip_smoke.sampled_tape``): each width group, and the three
   launches of a call in turn.
+* ``ro_token_replay_scan`` at the 256-tenant path's window-1 call and
+  ``ro_token_replay_levels_scan`` at the pressure path's window-2 call
+  and the ETICA path's window-1 call (``make_manager("etica",
+  ETICA_CAP1, MSR_16, capacity2=ETICA_CAP2, t_fast2=T_FAST2)``), the
+  arguments each path's ``simulate_many`` gave the kernel; "alone" is
+  a CUDA graph of the launch that ``kernel.prepare_launch`` stages (the
+  one the wrapper makes), without the wrapper's host work.  Each is held
+  to its plain version (the host loops) first, and printed beside its
+  bound (``chip_smoke.ro_bound_ms``) and, from the call's own outputs,
+  the share of the longest block's steps that evict or demote.  On a
+  tree whose ``ro_replay.cu`` reads ``RO_REPLAY_STEPWISE``, the
+  single-level call is also timed alone with the source built that way
+  (the walk step by step, without its group-at-once path).
 
-The guard tapes come from running those managers on the card for two
-windows; ``--tapes FILE`` keeps them (with the sampled tape) in FILE, made
+The guard tapes and the RO calls come from running those managers on the
+card for two windows (the pressure path three); ``--tapes FILE`` keeps
+them (with the sampled tape) in FILE, made
 by the first run that names it and read by later ones, so that runs on
 two trees time the same inputs without driving the managers again.  The
 shapes, constants and timers are ``chip_smoke.py``'s, which times the
@@ -45,6 +60,8 @@ ms.
 from __future__ import annotations
 
 import argparse
+import functools
+import importlib.util
 import json
 import pathlib
 import sys
@@ -56,34 +73,97 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import (ACCESSES, CP_ACCESSES, CP_SEED,  # noqa: E402
                         CP_TENANTS, ETICA_CAP1, ETICA_CAP2, MSR_16,
                         PRESSURE_CAP1, PRESSURE_CAP2, SHARDS_CAPACITY,
-                        SHARDS_NAMES, TABLE3, T_FAST2, Recorder, card_line,
-                        cuda_ms, graph_ms, make_windows, run_windows,
+                        SHARDS_NAMES, TABLE3, T_FAST2, Recorder, RoCalls,
+                        card_line, cuda_ms, graph_ms, make_windows,
+                        ro_bound_ms, ro_kernel_args, ro_work, run_windows,
                         sampled_tape)
 
+RO_LEVELS = "ro_token_replay_levels_scan"
 
-def guard_tape(dev, windows, names, capacity, **kw):
-    """(nxt, occ) int32 of the first ``ro_live_counts`` call of a manager
-    driven over ``windows`` on the card: its first RO guard tape."""
+
+def recorded(dev, windows, names, capacity, **kw):
+    """Drive a manager over ``windows`` on the card.  Returns (nxt, occ)
+    int32 of its first ``ro_live_counts`` call (its first RO guard tape)
+    and every RO replay call's kernel arguments, by kernel, in order."""
     import repro_torch.core.batch_sim as bs
-    with Recorder(bs, "ro_live_counts") as rec:
+    with Recorder(bs, "ro_live_counts") as rec, RoCalls(bs) as ro:
         run_windows(dev, windows, names, capacity, **kw)
     nxt, occ = rec.args
-    return (nxt.to(torch.int32).contiguous(),
-            occ.to(torch.int32).contiguous())
+    calls = {k: [ro_kernel_args(a) for a in v.values()]
+             for k, v in ro.calls.items()}
+    return ((nxt.to(torch.int32).contiguous(),
+             occ.to(torch.int32).contiguous()), calls)
 
 
 def make_tapes(dev) -> dict:
-    """The guard tapes and the window-0 sampled tape, on the card."""
-    tapes = {"pressure": guard_tape(
-        dev, make_windows(MSR_16, 2), MSR_16, PRESSURE_CAP1,
+    """The guard tapes, the window-0 sampled tape and the RO calls, on
+    the card."""
+    tapes = {}
+    tapes["pressure"], ro_pr = recorded(
+        dev, make_windows(MSR_16, 3), MSR_16, PRESSURE_CAP1,
         scheme="etica", capacity2=PRESSURE_CAP2, t_fast2=T_FAST2,
-        w_threshold=0.0)}
+        w_threshold=0.0)
+    _, ro_et = recorded(dev, make_windows(MSR_16, 2), MSR_16, ETICA_CAP1,
+                        scheme="etica", capacity2=ETICA_CAP2,
+                        t_fast2=T_FAST2)
     swindows = make_windows([nm.split("#")[0] for nm in SHARDS_NAMES], 2)
     _, _, args = sampled_tape(swindows[0], dev)
     tapes["segments"] = [(tuple(a), w) for a, w in args]
-    tapes["256-tenant"] = guard_tape(dev, swindows, SHARDS_NAMES,
-                                     SHARDS_CAPACITY)
+    tapes["256-tenant"], ro_256 = recorded(dev, swindows, SHARDS_NAMES,
+                                           SHARDS_CAPACITY)
+    tapes["ro"] = {
+        "256-tenant window 1": ("ro_token_replay_scan",
+                                ro_256["ro_token_replay_scan"][0]),
+        "pressure window 2": (RO_LEVELS, ro_pr[RO_LEVELS][1]),
+        "ETICA window 1": (RO_LEVELS, ro_et[RO_LEVELS][0])}
     return tapes
+
+
+def ro_prepare(ro):
+    """``ro.prepare_launch``; a tree from before it (the same C interface)
+    gets this checkout's, launching that tree's own library."""
+    if hasattr(ro, "prepare_launch"):
+        return ro.prepare_launch
+    spec = importlib.util.spec_from_file_location(
+        "_ro_kernel_here", ROOT / "src/repro_torch/kernels/ro_replay/kernel.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    return functools.partial(here.prepare_launch, lib=ro._lib())
+
+
+def ro_stepwise_library(ro):
+    """The tree's ``ro_replay.cu`` built with ``RO_REPLAY_STEPWISE``
+    defined (a one-line source under the build directory that includes
+    it), or None when the source does not read that name."""
+    from repro_torch.kernels import BUILD_DIR
+    src = pathlib.Path(ro.SOURCES[0])
+    if "RO_REPLAY_STEPWISE" not in src.read_text():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    wrap = BUILD_DIR / "ro_replay_stepwise.cu"
+    wrap.write_text(f'#define RO_REPLAY_STEPWISE 1\n#include "{src}"\n')
+    return ro.library("ro_replay_stepwise", [wrap])
+
+
+def ro_acts(a, got, levels: bool) -> str:
+    """The longest block's stepped rows (at or past ``l2_end``) and how
+    many of them evict (a token dies before its natural end) or, with two
+    levels, demote, from the call's outputs."""
+    starts, ends = a[4], a[5]
+    k = max(range(len(starts)), key=lambda i: ends[i] - starts[i])
+    s, e = starts[k], ends[k]
+    out = sum(ends[i] - starts[i] for i in range(k))
+    n = e - s
+    death = got[0][out:out + n].long()
+    natural = a[2][s:e].long() - s
+    evicted = int((death < natural).sum())
+    stepped = n - (min(a[8][k], n) if levels else 0)
+    text = (f"longest block: {stepped} rows stepped, {evicted} evict "
+            f"({100 * evicted / max(stepped, 1):.1f} %)")
+    if levels:
+        dem = int(got[3][len(starts) + k])
+        text += f", {dem} demote ({100 * dem / max(stepped, 1):.1f} %)"
+    return text
 
 
 def main() -> int:
@@ -231,6 +311,40 @@ def main() -> int:
           f"{len(seg)} launches ({sum(a[0].shape[0] for a, _ in seg)} "
           f"entries): {times['segments_call']:.4f} ms a call, "
           f"{times['segments_alone']:.4f} alone")
+    from repro_torch.kernels.ro_replay import kernel as ro
+    from repro_torch.kernels.ro_replay import ref as ro_ref
+    prepare = ro_prepare(ro)
+    stepwise = ro_stepwise_library(ro)
+    for label, (name, a) in tapes["ro"].items():
+        levels = name == RO_LEVELS
+        kern = getattr(ro, name)
+        plain = (ro_ref.ro_token_replay_levels_blocks_ref if levels
+                 else ro_ref.ro_token_replay_blocks_ref)
+        got = kern(*a)
+        want = plain(*(x.cpu() for x in a[:4]), *a[4:])
+        torch.cuda.synchronize()
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), \
+            label
+        key = f"{name}_{label.split()[0]}"
+        times[f"{key}_call"] = cuda_ms(lambda: kern(*a), reps)
+        times[f"{key}_alone"] = graph_ms(prepare(name, *a)[0], reps)
+        rows, longest = ro_work(a, levels)
+        bnd, by, l1 = ro_bound_ms(a, levels)
+        print(f"{name}, {label} ({len(a[4])} blocks, {rows} rows, longest "
+              f"{longest}): {times[f'{key}_call']:.4f} ms a call, "
+              f"{times[f'{key}_alone']:.4f} alone; bound {bnd:.4f} ms by "
+              f"{by} (an L1 hit a row: {l1:.4f}); equal to the plain "
+              f"version; {ro_acts(a, got, levels)}")
+        if stepwise is not None and not levels:
+            launch, outs = prepare(name, *a, lib=stepwise)
+            launch()
+            torch.cuda.synchronize()
+            assert all(torch.equal(g.cpu(), w) for g, w in zip(outs, want)), \
+                f"{label} step by step"
+            times[f"{key}_stepwise_alone"] = graph_ms(launch, reps)
+            print(f"  built step by step (RO_REPLAY_STEPWISE): "
+                  f"{times[f'{key}_stepwise_alone']:.4f} ms alone; equal "
+                  f"to the plain version")
     print(json.dumps({"card": card, "src": args.src, "ms": times}))
     return 0
 

@@ -55,7 +55,12 @@ Phases:
      ``ro_token_replay_scan`` and ``ro_token_replay_levels_scan`` vs
      their plain versions (the host loops over the blocks) on pressured
      multi-block tapes (one-row blocks, capacity 0, warm-L2 rows below
-     ``l2_end``, a clean L2), exactly, the same bits call to call;
+     ``l2_end``, a clean L2) and on the edge tapes of their ring design
+     (``ref.EDGE_CASES``: blocks of 65,536 and 66,175 rows at capacities
+     in the thousands, victim pointers thousands of rows behind t,
+     warm-L2 prefixes ending either side of a ring tile's edge, 170
+     blocks, a read-hit chain across a whole block), exactly, the same
+     bits call to call;
   4. drive slice 1's path — ``make_manager("eci", 6000, ...)`` over 16
      tenants, three Δt windows of 65,536 accesses each — on the card with
      every kernel launch counter set to 0 just before each window and
@@ -223,8 +228,10 @@ Phases:
      ``live_count_scan`` at the pressure path's and the 256-tenant path's
      first guard tapes, a call and alone; the RO replay kernels' rows come
      from their largest calls on the paths (phases 4-7), with the bound
-     the larger of their bytes and the longest block's rows times one
-     dependent L1 hit;
+     the larger of their bytes and the longest block's stepped rows
+     times the walk's dependent integer operation a step at the ALU's
+     latency (``bound_l1_chain_ms`` keeps the earlier bound, one
+     dependent L1 hit a row);
  15. print the kernels line (each row's ``fault_launches``: its launches
      in phase 11b and the pool crash; ``cache_sim_segments_scan``'s
      launches include the sharded runs of phases 4 and 9), the card line
@@ -240,6 +247,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import multiprocessing
@@ -343,8 +351,22 @@ RO_REPLAY_BEFORE_S = {"16-tenant": (0.0, 0.368, 0.319),
                       "pressure": (0.0, 0.824, 0.597)}
 # one dependent L1 hit on Hopper: about 33 cycles (published
 # microbenchmarks of the H100's L1) at the H100 SXM's 1.98 GHz boost
-# clock; the RO token replays' chain bound is a block's rows times this
+# clock; the RO token replays' chain bound before their redesign was a
+# block's rows times this (kept beside the new one as bound_l1_chain_ms)
 L1_HIT_S = 33 / 1.98e9
+# the dependent-issue latency of an integer ALU operation (IADD3, LEA,
+# ISETP: 4 cycles on Volta and later, published microbenchmarks) at the
+# same clock, and the integer operations of the RO walks that carry from
+# one step to the next: the resident count's update alone, one IADD3 of
+# the count, is_read and the sign of b - cand (the victim pointer b moves
+# only at an eviction, so b - cand is off the chain; each level's count
+# is a chain of its own; in the SASS of ro_replay_kernel<false>, from
+# cuobjdump -sass, the group path chains one LEA.HI.SX32 a step, and the
+# step-by-step path an IMAD.IADD and a LEA.HI.SX32 before its compare,
+# which one IADD3 could do); the chain bound is the longest block's
+# stepped rows (at or past l2_end) times their product
+ALU_OP_S = 4 / 1.98e9
+RO_CHAIN_OPS = 1
 # the control plane through DeviceWindowPipeline.run_stream: these seeds,
 # with an empty window third
 CP_STREAM_SEEDS = (7, 8, None, 9)
@@ -1174,16 +1196,23 @@ def ro_work(args, levels: bool) -> tuple[int, int]:
     return sum(rows), max(rows, default=0)
 
 
-def ro_bound_ms(args, levels: bool) -> tuple[float, str]:
+def ro_bound_ms(args, levels: bool) -> tuple[float, str, float]:
     """The larger of the call's bytes at the memory rate (read is_read,
     prev, nxt, force and write death, dirty and, with two levels, lvl
-    once a row: 15 or 16 bytes) and its longest block's chain of
-    dependent steps, one L1 hit each (``bound_by`` "operations": the
-    dependent steps)."""
+    once a row: 15 or 16 bytes) and its longest chain of dependent steps:
+    a block's rows at or past its ``l2_end`` (the warm-L2 rows below it
+    take no step), ``RO_CHAIN_OPS`` integer operations a step at
+    ``ALU_OP_S`` each (``bound_by`` "operations"); and, third, the bound
+    before the redesign, the longest block's rows times one dependent L1
+    hit."""
     rows, longest = ro_work(args, levels)
+    starts, ends = args[4], args[5]
+    stepped = [e - s - (min(args[8][k], e - s) if levels else 0)
+               for k, (s, e) in enumerate(zip(starts, ends))]
     b = rows * (16 if levels else 15) / PEAK_BYTES_PER_S * 1e3
-    chain = longest * L1_HIT_S * 1e3
-    return max(b, chain), ("operations" if chain >= b else "bytes")
+    chain = max(stepped, default=0) * RO_CHAIN_OPS * ALU_OP_S * 1e3
+    return (max(b, chain), ("operations" if chain >= b else "bytes"),
+            longest * L1_HIT_S * 1e3)
 
 
 def ro_path_checks(path: str, calls: RoCalls, check, timed: dict) -> None:
@@ -1199,16 +1228,17 @@ def ro_path_checks(path: str, calls: RoCalls, check, timed: dict) -> None:
             t_plain = ro_check(name, f"{path} call {i}", args, check)
             kern = kernel_wrappers()[name]
             ms = cuda_ms(lambda: kern(*args), 3)
-            bnd, by = ro_bound_ms(args, levels)
+            bnd, by, l1 = ro_bound_ms(args, levels)
             print(f"{path} {name} call {i}: {len(args[4])} pressured "
                   f"blocks, {rows} rows (longest {longest}); kernel "
                   f"{ms:.3f} ms a call, plain version (host loops) "
-                  f"{t_plain * 1e3:.1f} ms, bound {bnd:.4f} ms by {by}; "
-                  f"equal")
+                  f"{t_plain * 1e3:.1f} ms, bound {bnd:.4f} ms by {by} "
+                  f"(an L1 hit a row: {l1:.4f}); equal")
             if name not in timed or rows > timed[name]["rows"]:
                 timed[name] = {"rows": rows, "ms": ms,
                                "plain_ms": t_plain * 1e3, "bound_ms": bnd,
-                               "bound_by": by, "path": path}
+                               "bound_by": by, "bound_l1_chain_ms": l1,
+                               "path": path}
 
 
 def device_pipeline_phase(dev, traces, capacity: int, fused, heap,
@@ -3111,7 +3141,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    src = ROOT / "src"
+    if (src / "repro_torch").is_dir():
+        sys.path.insert(0, str(src))
+    elif importlib.util.find_spec("repro_torch") is None:
+        print(f"chip_smoke: no repro_torch in {src} nor on the import path "
+              f"(PYTHONPATH={os.environ.get('PYTHONPATH', '')!r}); run it "
+              f"from the repository root, or with PYTHONPATH=<repo>/src",
+              file=sys.stderr)
+        return 2
     import repro_torch.core.batch_sim as bs
     from repro_torch.core.batch_sim import segment_links
     from repro_torch.kernels import build_library
@@ -3145,7 +3183,8 @@ def main() -> int:
     from repro_torch.kernels.ro_replay.kernel import (
         ro_token_replay_levels_scan, ro_token_replay_scan)
     from repro_torch.kernels.ro_replay.ref import (
-        ro_token_replay_blocks_ref, ro_token_replay_levels_blocks_ref)
+        EDGE_CASES as RO_EDGE_CASES, ro_edge_tape, ro_token_replay_blocks_ref,
+        ro_token_replay_levels_blocks_ref)
     from repro_torch.kernels.urd_scan.kernel import LIBRARIES as URD_LIBRARIES
     from repro_torch.kernels.urd_scan.kernel import urd_scan
     from repro_torch.kernels.urd_scan.ref import urd_scan_ref
@@ -3352,10 +3391,29 @@ def main() -> int:
                 check(kern.__name__, f"edge tape {seed} again", a, g)
     assert all(x.numel() == 0 for x in ro_token_replay_scan(
         *ro_kernel_args((*tape, [], [], []))))
+    # the edge tapes of the ring design (ref.EDGE_CASES)
+    for case in RO_EDGE_CASES:
+        for levels, kern, plain in (
+                (False, ro_token_replay_scan, ro_token_replay_blocks_ref),
+                (True, ro_token_replay_levels_scan,
+                 ro_token_replay_levels_blocks_ref)):
+            tape, starts, ends, caps = ro_edge_tape(case, levels, device=dev)
+            args = ro_kernel_args((*tape, starts, ends, *caps))
+            got = kern(*args)
+            want = plain(*(x.cpu() for x in tape), starts, ends, *caps)
+            again = kern(*args)
+            for g, w, a in zip(got, want, again):
+                assert g.shape == w.shape, f"{kern.__name__} {case} shape"
+                check(kern.__name__, f"edge tape {case}", g.cpu(), w)
+                check(kern.__name__, f"edge tape {case} again", a, g)
     print("check: ro_token_replay_scan == ro_token_replay_blocks_ref and "
           "ro_token_replay_levels_scan == ro_token_replay_levels_blocks_ref "
           "on pressured multi-block tapes (one-row blocks, capacity 0, "
-          "warm L2 below l2_end, a clean L2), the same bits call to call")
+          "warm L2 below l2_end, a clean L2) and on the edge tapes "
+          f"{', '.join(RO_EDGE_CASES)} (65,536 and 66,175 rows, pointers "
+          "thousands of rows behind t, warm L2 across ring tiles, 170 "
+          "blocks, a hit chain across a block), the same bits call to "
+          "call")
     model_kernel_checks(dev, max_err)
     paged_kernel_checks(dev, max_err)
     print(f"phase seconds: build and kernel checks done at "
@@ -3795,9 +3853,13 @@ def main() -> int:
         print(f"{name}: largest call on the {t['path']} path, {t['rows']} "
               f"rows: {t['ms']:.3f} ms a call, plain version (host loops) "
               f"{t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms by "
-              f"{t['bound_by']} (a dependent L1 hit a row of the longest "
-              f"block, or 15-16 bytes a row); kernel / bound = "
-              f"{t['ms'] / t['bound_ms']:.1f}; launches on the paths "
+              f"{t['bound_by']} (the longest block's stepped rows x the "
+              f"walk's dependent integer operation a step, or 15-16 bytes "
+              f"a row); kernel / bound = {t['ms'] / t['bound_ms']:.1f}; "
+              f"against the earlier bound (a dependent L1 hit a row, "
+              f"{t['bound_l1_chain_ms']:.4f} ms) "
+              f"{t['ms'] / t['bound_l1_chain_ms']:.2f}; launches on the "
+              f"paths "
               f"{ro_launch[name]}")
         rows.append({
             "name": name, "route": "cuda",
@@ -3810,6 +3872,7 @@ def main() -> int:
             "launches": ro_launch[name], "max_abs_err": max_err[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "bound_l1_chain_ms": t["bound_l1_chain_ms"],
             "library_ms": None})
     rows += [urd_row, urd_seed_row]
     rows.extend(model_rows)

@@ -4,11 +4,22 @@
 (``csrc/ro_replay.cu``) replace no TPU kernel: the reference replays an
 RO tenant under eviction pressure with a host loop, or on a TPU host a
 ``lax.fori_loop`` (``src/repro/core/batch_sim.py:726``, ``:845``).  Each
-replays several tenant blocks of one tape in one launch, a CTA a block
-whose thread 0 walks the block serially (``csrc/ro_replay.cu`` says why
-and what bounds it).  The block descriptors are host integers (the
-caller knows its blocks); they cross to the card once, from pinned
-memory, with the launch.
+replays several tenant blocks of one tape in one launch, a CTA a block:
+all its threads lay out ``death`` and ``lvl``; then warp 0 walks the
+block, its 32 lanes in lockstep (a victim is found by a ballot over a
+window of pointer words), on read-only words that warps 1-3 stage ahead
+of it in shared-memory rings (the victim pointers step past each token
+they act on, so the walk never reads ``death``, ``lvl`` or ``dirty``),
+while warps 4-7 compute each row's birth dirty flag by pointer jumping
+along the read-hit chains, a 4,096-row tile behind the walk; last, all
+threads clear the flags of tokens cleaned at their demotion and sum the
+flushes (``csrc/ro_replay.cu`` says why and what bounds it;
+``ref.ro_token_replay_pointer_ref`` and
+``ref.ro_token_replay_levels_pointer_ref`` are the same formulation in
+plain PyTorch).  The block descriptors are host integers (the caller
+knows its blocks); they cross to the card once, from pinned memory, when
+the launch is prepared (``prepare_launch``, which the wrappers launch
+through).
 """
 from __future__ import annotations
 
@@ -29,13 +40,16 @@ SOURCES = [_CSRC / "ro_replay.cu"]
 # (library name, sources), for building it beside the others
 LIBRARIES = (("ro_replay", SOURCES),)
 _MAX_N = 2**31 - 1                  # positions are int32 on the card
+# the pointer arguments of each entry point (inputs, descriptors, outputs)
+_POINTERS = {"ro_token_replay_scan": 8, "ro_token_replay_levels_scan": 9}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library("ro_replay", SOURCES)
-    for name, ptrs in (("ro_token_replay_scan", 8),
-                       ("ro_token_replay_levels_scan", 9)):
-        fn = getattr(lib, name)
+def library(name: str = "ro_replay", sources=None) -> ctypes.CDLL:
+    """The kernels' library, built from ``sources`` (``SOURCES`` unless
+    given) on first use, with its entry points' argument types set."""
+    lib = load_library(name, SOURCES if sources is None else sources)
+    for fn_name, ptrs in _POINTERS.items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = ([ctypes.c_void_p] * ptrs
                        + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -74,6 +88,44 @@ def _descriptors(starts, ends, *caps) -> tuple[list[list[int]], int]:
     return rows, out
 
 
+def prepare_launch(name: str, is_read: torch.Tensor, prev: torch.Tensor,
+                   nxt: torch.Tensor, force: torch.Tensor, starts, ends,
+                   *caps, lib: ctypes.CDLL | None = None):
+    """Stage one launch of the entry point ``name`` on CUDA tensors: the
+    block descriptors copied to the card and the outputs allocated, once.
+
+    ``caps`` are the wrapper's (``caps``, or ``cap1, cap2, l2_end,
+    clean2``).  Returns ``(launch, outputs)``: ``launch()`` runs the
+    kernel on the current stream into ``outputs`` (a CUDA graph can
+    capture it) and raises if the launch is refused; it is ``None`` when
+    there are no blocks.  ``lib`` is the library to launch (``library()``
+    unless given).  Nothing here counts launches: the wrappers do.
+    """
+    levels = name == "ro_token_replay_levels_scan"
+    if levels:
+        caps = (*caps[:3], [bool(c) for c in caps[3]])
+    rows, m = _descriptors(starts, ends, *caps)
+    dev = is_read.device
+    outs = [torch.empty(m, dtype=torch.int32, device=dev),
+            torch.empty(m, dtype=torch.bool, device=dev)]
+    if levels:
+        outs.append(torch.empty(m, dtype=torch.int8, device=dev))
+    outs.append(torch.empty((2 if levels else 1) * len(rows),
+                            dtype=torch.int64, device=dev))
+    if not rows:
+        return None, tuple(outs)
+    desc = to_device(torch.tensor(rows, dtype=torch.int64), dev)
+    fn = getattr(library() if lib is None else lib, name)
+    args = (is_read, prev, nxt, force, desc, *outs)
+
+    def launch() -> None:
+        err = fn(*(t.data_ptr() for t in args), len(rows),
+                 torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed (cudaError {err})")
+    return launch, tuple(outs)
+
+
 def ro_token_replay_scan(is_read: torch.Tensor, prev: torch.Tensor,
                          nxt: torch.Tensor, force: torch.Tensor, starts,
                          ends, caps
@@ -95,24 +147,12 @@ def ro_token_replay_scan(is_read: torch.Tensor, prev: torch.Tensor,
     if is_read.device.type != "cuda":
         return ro_token_replay_blocks_ref(is_read, prev, nxt, force, starts,
                                           ends, caps)
-    dev = is_read.device
-    rows, m = _descriptors(starts, ends, caps)
-    death = torch.empty(m, dtype=torch.int32, device=dev)
-    dirty = torch.empty(m, dtype=torch.bool, device=dev)
-    flushes = torch.empty(len(rows), dtype=torch.int64, device=dev)
-    if not rows:
-        return death, dirty, flushes
-    desc = to_device(torch.tensor(rows, dtype=torch.int64), dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().ro_token_replay_scan(
-        is_read.data_ptr(), prev.data_ptr(), nxt.data_ptr(), force.data_ptr(),
-        desc.data_ptr(), death.data_ptr(), dirty.data_ptr(),
-        flushes.data_ptr(), len(rows), stream)
-    if err != 0:
-        raise RuntimeError(f"ro_token_replay_scan launch failed "
-                           f"(cudaError {err})")
-    ro_token_replay_scan.launches += 1
-    return death, dirty, flushes
+    launch, outs = prepare_launch("ro_token_replay_scan", is_read, prev,
+                                  nxt, force, starts, ends, caps)
+    if launch is not None:
+        launch()
+        ro_token_replay_scan.launches += 1
+    return outs
 
 
 ro_token_replay_scan.launches = 0
@@ -142,26 +182,13 @@ def ro_token_replay_levels_scan(is_read: torch.Tensor, prev: torch.Tensor,
         return ro_token_replay_levels_blocks_ref(
             is_read, prev, nxt, force, starts, ends, cap1, cap2, l2_end,
             clean2)
-    dev = is_read.device
-    rows, m = _descriptors(starts, ends, cap1, cap2, l2_end,
-                           [bool(c) for c in clean2])
-    death = torch.empty(m, dtype=torch.int32, device=dev)
-    dirty = torch.empty(m, dtype=torch.bool, device=dev)
-    lvl = torch.empty(m, dtype=torch.int8, device=dev)
-    counts = torch.empty(2 * len(rows), dtype=torch.int64, device=dev)
-    if not rows:
-        return death, dirty, lvl, counts
-    desc = to_device(torch.tensor(rows, dtype=torch.int64), dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().ro_token_replay_levels_scan(
-        is_read.data_ptr(), prev.data_ptr(), nxt.data_ptr(), force.data_ptr(),
-        desc.data_ptr(), death.data_ptr(), dirty.data_ptr(), lvl.data_ptr(),
-        counts.data_ptr(), len(rows), stream)
-    if err != 0:
-        raise RuntimeError(f"ro_token_replay_levels_scan launch failed "
-                           f"(cudaError {err})")
-    ro_token_replay_levels_scan.launches += 1
-    return death, dirty, lvl, counts
+    launch, outs = prepare_launch("ro_token_replay_levels_scan", is_read,
+                                  prev, nxt, force, starts, ends, cap1,
+                                  cap2, l2_end, clean2)
+    if launch is not None:
+        launch()
+        ro_token_replay_levels_scan.launches += 1
+    return outs
 
 
 ro_token_replay_levels_scan.launches = 0

@@ -29,7 +29,10 @@ from call to call and tape to tape (no state kept between calls).
 The RO token replay kernels (``ro_token_replay_scan``,
 ``ro_token_replay_levels_scan``) are held to their plain versions on
 pressured multi-block tapes (one-row blocks, capacity 0, warm L2, a clean
-L2) and through ``simulate_many``; the device window pipeline runs under
+L2), on the edge tapes of their ring design (``ref.EDGE_CASES``: blocks
+of 65,536 and 66,175 rows, pointers thousands of rows behind, warm-L2
+prefixes across ring tiles, 170 blocks, a hit chain across the whole
+block) and through ``simulate_many``; the device window pipeline runs under
 ``transfer_sanitizer`` (a planted sync raises; one sync a window, also in
 ``run_stream``) and equals the CPU bit for bit, as do
 ``analyze_windows(pipeline="device")``, ``greedy_allocate(method=
@@ -119,7 +122,9 @@ from repro_torch.core.device_pipeline import (DeviceWindowPipeline,
 from repro_torch.kernels.ro_replay.kernel import (ro_token_replay_levels_scan,
                                                   ro_token_replay_scan)
 from repro_torch.kernels.ro_replay.ref import (
-    ro_token_replay_blocks_ref, ro_token_replay_levels_blocks_ref)
+    EDGE_CASES, ro_edge_tape, ro_token_replay_blocks_ref,
+    ro_token_replay_levels_blocks_ref, ro_token_replay_levels_pointer_ref,
+    ro_token_replay_pointer_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -1198,6 +1203,46 @@ def test_ro_token_replay_kernels_match_plain_on_card(card, seed):
             assert torch.equal(g, w)
         assert all(torch.equal(a.cpu(), b) for a, b in
                    zip(kern(*cpu[:4], *cpu[4:], *caps), plain))
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_ro_token_replay_kernels_match_plain_on_edge_tapes(card, case):
+    """Both RO replay kernels on the edge tapes of their design, every
+    output equal to the plain host loops (and, block by block, to the
+    pointer-walk plain versions) bit for bit, one launch a call, and the
+    same bits from a second call."""
+    for levels in (False, True):
+        tape, starts, ends, caps = ro_edge_tape(case, levels, device=card)
+        args = (tape[0], tape[1].to(torch.int32), tape[2].to(torch.int32),
+                tape[3], starts, ends)
+        host = tuple(x.cpu() for x in tape)
+        if levels:
+            kern = ro_token_replay_levels_scan
+            plain = ro_token_replay_levels_blocks_ref(*host, starts, ends,
+                                                      *caps)
+        else:
+            kern = ro_token_replay_scan
+            plain = ro_token_replay_blocks_ref(*host, starts, ends, *caps)
+        before = kern.launches
+        got = kern(*args, *caps)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        for g, w in zip(got, plain):
+            assert torch.equal(g.cpu(), w)
+        for g, w in zip(kern(*args, *caps), got):
+            assert torch.equal(g, w)
+        o = 0
+        for k, (s, e) in enumerate(zip(starts, ends)):
+            blk = (host[0][s:e], host[1][s:e] - s, host[2][s:e] - s,
+                   host[3][s:e])
+            if levels:
+                want = ro_token_replay_levels_pointer_ref(
+                    *blk, *(c[k] for c in caps))
+            else:
+                want = ro_token_replay_pointer_ref(*blk, caps[0][k])
+            assert torch.equal(got[0][o:o + e - s].cpu().long(), want[0])
+            assert torch.equal(got[1][o:o + e - s].cpu(), want[1])
+            o += e - s
 
 
 def test_simulate_many_ro_pressure_on_card_matches_cpu(card):
