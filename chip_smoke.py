@@ -171,9 +171,10 @@ Phases:
  12. the model layer, zamba2-7b at full width (``model_phase``): bf16
      from seed 0, ``prefill`` on 4 prompts of 2048 tokens (81
      ``mamba2_ssd`` and 13 ``flash_attention`` launches, counted), then 4
-     requests of 1024 prompt tokens teacher-forced through
+     requests of 64 prompt tokens teacher-forced through
      ``decode_step`` and 32 greedy tokens (no launch; the prompt was
-     1024 tokens until the serving phase took its time); the same prefill
+     1024 tokens until the serving phase took its time, 128 until phases
+     13b-d took theirs); the same prefill
      through the plain versions on the card, and in fp32 through both:
      the fp32 last logits held to the kernels' run, the bf16 ones' greedy
      tokens where bf16 cannot flip them; the kernels held to their plain
@@ -210,6 +211,39 @@ Phases:
      ``aborted_restarts``, summaries (the failure counters too) and
      decisions equal card and CPU, the aborted requests' second prefill
      counted in ``flash_attention``'s launches (phase 11b's part (c));
+ 13b. the MoE serving path (``moe_serving_phase``): qwen2-moe-a2.7b at
+     full width in bf16 from seed 0 over a 24 GiB pool of 8192 16-token
+     pages, phase 13's manager, tenants and traffic: 768 ``flash_attention``
+     launches in prefill (24 a request) and 744 ``paged_attention``
+     launches at a KV group of 1 in 31 decode steps (counted); the MoE
+     FFN's share of a prefill request and of a decode step (CUDA events)
+     and the routed choices dropped in prefill; both kernels at the
+     captured inputs as in phase 13; the same traffic through the plain
+     versions on the card and in fp32 through both (the fp32 runs over a
+     pool of the pages the bf16 run took at once: 57 GB of fp32 weights
+     leave no room for 8192 fp32 pages): summaries, pool stats, quotas,
+     policies and decisions equal, fp32 tokens equal and last logits
+     within 1e-4 of max |logit|, bf16 tokens held by phase 13's rule; 2
+     layers at full width in fp32, 2 requests a tenant and 8 new tokens,
+     card against CPU;
+ 13c. MLA, minicpm3-4b at full width and depth (``family_model_phase``):
+     bf16 prefill 4 x 2048 (62 ``flash_attention`` launches on its
+     ``<6, 1>`` instance, counted), 4 requests of 256 teacher-forced
+     tokens and 32 greedy ones through the absorbed decode (no launch;
+     cut from 1024 for the smoke's time);
+     the same prefill through the plain versions and in fp32 through both
+     (as phase 12); 2 layers in fp32: prefill against teacher-forced
+     decode over 256 tokens (2e-4) and card against CPU (1e-4); the kernel
+     at the captured shape held element by element, timed beside its
+     plain versions, its bound, ``scaled_dot_product_attention`` under
+     each fused backend alone and the padded ``<8, 2>`` path the instance
+     replaced;
+ 13d. the encoder-decoder, seamless-m4t-large-v2, the same way: 4 x 1024
+     encoder frames of seeded normal embeddings and 4 decoder prompts of
+     256 tokens; 72 ``flash_attention`` launches a prefill (24 encoder,
+     24 decoder self, 24 cross with Sq 256 over Skv 1024), each shape a
+     row of its own; the decode's cross caches filled by
+     ``cross_attention_kv`` from the encoder's output;
  14. time each kernel of the earlier slices at a full tape of its path
      (CUDA events) beside its plain version and the bound of the function
      it computes (the larger of its bytes at the memory rate and a tree
@@ -234,7 +268,9 @@ Phases:
      dependent L1 hit a row);
  15. print the kernels line (each row's ``fault_launches``: its launches
      in phase 11b and the pool crash; ``cache_sim_segments_scan``'s
-     launches include the sharded runs of phases 4 and 9), the card line
+     launches include the sharded runs of phases 4 and 9; one
+     ``flash_attention`` row a shape of phases 12, 13 and 13b-d, one
+     ``paged_attention`` row for phase 13 and one for 13b), the card line
      and, last, the result line.
 
 Exits non-zero, printing no result, when no card is visible or any
@@ -245,6 +281,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import importlib.util
@@ -296,8 +333,9 @@ SEGMENT_LENS = {64: [64, 1, 33, 0, 64], 512: [512, 300, 257, 0],
 # decode_step and DECODE_NEW greedy tokens
 MODEL_ARCH, MODEL_SEED = "zamba2_7b", 0
 PREFILL_SHAPE = (4, 2048)
-# DECODE_PROMPT was 1024 until the serving phase took its time
-DECODE_ROWS, DECODE_PROMPT, DECODE_NEW = 4, 128, 32
+# DECODE_PROMPT was 1024 until the serving phase took its time, 128 until
+# the new families' phases (13b-d) took theirs
+DECODE_ROWS, DECODE_PROMPT, DECODE_NEW = 4, 64, 32
 # the reduced-depth fp32 config (full width): one hybrid group and a
 # one-layer tail; prompts of two chunks
 REDUCED = dict(n_layers=3, attn_every=2, dtype="float32")
@@ -342,6 +380,36 @@ CHAT_SHORT, BATCH_SHORT, SERVE_NEW = 7, 9, 32
 SERVE_REDUCED_LAYERS, SERVE_REDUCED_SCALE, SERVE_REDUCED_NEW = 2, 4, 8
 SERVE_REDUCED = dict(n_pages=1024, capacity=256, c_min=8, initial=128,
                      window=64)
+# the new families (ROADMAP §1 item 2): qwen2-moe-a2.7b served at full
+# width through phase 13's deployment and traffic over a 24 GiB pool of
+# 8192 pages (24 layers x 16 KV heads of 128: 3 MiB a page); its 2-layer
+# fp32 card-vs-CPU copy serves MOE_REDUCED_PER_TENANT requests a tenant of
+# the full lengths, MOE_REDUCED_NEW new tokens each (the CPU's dense expert
+# dispatch costs about 177 GFLOP a layer for each 2048-token request)
+MOE_ARCH = "qwen2_moe_a2_7b"
+MOE_REDUCED_LAYERS, MOE_REDUCED_PER_TENANT, MOE_REDUCED_NEW = 2, 2, 8
+# the fp32 runs of the MoE path may first route a request apart only
+# where a token's k-th and (k+1)-th router logits lie within this share of
+# its largest |logit|: a near tie that summation order can flip (the fp32
+# kernels and plain versions put their last logits 1e-6 to 1e-5 of max
+# |logit| apart; ten times that, while a wrong kernel moves them by 1e-2)
+MOE_NEAR_TIE = 1e-4
+# minicpm3-4b (MLA) and seamless-m4t-large-v2 (encoder-decoder) at full
+# width and depth in bf16 from MODEL_SEED: minicpm3 prefills
+# PREFILL_SHAPE, then decodes 4 prompts of MLA_DECODE_PROMPT tokens and
+# FAMILY_DECODE_NEW greedy ones; seamless encodes ENC_ROWS x ENC_FRAMES
+# seeded normal frames, prefills ENC_ROWS prompts of DEC_PROMPT tokens and
+# decodes them; each also at FAMILY_REDUCED_LAYERS layers (and encoder
+# layers) in fp32: prefill against teacher-forced decode over
+# FAMILY_REDUCED_PROMPT tokens, card against CPU over FAMILY_REDUCED_DECODE
+MLA_ARCH, ENCDEC_ARCH = "minicpm3_4b", "seamless_m4t_large_v2"
+# MLA_DECODE_PROMPT cut from 1024: the absorbed decode runs eagerly at
+# about 124 ms a step on the H100 (62 layers of small launches), 130 s for
+# 1056 steps; after zamba2's teacher-forced decode was cut
+MLA_DECODE_PROMPT, FAMILY_DECODE_NEW = 256, 32
+ENC_ROWS, ENC_FRAMES, DEC_PROMPT = 4, 1024, 256
+FAMILY_REDUCED_LAYERS, FAMILY_REDUCED_PROMPT = 2, 256
+FAMILY_REDUCED_DECODE = 4
 # PERF.md section 5's ro_replay stage per window when the RO replays were
 # host loops (this script on NVIDIA H100 80GB HBM3, 700.00 W), printed
 # beside this run's
@@ -2291,8 +2359,8 @@ def model_phase(dev, max_err: dict) -> list[dict]:
 
     (a) bf16 from seed 0: ``prefill`` on 4 prompts of 2048 tokens (one
     warm-up call, then the counted one: 81 ``mamba2_ssd`` and 13
-    ``flash_attention`` launches), then 4 requests of 1024 prompt tokens
-    teacher-forced through ``decode_step`` and 32 greedy tokens (no
+    ``flash_attention`` launches), then 4 requests of ``DECODE_PROMPT``
+    tokens teacher-forced through ``decode_step`` and 32 greedy tokens (no
     launch); (b) the same prefill through the plain versions on the card
     (no launch), and the same model in fp32 (the bf16 parameters are its
     rounding) through both: the fp32 last logits held to 1e-4 of max
@@ -2684,7 +2752,10 @@ def serve_engine(cfg, params, dev, n_pages, capacity, c_min, initial,
                  window, fault_tolerant=None):
     """The deployment: pool, manager, tiered cache and engine; the pool's
     ``allocate`` counts the engine's page-0 fallbacks (an unmanaged,
-    tenant -2, allocation that returns None)."""
+    tenant -2, allocation that returns None) and the most pages taken at
+    once (``peak_pages``: the free list hands out page ids in one order
+    whatever the pool's size, so a pool of more pages than that serves the
+    same traffic the same way)."""
     from repro_torch.cache import BlockPool, TieredKVCache
     from repro_torch.core import ECICacheManager
     from repro_torch.serve.engine import MultiTenantEngine
@@ -2697,12 +2768,13 @@ def serve_engine(cfg, params, dev, n_pages, capacity, c_min, initial,
     tiered = TieredKVCache(pool, mgr, window_events=window)
     eng = MultiTenantEngine(cfg, params, tiered, page_size=SERVE_PAGE,
                             max_pages_per_seq=SERVE_MAX_PAGES)
-    eng.fallbacks = 0
+    eng.fallbacks = eng.peak_pages = 0
     alloc = pool.allocate
 
     def allocate(tenant, *a, **k):
         pid, evicted = alloc(tenant, *a, **k)
         eng.fallbacks += tenant == -2 and pid is None
+        eng.peak_pages = max(eng.peak_pages, pool.n_pages - len(pool.free))
         return pid, evicted
     pool.allocate = allocate
     return eng
@@ -2751,12 +2823,15 @@ def serve_run(eng, traffic, new_tokens: int, crash: bool = False) -> dict:
     return {
         "tokens": [r.generated for r in sorted(eng.completed,
                                                key=lambda r: r.rid)],
+        "pages": [list(r.pages) for r in sorted(eng.completed,
+                                                key=lambda r: r.rid)],
         "summary": summary, "pool_stats": dict(eng.pool.stats),
         "decisions": [(d.sizes.tolist(), [p.value for p in d.policies],
                        bool(d.feasible), d.sizes2.tolist(),
                        [p.value for p in d.policies2], d.guard)
                       for d in mgr.history],
-        "fallbacks": eng.fallbacks, "wall": wall, "times": times,
+        "fallbacks": eng.fallbacks, "peak_pages": eng.peak_pages,
+        "wall": wall, "times": times,
         "aborted_restarts": eng.aborted_restarts,
         "manager_failures": {k: mgr.summary()[k] for k in (
             "dirty_loss", "tier_failures", "degrade_events")},
@@ -2799,6 +2874,117 @@ def held_tokens(kern: dict, plain: dict, ref32: dict, leads32: list,
     return held, ties
 
 
+def paged_row(what: str, cfg, args, margs, step_ms: float, launches: int,
+              max_err: dict, shape: bool = False) -> dict:
+    """``paged_attention`` at decode inputs captured from a serving path
+    (``args``; ``margs`` those of the ``_merge_self`` beside it): every
+    element within 2^-6 |out| + 1e-4 max |out| of ``paged_attention_ref``,
+    then timed beside it, ``_merge_self``, the gather +
+    ``scaled_dot_product_attention`` reading and its bound, a call and the
+    kernels alone (a CUDA graph of the calls), with its split count, and
+    at the first 1 and 4 captured rows.  Returns the kernel's row (with
+    ``shape`` when asked)."""
+    import torch.nn.functional as F
+
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.kernels.paged_attention.kernel import (TILE,
+                                                            paged_attention,
+                                                            split_count)
+    from repro_torch.kernels.paged_attention.ref import (gather_pages,
+                                                         paged_attention_ref)
+    L = cfg.n_layers
+    q, kp, vp, tables, lens = args
+    got = paged_attention(q, kp, vp, tables, lens)
+    want = paged_attention_ref(q, kp, vp, tables, lens)
+    want32, diff = want.float(), (got.float() - want.float()).abs()
+    top, typical = float(want32.abs().max()), float(want32.abs().mean())
+    worst = float((diff / (2.0 ** -6 * want32.abs() + 1e-4 * top)).max())
+    err = float(diff.max())
+    assert got.shape == want.shape and worst <= 1.0, \
+        f"paged_attention at the captured inputs: {worst} of its limit"
+    max_err["paged_attention"] = max(max_err["paged_attention"], err)
+    print(f"check: paged_attention == paged_attention_ref at the captured "
+          f"bf16 {what} inputs (q {list(q.shape)}, pages {list(kp.shape)}, "
+          f"tables {list(tables.shape)}, lengths {lens.min().item()}.."
+          f"{lens.max().item()}): max err {err:.3g} (max |out| {top:.3g}, "
+          f"mean |out| {typical:.3g}); the worst element at {worst:.3g} of "
+          f"its limit 2^-6 |out| + 1e-4 max |out|")
+    ms = cuda_ms(lambda: paged_attention(q, kp, vp, tables, lens), REPS)
+    plain_ms = cuda_ms(lambda: paged_attention_ref(q, kp, vp, tables, lens),
+                       REPS // 4)
+    merge_ms = cuda_ms(lambda: engine_mod._merge_self(*margs), REPS // 4)
+    b, hq, d = q.shape
+    seq = torch.arange(tables.shape[1] * SERVE_PAGE, device=q.device)
+    mask = (seq[None, :] < lens[:, None])[:, None, None, :]
+
+    def gather_sdpa():
+        k = gather_pages(kp, tables).transpose(1, 2)
+        v = gather_pages(vp, tables).transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                              attn_mask=mask, enable_gqa=True)
+    lib_err = float((gather_sdpa()[:, :, 0].float() - want32).abs().max())
+    lib_ms = cuda_ms(gather_sdpa, REPS)
+    seen = int(lens.clamp(max=tables.shape[1] * SERVE_PAGE).sum())
+    esize = q.element_size()
+    nbytes = (seen * cfg.n_kv_heads * d * 2 * esize + 2 * q.numel() * esize
+              + 4 * (tables.numel() + lens.numel()))
+    flops = 4 * hq * d * seen
+    bnd, by = max((nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+                  (flops / PEAK_BF16_PER_S * 1e3, "operations"))
+    print(f"paged_attention at the {what} shape (B {b}, {seen} positions "
+          f"seen): {ms:.4f} ms, paged_attention_ref {plain_ms:.3f} ms, "
+          f"_merge_self {merge_ms:.3f} ms; a reading: gather + "
+          f"scaled_dot_product_attention (two calls) {lib_ms:.3f} ms (max "
+          f"diff {lib_err:.3g}); {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+          f"GFLOP: bound {bnd:.4f} ms by {by}; kernel / bound = "
+          f"{ms / bnd:.1f}; of a {step_ms:.2f} ms decode step, {L} kernel "
+          f"launches are {L * ms / step_ms:.1%} and {L} _merge_self "
+          f"{L * merge_ms / step_ms:.1%}")
+    # the split count chosen, the kernels alone (a CUDA graph of the
+    # calls), and the first 1 and 4 rows of the same captured inputs
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    pps = tables.shape[1]
+    n_split, per = split_count(b, cfg.n_kv_heads, pps, SERVE_PAGE,
+                               TILE[q.dtype], sms)
+    alone = graph_ms(lambda: paged_attention(q, kp, vp, tables, lens), REPS)
+    prev = "" if shape else \
+        f" (before its redesign {PREV_MS['paged_attention']} ms)"
+    print(f"paged_attention at B {b}: {n_split} splits of {per} pages "
+          f"({b * cfg.n_kv_heads * n_split} CTAs on {sms} SMs); per call "
+          f"{ms:.4f} ms{prev}, the kernels alone (a CUDA graph of {REPS} "
+          f"calls) {alone:.4f} ms")
+    for rows in (1, 4):
+        sub = (q[:rows].contiguous(), kp, vp, tables[:rows].contiguous(),
+               lens[:rows].contiguous())
+        got_s = paged_attention(*sub).float()
+        want_s = paged_attention_ref(*sub).float()
+        lim = 2.0 ** -6 * want_s.abs() + 1e-4 * float(want_s.abs().max())
+        assert bool(((got_s - want_s).abs() <= lim).all()), \
+            f"paged_attention at the first {rows} captured rows"
+        ns, ps = split_count(rows, cfg.n_kv_heads, pps, SERVE_PAGE,
+                             TILE[q.dtype], sms)
+        seen_s = int(sub[4].clamp(max=pps * SERVE_PAGE).sum())
+        bytes_s = (seen_s * cfg.n_kv_heads * d * 2 * esize
+                   + 2 * sub[0].numel() * esize
+                   + 4 * (sub[3].numel() + sub[4].numel()))
+        print(f"paged_attention at the first {rows} captured row(s) ({seen_s}"
+              f" positions; {ns} splits of {ps} pages, "
+              f"{rows * cfg.n_kv_heads * ns} CTAs; within its element limit): "
+              f"{cuda_ms(lambda: paged_attention(*sub), REPS):.4f} ms a call, "
+              f"{graph_ms(lambda: paged_attention(*sub), REPS):.4f} ms alone; "
+              f"bound {bytes_s / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes")
+    row = {"name": "paged_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                     "paged_attention.cu",
+           "replaces": "src/repro/kernels/paged_attention/kernel.py:76",
+           "launches": launches, "max_abs_err": None,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+           "library_ms": None}
+    if shape:
+        row["shape"] = what
+    return row
+
+
 def serving_phase(dev, max_err: dict) -> list[dict]:
     """Phase 13: the multi-tenant serving path, qwen3-0.6b at full width.
 
@@ -2819,18 +3005,12 @@ def serving_phase(dev, max_err: dict) -> list[dict]:
     reduced traffic: the card against the port's CPU engine, exactly,
     logits within 1e-5.  Also ``flash_attention`` at the captured layer-0
     prefill inputs (``attention_row``).  Returns the two kernels' rows."""
-    import torch.nn.functional as F
-
     import repro_torch.kernels.flash_attention.ops as fa_ops
     import repro_torch.models.attention as attention
     import repro_torch.serve.engine as engine_mod
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ref import blockwise_attention
-    from repro_torch.kernels.paged_attention.kernel import (TILE,
-                                                            paged_attention,
-                                                            split_count)
-    from repro_torch.kernels.paged_attention.ref import (gather_pages,
-                                                         paged_attention_ref)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     from repro_torch.models import model as M
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2917,94 +3097,9 @@ def serving_phase(dev, max_err: dict) -> list[dict]:
           f"(median {np.median(pre) * 1e3:.2f} ms), {L} flash_attention "
           f"launches a request at {fa_row['ms']:.3f} ms each: "
           f"{L * fa_row['ms'] / (np.median(pre) * 1e3):.1%} of a request")
-    q, kp, vp, tables, lens = pa_rec.args
-    got = paged_attention(q, kp, vp, tables, lens)
-    want = paged_attention_ref(q, kp, vp, tables, lens)
-    want32, diff = want.float(), (got.float() - want.float()).abs()
-    top, typical = float(want32.abs().max()), float(want32.abs().mean())
-    worst = float((diff / (2.0 ** -6 * want32.abs() + 1e-4 * top)).max())
-    err = float(diff.max())
-    assert got.shape == want.shape and worst <= 1.0, \
-        f"paged_attention at the captured inputs: {worst} of its limit"
-    max_err["paged_attention"] = max(max_err["paged_attention"], err)
-    print(f"check: paged_attention == paged_attention_ref at the captured "
-          f"bf16 decode inputs (q {list(q.shape)}, pages {list(kp.shape)}, "
-          f"tables {list(tables.shape)}, lengths {lens.min().item()}.."
-          f"{lens.max().item()}): max err {err:.3g} (max |out| {top:.3g}, "
-          f"mean |out| {typical:.3g}); the worst element at {worst:.3g} of "
-          f"its limit 2^-6 |out| + 1e-4 max |out|")
-    ms = cuda_ms(lambda: paged_attention(q, kp, vp, tables, lens), REPS)
-    plain_ms = cuda_ms(lambda: paged_attention_ref(q, kp, vp, tables, lens),
-                       REPS // 4)
-    margs = merge_rec.args
-    merge_ms = cuda_ms(lambda: engine_mod._merge_self(*margs), REPS // 4)
-    b, hq, d = q.shape
-    seq = torch.arange(tables.shape[1] * SERVE_PAGE, device=q.device)
-    mask = (seq[None, :] < lens[:, None])[:, None, None, :]
-
-    def gather_sdpa():
-        k = gather_pages(kp, tables).transpose(1, 2)
-        v = gather_pages(vp, tables).transpose(1, 2)
-        return F.scaled_dot_product_attention(q[:, :, None], k, v,
-                                              attn_mask=mask, enable_gqa=True)
-    lib_err = float((gather_sdpa()[:, :, 0].float() - want32).abs().max())
-    lib_ms = cuda_ms(gather_sdpa, REPS)
-    seen = int(lens.clamp(max=tables.shape[1] * SERVE_PAGE).sum())
-    esize = q.element_size()
-    nbytes = (seen * cfg.n_kv_heads * d * 2 * esize + 2 * q.numel() * esize
-              + 4 * (tables.numel() + lens.numel()))
-    flops = 4 * hq * d * seen
-    bnd, by = max((nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
-                  (flops / PEAK_BF16_PER_S * 1e3, "operations"))
-    print(f"paged_attention at the decode shape (B {b}, {seen} positions "
-          f"seen): {ms:.4f} ms, paged_attention_ref {plain_ms:.3f} ms, "
-          f"_merge_self {merge_ms:.3f} ms; a reading: gather + "
-          f"scaled_dot_product_attention (two calls) {lib_ms:.3f} ms (max "
-          f"diff {lib_err:.3g}); {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
-          f"GFLOP: bound {bnd:.4f} ms by {by}; kernel / bound = "
-          f"{ms / bnd:.1f}; of a {step_ms:.2f} ms decode step, {L} kernel "
-          f"launches are {L * ms / step_ms:.1%} and {L} _merge_self "
-          f"{L * merge_ms / step_ms:.1%}")
-    # the split count chosen, the kernels alone (a CUDA graph of the
-    # calls), and the first 1 and 4 rows of the same captured inputs
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    pps = tables.shape[1]
-    n_split, per = split_count(b, cfg.n_kv_heads, pps, SERVE_PAGE,
-                               TILE[q.dtype], sms)
-    alone = graph_ms(lambda: paged_attention(q, kp, vp, tables, lens), REPS)
-    print(f"paged_attention at B {b}: {n_split} splits of {per} pages "
-          f"({b * cfg.n_kv_heads * n_split} CTAs on {sms} SMs); per call "
-          f"{ms:.4f} ms (before its redesign {PREV_MS['paged_attention']} ms),"
-          f" the kernels alone (a CUDA graph of {REPS} calls) {alone:.4f} "
-          f"ms")
-    for rows in (1, 4):
-        sub = (q[:rows].contiguous(), kp, vp, tables[:rows].contiguous(),
-               lens[:rows].contiguous())
-        got_s = paged_attention(*sub).float()
-        want_s = paged_attention_ref(*sub).float()
-        lim = 2.0 ** -6 * want_s.abs() + 1e-4 * float(want_s.abs().max())
-        assert bool(((got_s - want_s).abs() <= lim).all()), \
-            f"paged_attention at the first {rows} captured rows"
-        ns, ps = split_count(rows, cfg.n_kv_heads, pps, SERVE_PAGE,
-                             TILE[q.dtype], sms)
-        seen_s = int(sub[4].clamp(max=pps * SERVE_PAGE).sum())
-        bytes_s = (seen_s * cfg.n_kv_heads * d * 2 * esize
-                   + 2 * sub[0].numel() * esize
-                   + 4 * (sub[3].numel() + sub[4].numel()))
-        print(f"paged_attention at the first {rows} captured row(s) ({seen_s}"
-              f" positions; {ns} splits of {ps} pages, "
-              f"{rows * cfg.n_kv_heads * ns} CTAs; within its element limit): "
-              f"{cuda_ms(lambda: paged_attention(*sub), REPS):.4f} ms a call, "
-              f"{graph_ms(lambda: paged_attention(*sub), REPS):.4f} ms alone; "
-              f"bound {bytes_s / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes")
-    row = {"name": "paged_attention", "route": "cuda",
-           "source": "src/repro_torch/kernels/paged_attention/csrc/"
-                     "paged_attention.cu",
-           "replaces": "src/repro/kernels/paged_attention/kernel.py:76",
-           "launches": launches["paged_attention"], "max_abs_err": None,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-           "library_ms": None}
-    del eng, q, kp, vp, tables, lens, margs, got, want, want32, diff, mask
+    row = paged_row("decode", cfg, pa_rec.args, merge_rec.args, step_ms,
+                    launches["paged_attention"], max_err)
+    del eng
     pa_rec.args = merge_rec.args = None
     free_cards()
 
@@ -3135,6 +3230,764 @@ def serving_phase(dev, max_err: dict) -> list[dict]:
     row["max_abs_err"] = max_err["paged_attention"]
     fa_row["max_abs_err"] = max_err["flash_attention"]
     return [row, fa_row]
+
+
+class ShapeRecorder(Recorder):
+    """A ``Recorder`` of ``flash_attention``-like calls that keeps the
+    first call's arguments for each (q's shape, k's shape, causal) and
+    counts the calls of each in ``by_key``."""
+
+    def __enter__(self):
+        self.first, self.by_key = {}, collections.Counter()
+
+        def wrapped(*a, **k):
+            self.calls += 1
+            key = (tuple(a[0].shape), tuple(a[1].shape), k.get("causal"))
+            self.first.setdefault(key, (a, k))
+            self.by_key[key] += 1
+            return self.fn(*a, **k)
+        setattr(self.module, self.name, wrapped)
+        return self
+
+
+class FfnTimer:
+    """Wraps the model's and the engine's ``_ffn`` (both still run): CUDA
+    events around every call, split into prefill calls (S > 1) and decode
+    calls (S = 1), and the routed experts' dropped choices of the prefill
+    calls, summed on the card (``layers.moe_route`` wrapped too)."""
+
+    def __init__(self, *modules):
+        from repro_torch.models import layers
+        self.modules, self.layers = modules, layers
+        self.events = {"prefill": [], "decode": []}
+        self.dropped = self.choices = 0
+
+    def __enter__(self):
+        self.saved = [m._ffn for m in self.modules]
+        self.saved_route = self.layers.moe_route
+
+        def make(fn):
+            def ffn(p, hn, cfg):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                out = fn(p, hn, cfg)
+                t1.record()
+                self.events["decode" if hn.shape[1] == 1 else
+                            "prefill"].append((t0, t1))
+                return out
+            return ffn
+
+        def route(x, p, cfg):
+            r = self.saved_route(x, p, cfg)
+            if x.shape[1] > 1:
+                self.dropped = self.dropped + (~r.keep).sum()
+                self.choices += r.keep.numel()
+            return r
+        for m, fn in zip(self.modules, self.saved):
+            m._ffn = make(fn)
+        self.layers.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in zip(self.modules, self.saved):
+            m._ffn = fn
+        self.layers.moe_route = self.saved_route
+
+    def ms(self, kind: str) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events[kind])
+
+
+class RouteLog:
+    """Wraps ``layers.moe_route`` (which still runs) and keeps each call's
+    expert ids and, per token, the gap between its k-th and (k+1)-th
+    router logits over its largest |logit| (the call's routing margin)."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers, self.calls = layers, []
+
+    def __enter__(self):
+        self.saved = self.layers.moe_route
+
+        def route(x, p, cfg):
+            r = self.saved(x, p, cfg)
+            logits = x.float() @ p["router"].float()
+            top = logits.topk(cfg.top_k + 1, dim=-1).values
+            gap = (top[..., -2] - top[..., -1]) / logits.abs().amax(-1)
+            self.calls.append((r.idx, gap))
+            return r
+        self.layers.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.saved
+
+
+def route_differences(got: RouteLog, want: RouteLog, layers: int,
+                      pages: list | None = None) -> dict:
+    """Call by call (both runs route in the same order: each prefill
+    request's ``layers`` calls in rid order, then each decode step's, a
+    row a request): the token-layers routed and routed apart (their sets
+    of chosen experts differ), ``want``'s routing margins at each
+    request's first difference (``margins``), and the requests with a
+    difference (``touched``).  Past a request's first
+    difference its tokens' inputs differ (the flipped token's hidden state,
+    and through attention the rest of its request), so later differences
+    are consequences; so is a decode difference of a request that shares a
+    page (``pages``: each request's page ids) with a request whose prefill
+    differed, since it reads the KV that prefill wrote (``excused``)."""
+    assert len(got.calls) == len(want.calls)
+    share = [set() for _ in pages or []]
+    for i, a in enumerate(pages or []):
+        for j, b in enumerate(pages):
+            if i != j and set(a) & set(b):
+                share[i].add(j)
+    out = {"routed": 0, "apart": 0, "margins": [], "touched": set(),
+           "excused": set()}
+    touched, prefill_touched, prefill_calls = out["touched"], set(), 0
+    for (gi, _), (wi, wgap) in zip(got.calls, want.calls):
+        # the chosen set: an order swap inside the top k (two of its
+        # logits near a tie) leaves the gates, queues and output as they
+        # were
+        diff = (gi.sort(-1).values != wi.sort(-1).values).any(-1)  # [B, S]
+        out["routed"] += diff.numel()
+        out["apart"] += int(diff.sum())
+        prefill = gi.shape[1] > 1                # a prefill call, B = 1
+        if prefill:
+            first = {prefill_calls // layers: diff[0]}
+            prefill_calls += 1
+        else:                                    # a decode step, S = 1
+            first = {i: diff[i] for i in
+                     diff.any(-1).nonzero().flatten().tolist()}
+        for req, d in first.items():
+            if req in touched or not bool(d.any()):
+                continue
+            touched.add(req)
+            if prefill:
+                prefill_touched.add(req)
+            elif share and share[req] & prefill_touched:
+                out["excused"].add(req)
+                continue
+            gaps = wgap[0] if prefill else wgap[req]
+            out["margins"].append(float(gaps[d].max()))
+    return out
+
+
+def hold_routed(what: str, got: RouteLog, want: RouteLog, layers: int,
+                pairs, pages: list | None = None) -> str:
+    """The MoE runs' fp32 rule (``route_differences``): routing equal
+    until each request's first difference, which must be at near ties
+    (margin <= ``MOE_NEAR_TIE`` of the token's largest |logit|: summation
+    order can flip a top-k there, and the choice is discrete) unless it is
+    downstream of another request's prefill difference, and each (got,
+    want) pair of logits [requests, V] within 1e-4 of max |logit| in every
+    request whose routing was equal at every layer, prefill and decode.
+    Returns what it found, for the check's line."""
+    r = route_differences(got, want, layers, pages)
+    margin = max(r["margins"], default=0.0)
+    print(f"{what}: first differences at routing margins "
+          f"{sorted(r['margins'])} of max |logit|; requests touched "
+          f"{sorted(r['touched'])}, of which downstream of a shared page "
+          f"{sorted(r['excused'])}")
+    assert margin <= MOE_NEAR_TIE, \
+        f"{what}: routing apart at a margin of {margin} (> {MOE_NEAR_TIE})"
+    errs = []
+    for g, w in pairs:
+        row = ((g.float() - w.float()).abs().amax(-1)
+               / w.float().abs().max()).tolist()
+        clean = [e for i, e in enumerate(row) if i not in r["touched"]]
+        worst = max(clean, default=0.0)
+        assert worst <= 1e-4, f"{what}: logits {worst} of max |logit|"
+        errs.append(f"{worst:.3g} ({max(row):.3g} with the touched)")
+    return (f"{r['apart']} of {r['routed']} token-layers routed apart, "
+            f"{len(r['margins'])} first differences at near ties (largest "
+            f"margin {margin:.3g} of max |logit|, limit {MOE_NEAR_TIE}), "
+            f"{len(r['excused'])} downstream of a shared page; logits "
+            f"within {', '.join(errs)} of max |logit| where routing agreed "
+            f"(tolerance 1e-4)")
+
+
+def moe_serving_phase(dev, max_err: dict) -> list[dict]:
+    """Phase 13b: the MoE serving path, qwen2-moe-a2.7b at full width.
+
+    (a) bf16 from seed 0 over a 24 GiB pool of 8192 16-token pages (the
+    manager, tenants and traffic of phase 13): 32 x 24 ``flash_attention``
+    launches in prefill and 31 decode steps x 24 ``paged_attention`` (a
+    KV group of 1), counted; no page-0 fallback; prefill and decode times,
+    the MoE FFN's share of each (CUDA events) and the routed experts' drop
+    share in prefill.  (b) both kernels at the captured layer-0 inputs
+    (``attention_row``, ``paged_row``).  (c) the same traffic through the
+    plain versions on the card: summaries, pool stats, quotas, policies and
+    decisions exactly equal; then in fp32 through both, over a pool of the
+    pages the bf16 run took at once (the fp32 weights, 57 GB, leave no room
+    for 8192 fp32 pages): the same equalities, fp32 tokens equal, last
+    logits within 1e-4 of max |logit|, the bf16 tokens held by the model
+    phase's rule.  (d) 2 layers at full width in fp32, 2 requests a tenant
+    and 8 new tokens: the card against the port's CPU engine (tokens,
+    summaries and decisions equal, logits within 1e-4 of max |logit|).
+    Returns the two kernels' rows."""
+    import repro_torch.kernels.flash_attention.ops as fa_ops
+    import repro_torch.models.attention as attention
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import blockwise_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import moe_capacity
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MOE_ARCH)
+    L, V = cfg.n_layers, cfg.vocab_size
+    full = dict(n_pages=SERVE_POOL, capacity=SERVE_CAPACITY,
+                c_min=SERVE_C_MIN, initial=SERVE_INITIAL,
+                window=SERVE_WINDOW)
+    traffic = serve_traffic(V)
+    n_req = len(traffic)
+    page_bytes = L * SERVE_PAGE * cfg.n_kv_heads * cfg.head_dim * 2 * 2
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=SERVE_SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"MoE serving: {cfg.name} at full width ({L} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} query / {cfg.n_kv_heads} KV heads "
+          f"of {cfg.head_dim}; {cfg.n_experts} routed experts, top "
+          f"{cfg.top_k}, expert d_ff {cfg.expert_d_ff}, shared d_ff "
+          f"{cfg.shared_d_ff}, capacity factor {cfg.capacity_factor}; vocab "
+          f"{V}); n_params() {cfg.n_params():,}, {_leaf_count(params):,} in "
+          f"the tree, {cfg.dtype} from seed {SERVE_SEED} in "
+          f"{time.perf_counter() - t0:.1f} s; pool {SERVE_POOL} pages of "
+          f"{SERVE_PAGE} tokens ({page_bytes / 2**20:.2f} MiB a page, "
+          f"{SERVE_POOL * page_bytes / 2**30:.2f} GiB); the phase 13 "
+          f"manager and traffic ({n_req} requests, {SERVE_NEW} new tokens)")
+
+    # ------------------------------------ (a) the main path, bf16
+    want_fa, want_pa = n_req * L, (SERVE_NEW - 1) * L
+    eng = serve_engine(cfg, params, dev, **full)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Tap(engine_mod, V) as tap, \
+            Recorder(engine_mod, "paged_attention") as pa_rec, \
+            Recorder(engine_mod, "_merge_self") as merge_rec, \
+            Recorder(fa_ops, "flash_attention") as fa_rec, \
+            FfnTimer(M, engine_mod) as ffn:
+        zero_counts()
+        run = serve_run(eng, traffic, SERVE_NEW)
+        launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert launches["flash_attention"] == want_fa and \
+        launches["paged_attention"] == want_pa, \
+        f"MoE serving launches {launches}, predicted flash_attention " \
+        f"{want_fa}, paged_attention {want_pa}"
+    assert run["fallbacks"] == 0, f"{run['fallbacks']} page-0 fallbacks"
+    assert all(len(t) == SERVE_NEW and all(0 <= x < V for x in t)
+               for t in run["tokens"])
+    assert bool(torch.isfinite(tap.last).all())
+    pre, dec = run["times"]["prefill"], run["times"]["decode"]
+    step_ms = float(np.median(dec)) * 1e3
+    ffn_pre, ffn_dec = ffn.ms("prefill"), ffn.ms("decode")
+    drop = int(ffn.dropped) / max(ffn.choices, 1)
+    s = run["summary"]
+    print(f"MoE serving bf16 (kernels): {run['wall']:.2f} s; prefill "
+          f"{sum(pre) * 1e3:.1f} ms for {n_req} requests (median "
+          f"{np.median(pre) * 1e3:.2f} ms a request, "
+          f"{run['prompt_tokens'] / sum(pre):.0f} tokens/s); decode "
+          f"{len(dec)} steps at B {n_req}: median {step_ms:.2f} ms a step "
+          f"(min {min(dec) * 1e3:.2f}, max {max(dec) * 1e3:.2f}; "
+          f"{n_req / np.median(dec):.0f} tokens/s); peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)} "
+          f"(flash_attention {want_fa}, paged_attention {want_pa} "
+          f"predicted); page-0 fallbacks 0; {run['peak_pages']} pages taken "
+          f"at once")
+    print(f"MoE FFN (CUDA events around each call): prefill "
+          f"{ffn_pre:.1f} ms of {sum(pre) * 1e3:.1f} ms "
+          f"({ffn_pre / (sum(pre) * 1e3):.1%}), decode {ffn_dec:.1f} ms of "
+          f"{sum(dec) * 1e3:.1f} ms ({ffn_dec / (sum(dec) * 1e3):.1%}; "
+          f"{ffn_dec / len(dec):.2f} ms a step, every expert for every "
+          f"row); routed choices dropped in prefill {int(ffn.dropped)} of "
+          f"{ffn.choices} ({drop:.2%}; {moe_capacity(cfg, BATCH_PROMPT, cfg.n_experts)}"
+          f" slots an expert in a {BATCH_PROMPT}-token request)")
+    print(f"MoE serving tiered summary: hbm_hit_ratio "
+          f"{s['hbm_hit_ratio']:.4f}, hbm_writes {s['hbm_writes']}, "
+          f"bypassed_writes {s['bypassed_writes']}, resident_pages "
+          f"{s['resident_pages']}, quotas {s['quotas']}, policies "
+          f"{s['policies']}; pool stats {run['pool_stats']}; "
+          f"{run['rebalances']} rebalances in {run['rebalance_s']:.3f} s")
+
+    # ------------------ (b) the kernels at the captured layer-0 inputs
+    fa_row = attention_row(
+        f"{cfg.name} serving prefill", *fa_rec.args[:3],
+        dict(causal=fa_rec.kwargs["causal"], window=fa_rec.kwargs["window"]),
+        launches["flash_attention"], None, max_err)
+    fa_rec.args = None
+    print(f"MoE serving prefill: {L} flash_attention launches a request at "
+          f"{fa_row['ms']:.3f} ms each: "
+          f"{L * fa_row['ms'] / (np.median(pre) * 1e3):.1%} of a request "
+          f"(median {np.median(pre) * 1e3:.2f} ms), the MoE FFN "
+          f"{ffn_pre / n_req:.2f} ms a request")
+    pa_row = paged_row(f"{cfg.name} serving decode (KV group 1)", cfg,
+                       pa_rec.args, merge_rec.args, step_ms,
+                       launches["paged_attention"], max_err, shape=True)
+    del eng
+    pa_rec.args = merge_rec.args = None
+    free_cards()
+
+    # ---- (c) the plain versions on the card; the model in fp32 as well
+    def plain(prm, c, pool):
+        saved = (engine_mod.paged_attention, attention.prefill_attention)
+        engine_mod.paged_attention = paged_attention_ref
+        attention.prefill_attention = blockwise_attention
+        try:
+            with Tap(engine_mod, V) as t:
+                zero_counts()
+                out = serve_run(serve_engine(c, prm, dev, **pool), traffic,
+                                SERVE_NEW)
+                got = read_counts()
+            assert got["flash_attention"] == got["paged_attention"] == 0, \
+                f"the plain run launched {got}"
+        finally:
+            engine_mod.paged_attention, attention.prefill_attention = saved
+        free_cards()
+        return out, t
+
+    plain16, ptap16 = plain(params, cfg, full)
+    compare_serving("MoE bf16 plain vs kernels", plain16, run)
+    del params
+    free_cards()
+    pool32 = {**full, "n_pages": run["peak_pages"] + 4 * SERVE_PAGE}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = M.init_params(cfg32, seed=SERVE_SEED, device=dev)
+    with Tap(engine_mod, V) as ktap32, RouteLog() as kroute:
+        kern32 = serve_run(serve_engine(cfg32, params32, dev, **pool32),
+                           traffic, SERVE_NEW)
+    peak32 = torch.cuda.max_memory_allocated()
+    free_cards()
+    with RouteLog() as proute:
+        plain32, ptap32 = plain(params32, cfg32, pool32)
+    del params32
+    free_cards()
+    compare_serving("MoE fp32 kernels vs bf16 kernels", kern32, run)
+    compare_serving("MoE fp32 plain vs fp32 kernels", plain32, kern32)
+    assert kern32["peak_pages"] == run["peak_pages"]
+    assert kern32["tokens"] == plain32["tokens"], "MoE fp32 tokens differ"
+    # fp32: the kernels and the plain versions sum in other orders (about
+    # 1e-6 relative), which can flip a router's top-k where two experts'
+    # logits nearly tie (hold_routed)
+    routed32 = hold_routed("MoE fp32 kernels vs plain", kroute, proute, L,
+                           [(ktap32.last, ptap32.last)], kern32["pages"])
+    del kroute, proute
+    print(f"check: MoE fp32 routing and last logits, kernels vs plain: "
+          f"{routed32}")
+    noise = _rel(torch.cat(ptap16.prefill), torch.cat(ptap32.prefill))
+    held, ties = held_tokens(run, plain16, plain32,
+                             ptap32.request_leads(), noise)
+    same16 = sum(a == b for a, b in zip(run["tokens"], plain16["tokens"]))
+    print(f"check: MoE serving, kernels vs plain versions on the card over "
+          f"all {n_req} requests: summaries, pool stats, quotas, policies "
+          f"and decisions equal in bf16 and fp32 (fp32 over a pool of "
+          f"{pool32['n_pages']} pages, peak device memory "
+          f"{peak32 / 2**30:.2f} GiB); fp32 tokens equal; bf16: {held} "
+          f"tokens held, {ties} near ties let go (fp32 lead <= {noise:.3g} "
+          f"of max |logit|), {same16} of {n_req} requests' tokens "
+          f"identical; bf16 plain {plain16['wall']:.2f} s, fp32 kernels "
+          f"{kern32['wall']:.2f} s, fp32 plain {plain32['wall']:.2f} s")
+
+    # ------------- (d) reduced depth, full width, fp32: card vs CPU
+    rcfg = dataclasses.replace(cfg, n_layers=MOE_REDUCED_LAYERS,
+                               dtype="float32")
+    rp = M.init_params(rcfg, seed=SERVE_SEED, device=dev)
+    small = serve_traffic(V, per_tenant=MOE_REDUCED_PER_TENANT)
+    out = {}
+    for where, prm in ((dev, rp), (torch.device("cpu"), _to(rp, "cpu"))):
+        t0 = time.perf_counter()
+        with Tap(engine_mod, V) as t, RouteLog() as rl:
+            zero_counts()
+            r = serve_run(serve_engine(rcfg, prm, where, **SERVE_REDUCED),
+                          small, MOE_REDUCED_NEW)
+            got = read_counts()
+        out[where.type] = (r, t, got, time.perf_counter() - t0, rl)
+    (g, gt, glaunch, gs, grl), (c, ct, _, cs, crl) = out[dev.type], \
+        out["cpu"]
+    assert (glaunch["flash_attention"], glaunch["paged_attention"]) == (
+        len(small) * MOE_REDUCED_LAYERS,
+        (MOE_REDUCED_NEW - 1) * MOE_REDUCED_LAYERS), glaunch
+    compare_serving("MoE reduced depth card vs CPU", g, c)
+    assert g["tokens"] == c["tokens"], "MoE reduced depth: tokens differ"
+    grl.calls = [(i.cpu(), gap.cpu()) for i, gap in grl.calls]
+    routed_r = hold_routed("MoE reduced depth card vs CPU", grl, crl,
+                           MOE_REDUCED_LAYERS,
+                           [(torch.cat(gt.prefill).cpu(),
+                             torch.cat(ct.prefill)),
+                            (gt.last.cpu(), ct.last)], g["pages"])
+    print(f"check: MoE reduced depth ({MOE_REDUCED_LAYERS} layers, full "
+          f"width, fp32; {len(small)} requests of "
+          f"{sorted({len(p) for _, p in small})} tokens, {MOE_REDUCED_NEW} "
+          f"new each; {g['rebalances']} rebalances) card ({gs:.1f} s) vs CPU "
+          f"({cs:.1f} s): tokens, summaries, pool stats and decisions "
+          f"equal; {routed_r} (prefill, then the last decode step)")
+    del rp
+    free_cards()
+    fa_row["max_abs_err"] = max_err["flash_attention"]
+    pa_row["max_abs_err"] = max_err["paged_attention"]
+    return [fa_row, pa_row]
+
+
+def sdpa_backends(q, k, v, causal: bool) -> dict:
+    """``scaled_dot_product_attention`` at these inputs with each of
+    PyTorch's fused backends alone: its ms by CUDA events, or the reason
+    it refused the shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    gqa = k.shape[1] < q.shape[1]
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        def call():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=gqa)
+        try:
+            with sdpa_kernel([backend]):
+                call()
+                torch.cuda.synchronize()
+                out[backend.name] = cuda_ms(call, REPS)
+        except RuntimeError as e:
+            out[backend.name] = "refused (" + str(e).strip().split(".")[0] \
+                + ")"
+    return out
+
+
+def fa_instance_pair(q, k, v, causal: bool, max_err: dict) -> tuple:
+    """MLA's bf16 (96, 64) attention on contiguous ``[B, H, S, D]`` copies
+    of the captured inputs through the <6, 1> instance (the wrapper) and
+    through the padded <8, 2> path it replaced (the library called with q
+    and k zero-padded to 128 columns and the scale of 96: what D = 96 ran
+    before, there zero-filled by TMA past column 96), each held element by
+    element to ``attention_ref``.  Returns (ms of <6, 1>, ms of <8, 2>)."""
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    F = torch.nn.functional
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    b, hq, sq, d = qc.shape
+    hkv, skv, dv = kc.shape[1], kc.shape[2], vc.shape[-1]
+    qp = F.pad(qc, (0, 128 - d)).contiguous()
+    kp = F.pad(kc, (0, 128 - d)).contiguous()
+    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *(st for t in (qp, kp, vc, out) for st in fak._strides(t)))
+    lib = fak._lib()
+
+    def padded():
+        err = lib.flash_attention(
+            qp.data_ptr(), kp.data_ptr(), vc.data_ptr(), out.data_ptr(),
+            strides, b, hq, hkv, sq, skv, 128, dv, 1.0 / math.sqrt(d),
+            int(causal), 0, fak.DTYPES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"flash_attention <8, 2> launch failed ({err})"
+        return out
+
+    want = attention_ref(qc, kc, vc, causal=causal).float()
+    limit = 2.0 ** -6 * want.abs() + 1e-4 * float(want.abs().max())
+    for name, got in (("<6, 1>", fak.flash_attention(qc, kc, vc,
+                                                     causal=causal)),
+                      ("<8, 2>", padded())):
+        diff = (got.float() - want).abs()
+        worst = float((diff / limit).max())
+        assert worst <= 1.0, f"flash_attention {name}: {worst} of its limit"
+        max_err["flash_attention"] = max(max_err["flash_attention"],
+                                         float(diff.max()))
+    new_ms = cuda_ms(lambda: fak.flash_attention(qc, kc, vc, causal=causal),
+                     REPS)
+    old_ms = cuda_ms(padded, REPS)
+    return new_ms, old_ms
+
+
+def family_model_phase(dev, max_err: dict, arch: str) -> list[dict]:
+    """Phase 13c (MLA, minicpm3-4b) and 13d (encoder-decoder,
+    seamless-m4t-large-v2) at full width and depth on the card.
+
+    (a) bf16 from seed 0: ``prefill`` (one warm-up call, then the counted
+    one): minicpm3 on 4 prompts of 2048 tokens, 62 ``flash_attention``
+    launches on the <6, 1> instance; seamless on 4 x 1024 encoder frames
+    of seeded normal embeddings and 4 decoder prompts of 256 tokens, 72
+    launches (24 encoder, non-causal; 24 decoder self, causal; 24 cross,
+    non-causal, Sq 256 over Skv 1024).  Then ``decode_step``: minicpm3
+    teacher-forces 4 prompts of 256 tokens (the absorbed MLA decode) and
+    takes 32 greedy tokens; seamless fills each decoder layer's cross
+    caches with ``cross_attention_kv`` from the encoder's output, then
+    teacher-forces its 256-token prompts and takes 32 greedy tokens; no
+    launch.  (b) the same prefill through the plain versions on the card,
+    and in fp32 through both, as phase 12: fp32 last logits within 1e-4
+    of max |logit|, greedy tokens equal; bf16 greedy tokens equal to the
+    plain run's.  (c) 2 layers (and 2 encoder layers) at full width in
+    fp32: prefill against teacher-forced decode over 256 tokens (2e-4,
+    the reference's bound), and the card against the CPU (1e-4).  (d)
+    each captured prefill shape held to ``attention_ref`` element by
+    element and timed (``attention_row``) beside
+    ``scaled_dot_product_attention`` with each fused backend alone; for
+    MLA also the <6, 1> instance beside the padded <8, 2> path.  Returns
+    the ``flash_attention`` rows, one a shape."""
+    import repro_torch.kernels.flash_attention.ops as fa_ops
+    import repro_torch.models.attention as attention
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import blockwise_attention
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import cross_attention_kv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch)
+    V = cfg.vocab_size
+    encdec = cfg.n_enc_layers > 0
+    per_layer = 3 if encdec else 1
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=MODEL_SEED, device=dev)
+    torch.cuda.synchronize()
+    attn = (f"MLA: {cfg.n_heads} heads, q_lora {cfg.q_lora_rank}, kv_lora "
+            f"{cfg.kv_lora_rank}, nope {cfg.qk_nope_dim} + rope "
+            f"{cfg.qk_rope_dim}, v {cfg.v_head_dim}" if not encdec else
+            f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers, "
+            f"{cfg.n_heads} heads of {cfg.head_dim}, the speech frontend a "
+            f"stub")
+    print(f"model: {cfg.name} at full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}; {attn}; d_ff {cfg.d_ff}, vocab {V}); n_params() "
+          f"{cfg.n_params():,}, {_leaf_count(params):,} in the tree, "
+          f"{cfg.dtype} from seed {MODEL_SEED} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(MODEL_SEED)
+    if encdec:
+        shape = (ENC_ROWS, DEC_PROMPT)
+        enc = torch.as_tensor(rng.standard_normal(
+            (ENC_ROWS, ENC_FRAMES, cfg.d_model)), dtype=torch.float32,
+            device=dev)
+    else:
+        shape, enc = PREFILL_SHAPE, None
+    prompts = torch.as_tensor(rng.integers(0, V, shape), device=dev)
+
+    def enc_kw(dtype, rows=None):
+        if enc is None:
+            return {}
+        return {"enc_embeds": enc[:rows].to(dtype)}
+
+    bf16 = torch.bfloat16
+    want_fa = per_layer * cfg.n_layers
+    with ShapeRecorder(fa_ops, "flash_attention") as fa_rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M.prefill(params, cfg, prompts, **enc_kw(bf16))          # warm-up
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        fa_rec.by_key.clear()
+        zero_counts()
+        t0 = time.perf_counter()
+        logits = M.prefill(params, cfg, prompts, **enc_kw(bf16))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre_launches = read_counts()
+    by_shape = fa_rec.by_key
+    pre_peak = torch.cuda.max_memory_allocated()
+    assert pre_launches["flash_attention"] == want_fa and \
+        sum(pre_launches.values()) == want_fa, \
+        f"{cfg.name} prefill launches {pre_launches}, predicted {want_fa}"
+    assert logits.shape == (shape[0], cfg.padded_vocab())
+    assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
+    ntok = shape[0] * shape[1]
+    frames = f" over {ENC_ROWS} x {ENC_FRAMES} encoder frames" if encdec \
+        else ""
+    print(f"{cfg.name} prefill {shape[0]} x {shape[1]}{frames} bf16: "
+          f"{prefill_s * 1e3:.1f} ms ({ntok / prefill_s:.0f} decoder tokens/s"
+          f"; warm-up call {warm_s * 1e3:.1f} ms); peak device memory "
+          f"{pre_peak / 2**30:.2f} GiB; launches {json.dumps(pre_launches)} "
+          f"== predicted (flash_attention {want_fa}: "
+          f"{dict((f'{q[2]}x{kk[2]} causal={c}', n) for (q, kk, c), n in by_shape.items())})")
+
+    # ------------------------------------------------ decode, bf16
+    if encdec:
+        req, new_tokens = prompts, FAMILY_DECODE_NEW
+    else:
+        req = torch.as_tensor(rng.integers(0, V, (PREFILL_SHAPE[0],
+                                                  MLA_DECODE_PROMPT)),
+                              device=dev)
+        new_tokens = FAMILY_DECODE_NEW
+    rows_n, plen = req.shape
+
+    def filled_cache(prm, c, rows, length, kw, where=dev):
+        """A zero decode cache on ``where``; the encoder-decoder's cross
+        K/V projected from the encoder's output, decoder layer by layer."""
+        cache = M.init_decode_cache(c, rows, length, device=where,
+                                    enc_len=ENC_FRAMES if kw else 0)
+        if kw:
+            out = M._encode(prm, c, kw["enc_embeds"])
+            for i in range(c.n_layers):
+                ck, cv = cross_attention_kv(M._layer(prm, i)["cross"], out, c)
+                cache["cross_k"][i], cache["cross_v"][i] = ck, cv
+        return cache
+
+    cache = filled_cache(params, cfg, rows_n, plen + new_tokens,
+                         enc_kw(bf16))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    for t in range(plen):
+        out, cache = M.decode_step(params, cfg, req[:, t], cache)
+    torch.cuda.synchronize()
+    forced_s = time.perf_counter() - t0
+    tok, new = out.argmax(-1), []
+    t0 = time.perf_counter()
+    for _ in range(new_tokens):
+        new.append(tok)
+        out, cache = M.decode_step(params, cfg, tok, cache)
+        tok = out.argmax(-1)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    dec_launches = read_counts()
+    dec_peak = torch.cuda.max_memory_allocated()
+    new = torch.stack(new, 1)
+    assert not any(dec_launches.values()), f"decode launched {dec_launches}"
+    assert bool(torch.isfinite(out[:, :V]).all())
+    assert bool((out[:, V:] == -1e30).all())
+    assert cache["len"].tolist() == [plen + new_tokens] * rows_n
+    assert bool(((new >= 0) & (new < V)).all())
+    steps = plen + new_tokens
+    kind = "the absorbed MLA decode over the latent cache" if not encdec \
+        else f"self attention and cross attention over {ENC_FRAMES} frames"
+    print(f"{cfg.name} decode: {rows_n} requests x ({plen} teacher-forced + "
+          f"{new_tokens} greedy) bf16, {kind}: "
+          f"{forced_s / plen * 1e3:.2f} ms a teacher-forced step, "
+          f"{greedy_s / new_tokens * 1e3:.2f} ms a greedy step "
+          f"({rows_n * steps / (forced_s + greedy_s):.1f} tokens/s); peak "
+          f"device memory {dec_peak / 2**30:.2f} GiB; launches "
+          f"{json.dumps(dec_launches)} (none predicted); first request's "
+          f"greedy tokens {new[0, :8].tolist()}...")
+    del cache
+
+    # ---------------- the same prefill through the plain versions
+    def plain_prefill(prm, dtype):
+        saved = attention.prefill_attention
+        attention.prefill_attention = blockwise_attention
+        try:
+            zero_counts()
+            out = M.prefill(prm, cfg, prompts, **enc_kw(dtype))
+            torch.cuda.synchronize()
+            assert not any(read_counts().values()), "the plain run launched"
+        finally:
+            attention.prefill_attention = saved
+        return out
+
+    t0 = time.perf_counter()
+    plain_logits = plain_prefill(params, bf16)
+    plain_s = time.perf_counter() - t0
+    del params
+    free_cards()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = M.init_params(cfg32, seed=MODEL_SEED, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    logits32 = M.prefill(params32, cfg32, prompts,
+                         **enc_kw(torch.float32))
+    torch.cuda.synchronize()
+    k32_s = time.perf_counter() - t0
+    assert read_counts()["flash_attention"] == want_fa
+    plain32 = plain_prefill(params32, torch.float32)
+    del params32
+    free_cards()
+    rel32 = _rel(logits32, plain32)
+    noise = _rel(plain_logits, plain32)
+    rel = _rel(logits, plain_logits)
+
+    def greedy(a) -> list[int]:
+        return a[:, :V].argmax(-1).tolist()
+
+    top2 = plain32[:, :V].topk(2, dim=-1).values
+    lead = ((top2[:, 0] - top2[:, 1]) / plain32[:, :V].abs().max()).tolist()
+    assert rel32 <= 1e-4, f"{cfg.name} fp32 kernels vs plain prefill: {rel32}"
+    assert greedy(logits32) == greedy(plain32)
+    assert greedy(logits) == greedy(plain_logits), \
+        f"bf16 greedy tokens: kernels {greedy(logits)}, plain " \
+        f"{greedy(plain_logits)} (fp32 top-1 leads {lead})"
+    print(f"check: {cfg.name} full-width prefill, kernels vs plain versions "
+          f"on the card: fp32 last logits within {rel32:.3g} of max |logit| "
+          f"(tolerance 1e-4), same greedy tokens; bf16: same greedy tokens "
+          f"{greedy(logits)} (fp32 top-1 leads its runner-up by "
+          f"{', '.join(f'{x:.3g}' for x in lead)} of max |logit|), last "
+          f"logits {rel:.3g} of max |logit| apart (the plain bf16 run lies "
+          f"{noise:.3g} from the plain fp32 run); plain bf16 prefill "
+          f"{plain_s * 1e3:.1f} ms, fp32 kernels prefill {k32_s * 1e3:.1f} "
+          f"ms")
+    del plain_logits, logits32, plain32
+
+    # --------------------- 2 layers at full width, fp32
+    rcfg = dataclasses.replace(
+        cfg, n_layers=FAMILY_REDUCED_LAYERS, dtype="float32",
+        n_enc_layers=FAMILY_REDUCED_LAYERS if encdec else 0)
+    rp = M.init_params(rcfg, seed=MODEL_SEED, device=dev)
+    toks = torch.as_tensor(rng.integers(0, V, (1, FAMILY_REDUCED_PROMPT)),
+                           device=dev)
+    rkw = enc_kw(torch.float32, 1)
+    zero_counts()
+    pre = M.prefill(rp, rcfg, toks, **rkw)
+    assert read_counts()["flash_attention"] == per_layer * rcfg.n_layers
+    rc = filled_cache(rp, rcfg, 1, FAMILY_REDUCED_PROMPT, rkw)
+    for t in range(FAMILY_REDUCED_PROMPT):
+        out, rc = M.decode_step(rp, rcfg, toks[:, t], rc)
+    rel = _rel(out[:, :V], pre[:, :V])
+    assert rel <= 2e-4, f"{cfg.name} prefill vs decode (fp32): {rel}"
+    t0 = time.perf_counter()
+    cp = _to(rp, "cpu")
+    ckw = {k: v.cpu() for k, v in rkw.items()}
+    cpu_pre = M.prefill(cp, rcfg, toks.cpu(), **ckw)
+    rel_pre = _rel(pre.cpu(), cpu_pre)
+    gc_ = filled_cache(rp, rcfg, 1, FAMILY_REDUCED_DECODE, rkw)
+    cc_ = filled_cache(cp, rcfg, 1, FAMILY_REDUCED_DECODE, ckw, "cpu")
+    rel_dec = 0.0
+    for t in range(FAMILY_REDUCED_DECODE):
+        lg, gc_ = M.decode_step(rp, rcfg, toks[:, t], gc_)
+        lc, cc_ = M.decode_step(cp, rcfg, toks[:, t].cpu(), cc_)
+        rel_dec = max(rel_dec, _rel(lg[:, :V].cpu(), lc[:, :V]))
+    assert rel_pre <= 1e-4 and rel_dec <= 1e-4, (rel_pre, rel_dec)
+    print(f"check: {cfg.name} at {rcfg.n_layers} layers, fp32, full width: "
+          f"prefill's last logits vs teacher-forced decode's at token "
+          f"{FAMILY_REDUCED_PROMPT}: within {rel:.3g} of max |logit| "
+          f"(tolerance 2e-4, tests/test_models.py:78); card vs CPU "
+          f"({time.perf_counter() - t0:.1f} s on the host): prefill within "
+          f"{rel_pre:.3g}, {FAMILY_REDUCED_DECODE} decode steps within "
+          f"{rel_dec:.3g} of max |logit| (tolerance 1e-4)")
+    del rp, cp, rc, gc_, cc_
+    free_cards()
+
+    # -------------------- the kernel at each captured prefill shape
+    rows = []
+    for key, (a, kw) in fa_rec.first.items():
+        q, k, v = a[:3]
+        qs, ks, causal = key
+        if not encdec:
+            what = f"{cfg.name} prefill (MLA, D {qs[3]} / Dv {v.shape[3]})"
+        elif qs[2] != ks[2]:
+            what = f"{cfg.name} prefill cross attention (Sq {qs[2]}, Skv " \
+                   f"{ks[2]})"
+        else:
+            what = f"{cfg.name} prefill " + ("decoder self attention"
+                                            if causal else "encoder")
+        row = attention_row(what, q, k, v, dict(causal=causal,
+                                                window=kw["window"]),
+                            by_shape[key], None, max_err)
+        backends = sdpa_backends(q, k, v, causal)
+        print(f"scaled_dot_product_attention at {what}, each fused backend "
+              f"alone: " + "; ".join(
+                  f"{n} {m:.3f} ms" if isinstance(m, float) else f"{n} {m}"
+                  for n, m in backends.items()))
+        if not encdec:
+            new_ms, old_ms = fa_instance_pair(q, k, v, causal, max_err)
+            print(f"flash_attention bf16 instances at {what}, contiguous "
+                  f"copies: <6, 1> {new_ms:.3f} ms, the padded <8, 2> path "
+                  f"it replaces {old_ms:.3f} ms ({old_ms / new_ms:.2f}x); "
+                  f"both within the element limit of attention_ref")
+            row["ms_padded_8_2"] = old_ms
+        rows.append(row)
+    fa_rec.first = None
+    assert sum(r["launches"] for r in rows) == want_fa
+    return rows
 
 
 def main() -> int:
@@ -3579,6 +4432,16 @@ def main() -> int:
     serve_rows = serving_phase(dev, max_err)
     print(f"phase seconds: serving {time.perf_counter() - t0:.1f} s")
 
+    # ------ 13b-d. the MoE, MLA and encoder-decoder families at full width
+    t0 = time.perf_counter()
+    family_rows = moe_serving_phase(dev, max_err)
+    print(f"phase seconds: MoE serving (qwen2-moe-a2.7b) "
+          f"{time.perf_counter() - t0:.1f} s")
+    for arch in (MLA_ARCH, ENCDEC_ARCH):
+        t0 = time.perf_counter()
+        family_rows += family_model_phase(dev, max_err, arch)
+        print(f"phase seconds: {arch} {time.perf_counter() - t0:.1f} s")
+
     # ------------- 14a. full window tape: cache_sim_scan vs its merge tree
     tr0 = windows[0]
     addrs = torch.cat([t.addrs for t in tr0]).to(dev)
@@ -3877,6 +4740,7 @@ def main() -> int:
     rows += [urd_row, urd_seed_row]
     rows.extend(model_rows)
     rows.extend(serve_rows)
+    rows.extend(family_rows)
     # phase 11b's launches beside each row's own (the pool crash's are
     # already on the serving rows)
     for r in rows:

@@ -780,9 +780,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   a.causal = causal;
   a.window = window;
   // the model configs' head dims get their own instance; any other shape
-  // runs zero-padded to 128
+  // runs zero-padded to 128. MLA's (96, 64) (minicpm3: nope 64 + rope 32
+  // for q and k, v 64) takes six 16-column k-steps, the second 64-column
+  // box of Q and K zero-filled past column 96 by TMA, and one V block
   if (D <= 64 && D > 48 && Dv <= 64)
     return launch_bf16_tiles<4, 1>(maps, a, B, stream);
+  if (D <= 96 && D > 64 && Dv <= 64)
+    return launch_bf16_tiles<6, 1>(maps, a, B, stream);
   if (D <= 112 && D > 96)
     return launch_bf16_tiles<7, 2>(maps, a, B, stream);
   return launch_bf16_tiles<8, 2>(maps, a, B, stream);

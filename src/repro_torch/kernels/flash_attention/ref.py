@@ -26,8 +26,9 @@ __all__ = ["SWEEP", "attention_ref", "blockwise_attention"]
 _NEG_INF = -1e30
 # the shapes at which the kernel is held to these on the card: the
 # reference's sweep (tests/test_kernels.py:37-43), then head dim 112
-# (zamba2), GQA 16/8, ragged Sq != Skv, window 96, Dv != D and a
-# non-causal window
+# (zamba2), GQA 16/8, ragged Sq != Skv, window 96, Dv != D, a non-causal
+# window, MLA's (96, 64) heads (minicpm3; ragged, causal and not) and
+# non-causal cross attention with Sq != Skv (the encoder-decoder family)
 SWEEP = [
     # B, Hq, Hkv, Sq, Skv, D, Dv, causal, window
     (1, 2, 2, 128, 128, 64, 64, True, 0),
@@ -39,6 +40,9 @@ SWEEP = [
     (1, 16, 8, 96, 160, 112, 112, True, 96),
     (2, 4, 2, 70, 70, 16, 48, True, 0),
     (1, 2, 2, 300, 300, 16, 16, False, 40),
+    (2, 4, 4, 200, 200, 96, 64, True, 0),
+    (1, 8, 8, 96, 320, 96, 64, False, 0),
+    (2, 4, 4, 96, 320, 64, 64, False, 0),
 ]
 
 

@@ -33,8 +33,10 @@ __all__ = ["LONG_ROWS", "SWEEP", "gather_pages", "paged_attention_ref",
 _NEG_INF = -1e30
 # the shapes at which the kernel is held to these: the reference's sweep
 # (tests/test_kernels.py:60-63), then qwen3-0.6b's heads ([B, 16, 128]
-# over [n_pool, page, 8, 128] pages) at page 8, 16 and 32; the lengths
-# end mid-page, on a page edge, at 1 and at the table's end
+# over [n_pool, page, 8, 128] pages) at page 8, 16 and 32, and
+# qwen2-moe-a2.7b's (16 query heads over 16 KV heads, a group of 1) at
+# page 16; the lengths end mid-page, on a page edge, at 1 and at the
+# table's end
 SWEEP = [
     # B, Hq, Hkv, D, page, pages_per_seq, n_pool, seq_lens
     (2, 4, 2, 64, 16, 4, 32, (37, 64)),
@@ -43,6 +45,7 @@ SWEEP = [
     (4, 16, 8, 128, 8, 20, 96, (1, 75, 80, 160)),
     (4, 16, 8, 128, 16, 10, 64, (16, 33, 150, 160)),
     (4, 16, 8, 128, 32, 5, 48, (1, 31, 128, 160)),
+    (3, 16, 16, 128, 16, 10, 64, (1, 100, 160)),
 ]
 
 # qwen3's heads at its serving page and table width (136 pages of 16):

@@ -8,7 +8,8 @@ start at zero), RoPE rotates the two halves of D (not interleaved pairs),
 blocks, and ``decode_attention`` the same masked softmax over the cache,
 so at float32 the CPU path repeats the reference's arithmetic.  The
 reference's sharding ``constrain`` calls are identities on one device and
-are left out; ``moe_ffn`` waits for the MoE family (ROADMAP §1).
+are left out.  ``moe_ffn`` is the reference's grouped capacity-based top-k
+dispatch (GShard), each batch row one routing group.
 
 Matrix products run in the parameters' dtype (on the card cuBLAS
 accumulates bfloat16 products in fp32 and rounds once).  The reference
@@ -19,15 +20,18 @@ the same.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ref import blockwise_attention
+from repro_torch.models.config import ModelConfig
 
 __all__ = ["Param", "apply_rope", "blockwise_attention", "decode_attention",
-           "dense_init", "rms_norm", "rope_freqs", "swiglu"]
+           "dense_init", "moe_capacity", "moe_ffn", "moe_route", "rms_norm",
+           "rope_freqs", "swiglu"]
 
 Param = dict  # nested-dict parameter trees, as the reference's
 
@@ -113,3 +117,81 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     g = (x @ w_gate).float()
     u = (x @ w_up).float()
     return (F.silu(g) * u).to(x.dtype) @ w_down
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int, experts: int) -> int:
+    """Slots an expert has in a routing group of ``tokens``:
+    ``max(ceil(cf * S * k / E), 4)``, in Python floats as the reference's
+    ``np.ceil``."""
+    return max(int(math.ceil(cfg.capacity_factor * tokens * cfg.top_k
+                             / experts)), 4)
+
+
+@dataclasses.dataclass
+class MoERoute:
+    """One ``moe_ffn`` call's routing: fp32 ``gates`` [B, S, k] (0 where
+    dropped), expert ``idx`` [B, S, k], ``keep`` [B, S, k], and ``dest``
+    [B, S, k], each kept choice's row of the expert buffer laid out
+    [E, B, capacity] (``E * B * capacity``, the trash row, when dropped)."""
+    gates: torch.Tensor
+    idx: torch.Tensor
+    keep: torch.Tensor
+    dest: torch.Tensor
+    capacity: int
+
+
+def moe_route(x: torch.Tensor, p: Param, cfg: ModelConfig) -> MoERoute:
+    """The reference's router (``src/repro/models/layers.py:240-259``):
+    fp32 logits, padded experts (E > ``n_experts``, E read from
+    ``w_gate``) at -1e30, top-k with ties to the lower index (a stable
+    descending sort, as ``jax.lax.top_k``), a softmax over the k gates,
+    each token's position in its expert's queue by an fp32 cumsum of the
+    one-hot over the group's tokens, and ``keep = pos < capacity``."""
+    b, s, _ = x.shape
+    e = p["w_gate"].shape[0]
+    logits = x.float() @ p["router"].float()                  # [B,S,E]
+    if e > cfg.n_experts:
+        logits[..., cfg.n_experts:] = -1e30
+    top, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    top, idx = top[..., :cfg.top_k], idx[..., :cfg.top_k]
+    gates = torch.softmax(top, dim=-1)
+    cap = moe_capacity(cfg, s, e)
+    onehot = F.one_hot(idx, e).float()                        # [B,S,k,E]
+    per_tok = onehot.sum(2)                                   # [B,S,E]
+    pos = torch.cumsum(per_tok, dim=1) - per_tok
+    pos_k = pos.gather(2, idx).long()                         # [B,S,k]
+    keep = pos_k < cap
+    rows = torch.arange(b, device=x.device)[:, None, None]
+    dest = torch.where(keep, (idx * b + rows) * cap + pos_k, e * b * cap)
+    return MoERoute(torch.where(keep, gates, 0.0), idx, keep, dest, cap)
+
+
+def moe_ffn(x: torch.Tensor, p: Param, cfg: ModelConfig) -> torch.Tensor:
+    """Capacity-based top-k MoE, each batch row one routing group (the
+    reference's ``moe_ffn`` at one device).  x [B, S, d] -> [B, S, d].
+
+    Every kept choice is copied to its own row of an expert buffer
+    [E, B * capacity, d] (dropped ones to a trash row that is cut off:
+    each kept row has exactly one source, so the copy is exact); the three
+    expert products are batched over E, ``g`` and ``u`` fp32 before
+    ``silu(g) * u`` as in ``swiglu``; each choice's output is gathered back
+    (0 when dropped) and combined with its gate in fp32; the shared
+    experts' SwiGLU is added when ``shared_d_ff`` is set."""
+    b, s, d = x.shape
+    e, k = p["w_gate"].shape[0], cfg.top_k
+    r = moe_route(x, p, cfg)
+    rows = e * b * r.capacity
+    flat = r.dest.reshape(-1)
+    buf = torch.zeros((rows + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_copy_(0, flat, x[:, :, None, :].expand(b, s, k, d)
+                    .reshape(-1, d))
+    xe = buf[:rows].view(e, b * r.capacity, d)
+    g = torch.bmm(xe, p["w_gate"]).float()
+    u = torch.bmm(xe, p["w_up"]).float()
+    ye = torch.bmm((F.silu(g) * u).to(x.dtype), p["w_down"])
+    ye = torch.cat([ye.reshape(rows, d), ye.new_zeros((1, d))])
+    y_tk = ye[flat].view(b, s, k, d).float()
+    y = (y_tk * r.gates[..., None]).sum(2).to(x.dtype)
+    if cfg.shared_d_ff:
+        y = y + swiglu(x, p["shared_gate"], p["shared_up"], p["shared_down"])
+    return y

@@ -1,20 +1,28 @@
-"""The model-level serving functions for the dense, SSM and hybrid families.
+"""The model-level serving functions for every family of the reference.
 
 The port of the reference's ``src/repro/models/model.py``: ``init_params``,
 ``forward_hidden``, ``prefill`` (last-position logits), ``init_decode_cache``
-and ``decode_step`` (one greedy step; logits past ``vocab_size`` masked).
-Parameters are a nested dict with the reference's names and stacked layout
-(every per-layer tensor has a leading layer axis; the hybrid's shared
-attention block is one copy), so ``params_from_jax`` carries the
-reference's weights across leaf by leaf.  PyTorch runs eagerly, so the
-reference's ``lax.scan`` over layers is a Python loop.  Entry points run on
-the CUDA card unless the caller asks for the CPU.
+and ``decode_step`` (one greedy step; logits past ``vocab_size`` masked),
+for the dense (GQA, sliding-window or MLA attention), MoE, SSM, hybrid and
+encoder-decoder families.  Parameters are a nested dict with the
+reference's names and stacked layout (every per-layer tensor has a leading
+layer axis; the hybrid's shared attention block is one copy), so
+``params_from_jax`` carries the reference's weights across leaf by leaf.
+PyTorch runs eagerly, so the reference's ``lax.scan`` over layers is a
+Python loop.  Entry points run on the CUDA card unless the caller asks for
+the CPU.
+
+The encoder-decoder family takes the encoder's input as stub embeddings
+(``enc_embeds`` [B, S_enc, d], the speech frontend left out as in the
+reference): the encoder stack (bidirectional), ``enc_norm``, then the
+decoder with cross attention over that output in every layer.  Its decode
+cache holds each decoder layer's cross K and V, which the caller fills
+with ``attention.cross_attention_kv`` from the encoder's output.
 
 Prefill does not fill the decode cache (neither does the reference's): a
-request's prompt is teacher-forced through ``decode_step``.  Left out,
-each raising or absent as ROADMAP §1 says: the MoE, MLA and
-encoder-decoder families (item 2), training's remat and losses (item 5),
-and the split-KV ``commit=False`` path with the sharding hints (item 6).
+request's prompt is teacher-forced through ``decode_step``.  Left out, as
+ROADMAP §1 says: training's remat and losses (item 5), and the split-KV
+``commit=False`` path with the sharding hints (item 6).
 """
 from __future__ import annotations
 
@@ -22,23 +30,20 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import (attention_decode, attention_train,
-                                          init_attention, init_kv_cache,
-                                          not_ported)
-from repro_torch.models.config import AttnKind, Family, ModelConfig
-from repro_torch.models.layers import Param, dense_init, rms_norm, swiglu
+from repro_torch.models.attention import (attention_cross, attention_decode,
+                                          attention_train,
+                                          cross_attention_decode,
+                                          init_attention, init_kv_cache)
+from repro_torch.models.config import Family, ModelConfig
+from repro_torch.models.layers import (Param, dense_init, moe_ffn, rms_norm,
+                                       swiglu)
 from repro_torch.models.mamba2 import (init_mamba2_layer, init_ssm_state,
                                        mamba2_decode_step, mamba2_forward)
 
 __all__ = ["decode_step", "forward_hidden", "hybrid_groups",
            "init_decode_cache", "init_params", "params_from_jax", "prefill"]
 
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in (Family.MOE, Family.ENCDEC):
-        raise not_ported(f"the {cfg.family.value} family")
-    if cfg.family != Family.SSM and cfg.attn == AttnKind.MLA:
-        raise not_ported("MLA attention")
+_ATTN_FAMILIES = (Family.DENSE, Family.MOE, Family.ENCDEC)
 
 
 def hybrid_groups(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -58,19 +63,46 @@ def _shared_after(cfg: ModelConfig) -> dict[int, int]:
     return {(j + 1) * g - 1: j for j in range(n_groups)}
 
 
-def _init_attn_block(gen: torch.Generator, cfg: ModelConfig,
-                     dtype: torch.dtype, layers: int | None) -> Param:
-    d, lead = cfg.d_model, (() if layers is None else (layers,))
-    return {
-        "ln1": torch.zeros((*lead, d), device=gen.device),
-        "attn": init_attention(gen, cfg, dtype, layers),
-        "ln2": torch.zeros((*lead, d), device=gen.device),
-        "mlp": {
+def _init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+              layers: int | None) -> Param:
+    d = cfg.d_model
+    if cfg.family != Family.MOE:
+        return {
             "w_gate": dense_init(gen, (d, cfg.d_ff), dtype, layers=layers),
             "w_up": dense_init(gen, (d, cfg.d_ff), dtype, layers=layers),
             "w_down": dense_init(gen, (cfg.d_ff, d), dtype, layers=layers),
-        },
+        }
+    # the reference's _init_moe at one device (no expert padding); its
+    # fan-in is each tensor's first axis, the expert count for the experts
+    e, f = cfg.n_experts, cfg.expert_d_ff
+    p = {
+        "router": dense_init(gen, (d, e), dtype, layers=layers),
+        "w_gate": dense_init(gen, (e, d, f), dtype, layers=layers),
+        "w_up": dense_init(gen, (e, d, f), dtype, layers=layers),
+        "w_down": dense_init(gen, (e, f, d), dtype, layers=layers),
     }
+    if cfg.shared_d_ff:
+        sf = cfg.shared_d_ff
+        p["shared_gate"] = dense_init(gen, (d, sf), dtype, layers=layers)
+        p["shared_up"] = dense_init(gen, (d, sf), dtype, layers=layers)
+        p["shared_down"] = dense_init(gen, (sf, d), dtype, layers=layers)
+    return p
+
+
+def _init_attn_block(gen: torch.Generator, cfg: ModelConfig,
+                     dtype: torch.dtype, layers: int | None,
+                     cross: bool = False) -> Param:
+    d, lead = cfg.d_model, (() if layers is None else (layers,))
+    p = {
+        "ln1": torch.zeros((*lead, d), device=gen.device),
+        "attn": init_attention(gen, cfg, dtype, layers),
+        "ln2": torch.zeros((*lead, d), device=gen.device),
+        "mlp": _init_mlp(gen, cfg, dtype, layers),
+    }
+    if cross:
+        p["ln_x"] = torch.zeros((*lead, d), device=gen.device)
+        p["cross"] = init_attention(gen, cfg, dtype, layers)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -80,7 +112,6 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     weights are zeros (``rms_norm`` scales by ``1 + w``), matrices fan-in
     truncated normals, the embedding std 0.02, as the reference's laws;
     the numbers differ (it draws from ``jax.random``)."""
-    _check_family(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     gen = torch.Generator(device=dev)
@@ -92,7 +123,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.padded_vocab()), dtype)
-    if cfg.family == Family.DENSE:
+    if cfg.family == Family.ENCDEC:
+        params["enc_layers"] = _init_attn_block(gen, cfg, dtype,
+                                                cfg.n_enc_layers)
+        params["layers"] = _init_attn_block(gen, cfg, dtype, n, cross=True)
+        params["enc_norm"] = torch.zeros((d,), device=dev)
+    elif cfg.family in _ATTN_FAMILIES:
         params["layers"] = _init_attn_block(gen, cfg, dtype, n)
     else:
         params["layers"] = {"ln1": torch.zeros((n, d), device=dev),
@@ -123,22 +159,35 @@ def params_from_jax(tree: dict,
     return conv(tree)
 
 
-def _layer(params: Param, i: int) -> Param:
-    """Layer ``i``'s parameters: views into the stacked tensors."""
+def _layer(params: Param, i: int, stack: str = "layers") -> Param:
+    """Layer ``i``'s parameters of a stack: views into the stacked
+    tensors."""
     def pick(node):
         if isinstance(node, dict):
             return {k: pick(v) for k, v in node.items()}
         return node[i]
-    return pick(params["layers"])
+    return pick(params[stack])
 
 
-def _attn_mlp_block(p: Param, h: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
+def _ffn(p: Param, hn: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The block's feed-forward: the routed experts (and shared ones) for
+    the MoE family, SwiGLU otherwise."""
+    if cfg.family == Family.MOE:
+        return moe_ffn(hn, p["mlp"], cfg)
+    return swiglu(hn, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                  p["mlp"]["w_down"])
+
+
+def _attn_mlp_block(p: Param, h: torch.Tensor, cfg: ModelConfig, *,
+                    causal: bool | None = None,
+                    enc_out: torch.Tensor | None = None) -> torch.Tensor:
     h = h + attention_train(p["attn"], rms_norm(h, p["ln1"], cfg.rms_eps),
-                            cfg)
-    hn = rms_norm(h, p["ln2"], cfg.rms_eps)
-    return h + swiglu(hn, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                      p["mlp"]["w_down"])
+                            cfg, causal=causal)
+    if enc_out is not None:
+        h = h + attention_cross(p["cross"],
+                                rms_norm(h, p["ln_x"], cfg.rms_eps),
+                                enc_out, cfg)
+    return h + _ffn(p, rms_norm(h, p["ln2"], cfg.rms_eps), cfg)
 
 
 def _ssm_block(p: Param, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -150,12 +199,33 @@ def _lm_head(params: Param, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def forward_hidden(params: Param, cfg: ModelConfig,
-                   tokens: torch.Tensor) -> torch.Tensor:
-    """Token ids [B, S] -> final hidden states [B, S, d]."""
-    _check_family(cfg)
+def _encode(params: Param, cfg: ModelConfig,
+            enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder stack (bidirectional) and ``enc_norm``: enc_embeds
+    [B, S_enc, d] -> the encoder's output [B, S_enc, d]."""
+    e = enc_embeds
+    for i in range(cfg.n_enc_layers):
+        e = _attn_mlp_block(_layer(params, i, "enc_layers"), e, cfg,
+                            causal=False)
+    return rms_norm(e, params["enc_norm"], cfg.rms_eps)
+
+
+def forward_hidden(params: Param, cfg: ModelConfig, tokens: torch.Tensor,
+                   *, enc_embeds: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """Token ids [B, S] (and, for the encoder-decoder family, the
+    encoder's stub embeddings ``enc_embeds`` [B, S_enc, d]) -> final
+    hidden states [B, S, d]."""
     h = params["embed"][tokens]
-    if cfg.family == Family.DENSE:
+    if cfg.family == Family.ENCDEC:
+        if enc_embeds is None:
+            raise ValueError("the encoder-decoder family needs the "
+                             "encoder's stub embeddings (enc_embeds)")
+        enc_out = _encode(params, cfg, enc_embeds)
+        for i in range(cfg.n_layers):
+            h = _attn_mlp_block(_layer(params, i), h, cfg, causal=True,
+                                enc_out=enc_out)
+    elif cfg.family in _ATTN_FAMILIES:
         for i in range(cfg.n_layers):
             h = _attn_mlp_block(_layer(params, i), h, cfg)
     else:
@@ -167,28 +237,38 @@ def forward_hidden(params: Param, cfg: ModelConfig,
     return rms_norm(h, params["final_norm"], cfg.rms_eps)
 
 
-def prefill(params: Param, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
+def prefill(params: Param, cfg: ModelConfig, tokens: torch.Tensor, *,
+            enc_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Prefill forward -> fp32 logits of the last position [B, V_padded]
     (unmasked, as the reference's)."""
-    h = forward_hidden(params, cfg, tokens)
+    h = forward_hidden(params, cfg, tokens, enc_embeds=enc_embeds)
     return h[:, -1].float() @ _lm_head(params, cfg).float()
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
-                      device: str | torch.device | None = None) -> dict:
+                      device: str | torch.device | None = None,
+                      enc_len: int = 0) -> dict:
     """Zero decode state on ``device`` (default: the CUDA card): ``len``
-    [B], the KV caches of every attention layer (or of each hybrid group's
-    shared-block application) in ``cfg.dtype``, and
-    the fp32 conv and SSM states of every Mamba-2 layer."""
-    _check_family(cfg)
+    [B], the KV caches of every attention layer (MLA: its latent caches;
+    the hybrid: each group's shared-block application) in ``cfg.dtype``,
+    the fp32 conv and SSM states of every Mamba-2 layer, and for the
+    encoder-decoder family each decoder layer's cross K and V
+    [L, B, enc_len, Hkv, D] (zeros, for the caller to fill) and
+    ``enc_len`` [B]."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     cache: dict = {"len": torch.zeros((batch,), dtype=torch.int32,
                                       device=dev)}
-    if cfg.family == Family.DENSE:
+    if cfg.family in _ATTN_FAMILIES:
         cache["kv"] = init_kv_cache(cfg, cfg.n_layers, batch, max_len, dtype,
                                     dev)
+        if cfg.family == Family.ENCDEC:
+            shape = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads,
+                     cfg.head_dim)
+            cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=dev)
+            cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=dev)
+            cache["enc_len"] = torch.full((batch,), enc_len,
+                                          dtype=torch.int32, device=dev)
         return cache
     cache["ssm"] = init_ssm_state(cfg, batch, layers=cfg.n_layers, device=dev)
     if cfg.family == Family.HYBRID:
@@ -198,15 +278,20 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _decode_attn_block(p: Param, h: torch.Tensor, cfg: ModelConfig,
-                       kv: dict, i: int, cache_len: torch.Tensor
+                       cache: dict, i: int, cache_len: torch.Tensor
                        ) -> torch.Tensor:
+    """Block ``i``'s decode: self attention over (and into) layer ``i`` of
+    the cache, cross attention over its encoder K/V where the cache has
+    them, then the feed-forward."""
     a, _ = attention_decode(p["attn"], rms_norm(h, p["ln1"], cfg.rms_eps),
-                            cfg, {"k": kv["k"][i], "v": kv["v"][i]},
+                            cfg, {k: t[i] for k, t in cache["kv"].items()},
                             cache_len)
     h = h + a
-    hn = rms_norm(h, p["ln2"], cfg.rms_eps)
-    return h + swiglu(hn, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                      p["mlp"]["w_down"])
+    if "cross_k" in cache:
+        h = h + cross_attention_decode(
+            p["cross"], rms_norm(h, p["ln_x"], cfg.rms_eps), cfg,
+            cache["cross_k"][i], cache["cross_v"][i], cache["enc_len"])
+    return h + _ffn(p, rms_norm(h, p["ln2"], cfg.rms_eps), cfg)
 
 
 def _decode_ssm_block(p: Param, h: torch.Tensor, cfg: ModelConfig,
@@ -223,14 +308,14 @@ def _decode_ssm_block(p: Param, h: torch.Tensor, cfg: ModelConfig,
 def decode_step(params: Param, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: dict) -> tuple[torch.Tensor, dict]:
     """One greedy decode step.  tokens [B] -> (fp32 logits [B, V_padded]
-    with the padded vocab at -1e30, the cache).  The cache's K/V and SSM
-    tensors are updated in place; the returned dict carries ``len`` + 1."""
-    _check_family(cfg)
+    with the padded vocab at -1e30, the cache).  The cache's K/V (or
+    latent) and SSM tensors are updated in place; the returned dict
+    carries ``len`` + 1."""
     h = params["embed"][tokens][:, None, :]                  # [B,1,d]
     cache_len = cache["len"]
-    if cfg.family == Family.DENSE:
+    if cfg.family in _ATTN_FAMILIES:
         for i in range(cfg.n_layers):
-            h = _decode_attn_block(_layer(params, i), h, cfg, cache["kv"], i,
+            h = _decode_attn_block(_layer(params, i), h, cfg, cache, i,
                                    cache_len)
     else:
         shared = _shared_after(cfg)
@@ -238,7 +323,8 @@ def decode_step(params: Param, cfg: ModelConfig, tokens: torch.Tensor,
             h = _decode_ssm_block(_layer(params, i), h, cfg, cache["ssm"], i)
             if i in shared:
                 h = _decode_attn_block(params["shared_attn"], h, cfg,
-                                       cache["kv"], shared[i], cache_len)
+                                       {"kv": cache["kv"]}, shared[i],
+                                       cache_len)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     logits = h[:, 0].float() @ _lm_head(params, cfg).float()
     logits[:, cfg.vocab_size:] = -1e30

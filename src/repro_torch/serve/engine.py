@@ -27,8 +27,14 @@ host-tier fetch penalty.  The engine runs on the device of its
 parameters and pool.  While the HBM pool is down
 (``TieredKVCache.fail_tier(1)``) ``step`` admits nothing: the in-flight
 requests, whose KV is gone, are aborted and requeued from their prompts
-(``aborted_restarts``), and new work waits for ``recover_tier``.  The MoE
-family raises ``NotImplementedError`` naming ROADMAP §1 item 2.
+(``aborted_restarts``), and new work waits for ``recover_tier``.
+
+The engine serves the dense and MoE families over GQA attention (the
+reference's ``engine.py:95``).  An MoE block routes within its group, as
+the reference's: a prefill request is one group of its padded length, and
+in a decode step each row is a group of one token (capacity 4), every
+expert computed for every row (``_decode_step``, the reference's
+``:277-281``).
 """
 from __future__ import annotations
 
@@ -42,10 +48,10 @@ from repro_torch.cache.block_pool import BlockPool
 from repro_torch.cache.tiered import TieredKVCache
 from repro_torch.kernels.paged_attention.kernel import paged_attention
 from repro_torch.kernels.paged_attention.ref import gather_pages
-from repro_torch.models.attention import build_heads, not_ported
-from repro_torch.models.config import Family, ModelConfig
-from repro_torch.models.layers import Param, apply_rope, rms_norm, swiglu
-from repro_torch.models.model import _attn_mlp_block, _layer, _lm_head
+from repro_torch.models.attention import build_heads
+from repro_torch.models.config import AttnKind, Family, ModelConfig
+from repro_torch.models.layers import Param, apply_rope, rms_norm
+from repro_torch.models.model import _attn_mlp_block, _ffn, _layer, _lm_head
 
 __all__ = ["Request", "MultiTenantEngine", "prefill_with_kv"]
 
@@ -67,11 +73,12 @@ def _prefix_key(tenant: int, tokens: np.ndarray) -> tuple:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == Family.MOE:
-        raise not_ported("the moe family's serving path")
-    if cfg.family != Family.DENSE:
+    if cfg.family not in (Family.DENSE, Family.MOE):
         raise ValueError("the serving engine covers attention-KV families "
                          f"(dense, MoE), not {cfg.family.value}")
+    if cfg.attn == AttnKind.MLA:
+        raise ValueError("the serving engine pages GQA K/V heads, not MLA's "
+                         "latent cache")
 
 
 def prefill_with_kv(params: Param, cfg: ModelConfig, tokens: torch.Tensor
@@ -288,9 +295,7 @@ def _decode_step(params: Param, k_pool: torch.Tensor, v_pool: torch.Tensor,
         att = _merge_self(q[:, 0], k[:, 0], v[:, 0], att, k_pool[i], tables,
                           lens, d, hq, hkv)
         h = h + att.reshape(b, 1, hq * d) @ a["wo"]
-        hn = rms_norm(h, p["ln2"], cfg.rms_eps)
-        h = h + swiglu(hn, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                       p["mlp"]["w_down"])
+        h = h + _ffn(p, rms_norm(h, p["ln2"], cfg.rms_eps), cfg)
         ks.append(k[:, 0])
         vs.append(v[:, 0])
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)

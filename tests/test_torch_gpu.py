@@ -44,6 +44,13 @@ launched on every shard, one sync a window per mesh under the sanitizer)
 and equals the CPU's and ``pipeline="device"``'s bit for bit, through
 ``DeviceWindowPipeline(mesh=)``, ``run_stream``, ``analyze_windows`` and
 the manager, whose dead sharded rung steps down to the device rung.
+The MoE, MLA and encoder-decoder families: ``flash_attention``'s bf16
+instance for MLA's (96, 64) heads at minicpm3-4b's 40 heads on the
+model's own views, non-causal cross attention with Sq != Skv at
+seamless-m4t's heads and ``paged_attention`` at a KV group of 1
+(qwen2-moe-a2.7b's 16 over 16 heads), each against its plain version;
+the smoke configs of those families through ``prefill`` and
+``decode_step``, and the MoE smoke engine, card against CPU.
 This module imports nothing of JAX, so it runs where JAX is absent.
 """
 import numpy as np
@@ -1093,10 +1100,9 @@ def test_paged_attention_split_merges_on_card(card, case, dtype):
     assert torch.equal(got, paged_attention(*args))
 
 
-def _qwen3_engine(device, params, capacity2):
+def _smoke_engine(device, params, capacity2, arch="qwen3_0_6b"):
     import dataclasses
-    cfg = dataclasses.replace(get_smoke_config("qwen3_0_6b"),
-                              dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     pool = BlockPool(96, 8, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
                      dtype=torch.float32, device=device)
     mgr = ECICacheManager(24, ["chat", "batch"], c_min=4,
@@ -1129,9 +1135,9 @@ def test_qwen3_smoke_engine_on_card_matches_cpu(card, capacity2):
     cpu = init_params(cfg, seed=0, device="cpu")
     gpu = params_from_jax(_tree_numpy(cpu), "cuda")
     counts = (paged_attention.launches, flash_attention.launches)
-    g = _qwen3_engine(card, gpu, capacity2)
+    g = _smoke_engine(card, gpu, capacity2)
     torch.cuda.synchronize()
-    c = _qwen3_engine("cpu", cpu, capacity2)
+    c = _smoke_engine("cpu", cpu, capacity2)
     steps = 4            # 5 new tokens: one from prefill, 4 decode steps
     assert (paged_attention.launches - counts[0],
             flash_attention.launches - counts[1]) == (
@@ -1522,3 +1528,150 @@ def test_sharded_monitor_and_manager_on_card(card, monkeypatch):
     assert s.summary() == d.summary()
     sf = f.summary()
     assert sf["sharded_stepdowns"] == 1 and sf["device_stepdowns"] == 0
+
+
+# -------------- the MoE, MLA and encoder-decoder families (ROADMAP §1 item 2)
+def _within_element_limit(got, want):
+    """Every element within 2^-6 |out| + 1e-4 max |out| of the plain
+    version (ROADMAP's bound for bf16 attention at model inputs)."""
+    w = want.float()
+    limit = 2.0 ** -6 * w.abs() + 1e-4 * float(w.abs().max())
+    assert got.shape == want.shape
+    assert bool(((got.float() - w).abs() <= limit).all()), \
+        float(((got.float() - w).abs() / limit).max())
+
+
+def test_flash_attention_mla_instance_on_card(card):
+    """MLA's heads (minicpm3-4b: 40 heads, q and k of nope 64 + rope 32, v
+    64) in bfloat16 as the model hands them over: q and k concatenated,
+    the k_rope head broadcast, v a view into the expanded latent; causal,
+    a ragged length; the <6, 1> instance against ``attention_ref``."""
+    gen = torch.Generator(device=card).manual_seed(96)
+    b, s, h = 2, 700, 40
+    q = torch.randn((b, s, h, 96), generator=gen, device=card).bfloat16()
+    kv = torch.randn((b, s, h, 128), generator=gen,
+                     device=card).bfloat16()
+    rope = torch.randn((b, s, 1, 32), generator=gen, device=card).bfloat16()
+    k = torch.cat([kv[..., :64], rope.expand(b, s, h, 32)], dim=-1)
+    v = kv[..., 64:]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    before = flash_attention.launches
+    got = flash_attention(qt, kt, vt, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == (b, h, s, 64)
+    _within_element_limit(got, attention_ref(qt, kt, vt, causal=True))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_cross_shapes_on_card(card, causal):
+    """seamless-m4t's heads (16 of 64) in bfloat16: cross attention (Sq
+    256 over Skv 1024, not causal) and, beside it, the same shapes causal
+    (positions absolute from 0 on both axes), against ``attention_ref``."""
+    gen = torch.Generator(device=card).manual_seed(64)
+    q = torch.randn((2, 256, 16, 64), generator=gen, device=card).bfloat16()
+    k = torch.randn((2, 1024, 16, 64), generator=gen,
+                    device=card).bfloat16()
+    v = torch.randn((2, 1024, 16, 64), generator=gen,
+                    device=card).bfloat16()
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    got = flash_attention(qt, kt, vt, causal=causal)
+    _within_element_limit(got, attention_ref(qt, kt, vt, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_group_one_on_card(card, dtype):
+    """qwen2-moe-a2.7b's decode heads (16 query heads over 16 KV heads of
+    128, a group of 1) at its serving page of 16, rows of 1 to 2,000
+    positions, against ``paged_attention_ref`` (2e-5 / 2e-2)."""
+    case = (8, 16, 16, 128, 16, 128, 1024,
+            (1, 15, 16, 17, 700, 1024, 2000, 2048))
+    a = sweep_arrays(case, seed=5)
+    args = [torch.from_numpy(a[n]).to(card) for n in
+            ("q", "k_pages", "v_pages", "block_tables", "seq_lens")]
+    args[:3] = [t.to(dtype) for t in args[:3]]
+    got = paged_attention(*args)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(),
+                               paged_attention_ref(*args).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "minicpm3_4b",
+                                  "seamless_m4t_large_v2"])
+def test_new_families_smoke_on_card_match_cpu(card, arch):
+    """The smoke MoE, MLA and encoder-decoder configs (float32) through
+    ``prefill`` and four ``decode_step``s on the card against the port's
+    CPU run on the same parameters: prefill launches ``flash_attention``
+    once a layer (three times a decoder layer of the encoder-decoder:
+    encoder, self and cross), decode launches none; logits and caches
+    within 1e-4."""
+    import dataclasses
+    from repro_torch.models.attention import cross_attention_kv
+    from repro_torch.models.model import _encode, _layer
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = params_from_jax(_tree_numpy(cpu), "cuda")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+    enc = None
+    if cfg.n_enc_layers:
+        enc = torch.from_numpy(rng.standard_normal(
+            (2, 48, cfg.d_model)).astype(np.float32))
+    before = flash_attention.launches
+    got = prefill(gpu, cfg, toks.to(card),
+                  enc_embeds=None if enc is None else enc.to(card))
+    torch.cuda.synchronize()
+    per_layer = 3 if cfg.n_enc_layers else 1
+    assert flash_attention.launches - before == per_layer * cfg.n_layers
+    want = prefill(cpu, cfg, toks, enc_embeds=enc)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+    def cache(params, device):
+        if enc is None:
+            return init_decode_cache(cfg, 2, 8, device=device)
+        c = init_decode_cache(cfg, 2, 8, device=device, enc_len=48)
+        out = _encode(params, cfg, enc.to(device))
+        for i in range(cfg.n_layers):
+            c["cross_k"][i], c["cross_v"][i] = cross_attention_kv(
+                _layer(params, i)["cross"], out, cfg)
+        return c
+    gc, cc = cache(gpu, card), cache(cpu, "cpu")
+    before = flash_attention.launches
+    for t in range(4):
+        lg, gc = decode_step(gpu, cfg, toks[:, t].to(card), gc)
+        lc, cc = decode_step(cpu, cfg, toks[:, t], cc)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for name, t in gc["kv"].items():
+        torch.testing.assert_close(t.cpu(), cc["kv"][name], rtol=1e-4,
+                                   atol=1e-4)
+    assert flash_attention.launches == before
+
+
+def test_moe_smoke_engine_on_card_matches_cpu(card):
+    """The serving engine on the smoke qwen2-moe config (float32) on the
+    card against the port's CPU run on the same parameters: tokens,
+    summaries, pool stats and decisions equal, pages within 1e-5; every
+    decode layer launches ``paged_attention`` at a KV group of 1 and every
+    prefill layer ``flash_attention``."""
+    import dataclasses
+    arch = "qwen2_moe_a2_7b"
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = params_from_jax(_tree_numpy(cpu), "cuda")
+    counts = (paged_attention.launches, flash_attention.launches)
+    g = _smoke_engine(card, gpu, 0, arch)
+    torch.cuda.synchronize()
+    c = _smoke_engine("cpu", cpu, 0, arch)
+    assert (paged_attention.launches - counts[0],
+            flash_attention.launches - counts[1]) == (
+        4 * cfg.n_layers, 6 * cfg.n_layers)
+    assert sorted((r.rid, r.generated) for r in g[0].completed) == \
+        sorted((r.rid, r.generated) for r in c[0].completed)
+    sg, sc = g[2].summary(), c[2].summary()
+    sg.pop("rebalance_seconds"), sc.pop("rebalance_seconds")
+    assert sg == sc and g[1].stats == c[1].stats
+    assert [(d.sizes.tolist(), d.policies) for d in g[3].history] == \
+        [(d.sizes.tolist(), d.policies) for d in c[3].history]
+    torch.testing.assert_close(g[1].k_pages.cpu(), c[1].k_pages,
+                               rtol=1e-5, atol=1e-5)

@@ -11,11 +11,13 @@
   ``summary()`` (all but ``rebalance_seconds``) equal the reference's,
   and so do the managers' decisions.
 * The engine against the reference's on qwen3's smoke config in float32,
-  parameters carried across by ``params_from_jax``, the same numpy-made
-  prompts (one ending mid-page, two sharing a prefix): generated tokens
-  exactly equal; summaries, quotas, policies, pool stats and decisions
-  equal; pool pages within 1e-5.  Three distinct padded prompt lengths
-  at most, so that the reference jits few shapes.
+  and on qwen2-moe's (the MoE serving path: each prefill request one
+  routing group, each decode row its own), parameters carried across by
+  ``params_from_jax``, the same numpy-made prompts (one ending mid-page,
+  two sharing a prefix): generated tokens exactly equal; summaries,
+  quotas, policies, pool stats and decisions equal; pool pages within
+  1e-5.  Three distinct padded prompt lengths at most, so that the
+  reference jits few shapes.
 * The first token comes from the *padded* last position (the reference's
   ``engine.py:121-122`` and ``:84``), which the port keeps.
 * ``core.stack_distances`` and ``trace.total_cache_writes_wb`` against
@@ -380,9 +382,10 @@ _init_jax = jax.jit(RM.init_params, static_argnums=0)
 # alone), each twice
 PROMPT_LENS = (24, 29, 16, 29, 16, 24)
 ENGINE_CASES = {
-    # name: (capacity, capacity2, window_events, RO tenant)
-    "wb": (64, 0, 12, None),
-    "two_level_ro": (24, 48, 10, 1),
+    # name: (arch, capacity, capacity2, window_events, RO tenant)
+    "wb": (ARCH, 64, 0, 12, None),
+    "two_level_ro": (ARCH, 24, 48, 10, 1),
+    "moe_wb": ("qwen2_moe_a2_7b", 64, 0, 12, None),
 }
 
 
@@ -411,8 +414,8 @@ def _serve(engine_cls, request_cls, cfg, params, pool, tiered, prompts,
 def _reference_engine(case):
     """The reference's engine on the fp32 smoke config (jitted once per
     case): its parameters, tokens, states, decisions and pool."""
-    capacity, capacity2, window, ro = ENGINE_CASES[case]
-    rcfg = dataclasses.replace(ref_configs.get_smoke_config(ARCH),
+    arch, capacity, capacity2, window, ro = ENGINE_CASES[case]
+    rcfg = dataclasses.replace(ref_configs.get_smoke_config(arch),
                                dtype="float32")
     params = _init_jax(rcfg, jax.random.PRNGKey(0))
     pool = RefBlockPool(96, 8, rcfg.n_layers, rcfg.n_kv_heads,
@@ -433,8 +436,8 @@ def _reference_engine(case):
 @pytest.mark.parametrize("case", sorted(ENGINE_CASES))
 def test_engine_matches_reference(case):
     params_np, tokens, state, decisions, kp, vp = _reference_engine(case)
-    capacity, capacity2, window, ro = ENGINE_CASES[case]
-    cfg = dataclasses.replace(configs.get_smoke_config(ARCH), dtype="float32")
+    arch, capacity, capacity2, window, ro = ENGINE_CASES[case]
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
     params = M.params_from_jax(params_np, "cpu")
     pool = BlockPool(96, 8, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
                      dtype=torch.float32, device="cpu")
@@ -494,12 +497,14 @@ def test_stack_distances_and_wb_writes_match_reference(name):
     assert total_cache_writes_wb(Trace(t.addrs[:0], t.is_read[:0])) == 0
 
 
-# ------------------------------------------------ what is not ported yet
+# ------------------------------------- tier failures; the MoE engine
 def test_tier_failures_and_moe_raise_naming_their_item():
-    """MoE stays refused (item 2); tier failures (item 3b) are ported:
-    the pool crash drops its pages, the manager notes the loss, and the
-    recovery brings the tier back (tests/test_torch_faults.py holds them
-    to the reference)."""
+    """(The name is the test's from when MoE serving was refused.) Tier
+    failures (item 3b): the pool crash drops its pages, the
+    manager notes the loss, and the recovery brings the tier back
+    (tests/test_torch_faults.py holds them to the reference).  The MoE
+    family (item 2) builds an engine and serves: every request completes
+    with tokens of the vocabulary, its pages written to the pool."""
     pool, mgr, tiered = _tiered()
     for k in range(4):
         tiered.access_page(0, ("t0", k), fresh=True)
@@ -510,8 +515,26 @@ def test_tier_failures_and_moe_raise_naming_their_item():
     tiered.recover_tier(1)
     assert tiered.summary()["tiers_down"] == [] and not mgr.tier_is_down(1)
     moe = configs.get_smoke_config("qwen2_moe_a2_7b")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        MultiTenantEngine(moe, {"embed": torch.zeros(1)}, tiered)
+    params = M.init_params(moe, seed=0, device="cpu")
+    pool = BlockPool(64, 8, moe.n_layers, moe.n_kv_heads, moe.head_dim,
+                     dtype=torch.float32, device="cpu")
+    tiered = TieredKVCache(pool, ECICacheManager(32, ["a", "b"], c_min=4,
+                                                 device="cpu"))
+    eng = MultiTenantEngine(moe, params, tiered, page_size=8,
+                            max_pages_per_seq=8)
+    rng = np.random.default_rng(3)
+    for t in (0, 1, 0):
+        eng.submit(Request(tenant=t, prompt=rng.integers(
+            0, moe.vocab_size, 20).astype(np.int32), max_new_tokens=3))
+    eng.run(8)
+    assert len(eng.completed) == 3 and not eng.active
+    assert all(len(r.generated) == 3 and all(0 <= x < moe.vocab_size
+                                             for x in r.generated)
+               for r in eng.completed)
+    assert pool.stats["writes"] > 0 and bool(pool.k_pages.abs().sum() > 0)
+    mla = configs.get_smoke_config("minicpm3_4b")
+    with pytest.raises(ValueError, match="MLA"):
+        MultiTenantEngine(mla, {"embed": torch.zeros(1)}, tiered)
 
 
 def test_launch_serve_on_the_cpu(capsys):
