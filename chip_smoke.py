@@ -244,6 +244,23 @@ Phases:
      24 decoder self, 24 cross with Sq 256 over Skv 1024), each shape a
      row of its own; the decode's cross caches filled by
      ``cross_attention_kv`` from the encoder's output;
+ 16. training (``training_phase``, run after 13d): qwen3-0.6b at full
+     width and depth in bf16 from seed 0, ``make_train_step`` over 15
+     ``SyntheticLM`` batches of 8 x 2048 tokens (28 ``flash_attention``
+     launches a step, counted; the loss at the last step below the
+     first), the step's ms, tokens/s and peak memory, and the attention
+     Function's share of a step by CUDA events; ``remat`` "full" and
+     "dots" against "none" on the first step (56 launches); the first
+     step's loss and gradients at 2 x 2048, kernels against plain
+     versions, in fp32 (rel 1e-5, each leaf within 1e-4 of its largest
+     |g|) and bf16 (2e-2, the gradient norm 5e-2); 2 layers in fp32 card
+     against CPU (1e-4); the ``Trainer`` at 2 layers through a failure
+     and a restart from its checkpoints; the SSD wrapper's gradient at
+     zamba2-7b's layer shape (bit for bit against plain autograd); and
+     ``flash_attention`` at the captured training inputs beside its
+     plain-recompute backward, ``scaled_dot_product_attention`` forward
+     + backward under each fused backend and the bound of forward +
+     backward;
  14. time each kernel of the earlier slices at a full tape of its path
      (CUDA events) beside its plain version and the bound of the function
      it computes (the larger of its bytes at the memory rate and a tree
@@ -270,7 +287,8 @@ Phases:
      in phase 11b and the pool crash; ``cache_sim_segments_scan``'s
      launches include the sharded runs of phases 4 and 9; one
      ``flash_attention`` row a shape of phases 12, 13 and 13b-d, one
-     ``paged_attention`` row for phase 13 and one for 13b), the card line
+     ``paged_attention`` row for phase 13 and one for 13b; phase 16's
+     ``flash_attention`` row carries the training numbers), the card line
      and, last, the result line.
 
 Exits non-zero, printing no result, when no card is visible or any
@@ -410,6 +428,23 @@ MLA_DECODE_PROMPT, FAMILY_DECODE_NEW = 256, 32
 ENC_ROWS, ENC_FRAMES, DEC_PROMPT = 4, 1024, 256
 FAMILY_REDUCED_LAYERS, FAMILY_REDUCED_PROMPT = 2, 256
 FAMILY_REDUCED_DECODE = 4
+# training (ROADMAP §1 item 5): qwen3-0.6b at full width and depth in bf16
+# from seed 0, AdamWConfig(**TRAIN_OPT) (tests/test_train.py:22-27), fed
+# SyntheticLM(vocab, TRAIN_SHAPE[1], TRAIN_SHAPE[0], seed 0) for
+# TRAIN_STEPS steps; the kernels against the plain versions on the first
+# step's loss and gradients at TRAIN_HOLD_BATCH rows; a TRAIN_REDUCED
+# layer copy in fp32 card against CPU on TRAIN_CPU_SHAPE tokens; the
+# Trainer at TRAIN_REDUCED layers (bf16) on TRAINER_SHAPE batches, a
+# failure at TRAINER_FAIL, a checkpoint every TRAINER_CKPT steps, for
+# TRAINER_STEPS; the SSD wrapper's gradient at zamba2-7b's layer shape,
+# batch 1 (SSD_GRAD_CASE: BH, S, P, N, chunk, groups of B/C)
+TRAIN_ARCH, TRAIN_SEED, TRAIN_SHAPE, TRAIN_STEPS = "qwen3_0_6b", 0, \
+    (8, 2048), 15
+TRAIN_OPT = dict(lr_peak=1e-3, warmup_steps=5, total_steps=50)
+TRAIN_HOLD_BATCH, TRAIN_REDUCED, TRAIN_CPU_SHAPE = 2, 2, (1, 256)
+TRAINER_SHAPE, TRAINER_STEPS, TRAINER_CKPT, TRAINER_FAIL = (2, 256), 12, \
+    3, 7
+SSD_GRAD_CASE = (112, 2048, 64, 64, 256, 1)
 # PERF.md section 5's ro_replay stage per window when the RO replays were
 # host loops (this script on NVIDIA H100 80GB HBM3, 700.00 W), printed
 # beside this run's
@@ -3990,6 +4025,440 @@ def family_model_phase(dev, max_err: dict, arch: str) -> list[dict]:
     return rows
 
 
+def train_grads(params, cfg, batch) -> tuple:
+    """(loss, {path: gradient}) of ``loss_fn`` at ``params`` (detached
+    leaves that require grad, ``torch.autograd.grad``)."""
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_items, tree_unflatten
+    paths, leaves = zip(*tree_items(params))
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    loss = M.loss_fn(tree_unflatten(params, leaves), cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), dict(zip(paths, grads))
+
+
+def plain_training(fn):
+    """``fn()`` with the plain versions in the kernels' places (swapped
+    here only; the port has no switch): plain autograd, no launch."""
+    import repro_torch.kernels.mamba2_ssd.ops as ssd_ops
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels.flash_attention.ref import blockwise_attention
+    from repro_torch.kernels.mamba2_ssd.ref import mamba2_ssd_chunked
+    saved = (attention.prefill_attention, ssd_ops.mamba2_ssd)
+    attention.prefill_attention, ssd_ops.mamba2_ssd = \
+        blockwise_attention, mamba2_ssd_chunked
+    try:
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        assert not any(read_counts().values()), "the plain run launched"
+    finally:
+        attention.prefill_attention, ssd_ops.mamba2_ssd = saved
+    return out
+
+
+def grad_norm(grads: dict) -> float:
+    return math.sqrt(sum(float(g.float().square().sum())
+                         for g in grads.values()))
+
+
+def hold_grads(what: str, got: dict, want: dict, tol: float) -> float:
+    """Each leaf within ``tol`` of its largest |g|; returns the worst
+    share."""
+    worst = 0.0
+    for name, w in want.items():
+        top = float(w.float().abs().max())
+        err = float((got[name].float().cpu() - w.float().cpu()).abs().max())
+        share = err / top if top else err
+        assert err <= tol * top + 1e-30, \
+            f"{what}: gradient {name} {share} of its largest |g| (> {tol})"
+        worst = max(worst, share)
+    return worst
+
+
+class FunctionTimer:
+    """CUDA events around every forward and backward of an autograd
+    Function (its ``forward`` / ``backward`` wrapped while inside): the
+    stream time each takes, summed, read after a synchronize."""
+
+    def __init__(self, fn_cls):
+        self.cls, self.events = fn_cls, {"forward": [], "backward": []}
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.cls, k) for k in self.events}
+        for kind, fn in self.saved.items():
+            def timed(*a, _fn=fn, _kind=kind):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                out = _fn(*a)
+                t1.record()
+                self.events[_kind].append((t0, t1))
+                return out
+            setattr(self.cls, kind, staticmethod(timed))
+        return self
+
+    def __exit__(self, *exc):
+        for kind, fn in self.saved.items():
+            setattr(self.cls, kind, staticmethod(fn))
+
+    def ms(self, kind: str) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events[kind])
+
+
+def training_phase(dev, max_err: dict) -> list[dict]:
+    """Phase 16: training (ROADMAP §1 item 5), qwen3-0.6b at full width
+    and depth on the card.
+
+    (a) bf16 from seed 0: ``make_train_step`` with ``TRAIN_OPT`` over
+    ``TRAIN_STEPS`` batches of ``SyntheticLM`` (8 x 2048 tokens, 16,384 a
+    step; made on the host before the run): the loss at the last step
+    below the first, every ``grad_norm`` finite, 28 ``flash_attention``
+    launches a step (the forward; the backward recomputes the plain
+    version) and none of another kernel; the step's ms and tokens/s, the
+    peak memory; then one more step with CUDA events around the
+    attention Function's forward and backward (its share of a step).  (b)
+    remat: ``remat="full"`` and ``"dots"`` each take the first step from
+    the same start: loss and ``grad_norm`` within 1e-5 of (a)'s first,
+    56 launches (the recompute launches the kernel again).  (c) the first
+    step's loss and gradients at ``TRAIN_HOLD_BATCH`` rows x 2048, kernels
+    against the plain versions on the card: fp32 (the bf16 parameters are
+    its rounding) loss to rel 1e-5 and each leaf within 1e-4 of its
+    largest |g|; bf16 loss to 2e-2 and the gradients' global norm to
+    5e-2.  (d) ``TRAIN_REDUCED`` layers at full width in fp32 on
+    ``TRAIN_CPU_SHAPE`` tokens: loss and gradients and a train step's
+    metrics, card against CPU, to 1e-4.  (e) the ``Trainer`` at
+    ``TRAIN_REDUCED`` layers in bf16: a failure at step ``TRAINER_FAIL``,
+    a checkpoint every ``TRAINER_CKPT`` steps (in a temporary directory,
+    removed after), ``TRAINER_STEPS`` steps: one restart, and the final
+    loss equal to an uninterrupted run's to rel 1e-5.  (f) the
+    ``mamba2_ssd`` wrapper's gradient at zamba2-7b's layer shape, batch 1
+    (``SSD_GRAD_CASE``): one launch, the forward within 3e-6 of the
+    largest output of the chunked form, the gradients of x, B, C and dA
+    equal to plain autograd's bit for bit; the forward kernel and the
+    plain-recompute backward timed.  (g) ``flash_attention`` at the
+    captured training inputs ([8, 16/8, 2048, 128] bf16 causal, the
+    model's views): ``attention_row``'s hold and times, then the
+    plain-recompute backward, the wrapper's forward + backward,
+    ``scaled_dot_product_attention`` forward + backward under each fused
+    backend alone (``enable_gqa``), and the bound of forward + backward
+    (the backward at 2.5x the forward's FLOPs, 989 TFLOP/s; the bytes of
+    q, k, v, o read and written by both passes and dO, dQ, dK, dV).
+    Returns the kernels' rows."""
+    import tempfile
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    free_cards()
+    import repro_torch.kernels.flash_attention.ops as fa_ops
+    import repro_torch.kernels.mamba2_ssd.ops as ssd_ops
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import SyntheticLM
+    from repro_torch.kernels.flash_attention.ref import blockwise_attention
+    from repro_torch.kernels.mamba2_ssd.kernel import mamba2_ssd
+    from repro_torch.kernels.mamba2_ssd.ref import (mamba2_ssd_chunked,
+                                                    seg_from_dA)
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    F = torch.nn.functional
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamWConfig(**TRAIN_OPT)
+    b, s = TRAIN_SHAPE
+    data = SyntheticLM(cfg.vocab_size, s, b, seed=TRAIN_SEED)
+    batches = [data.batch_at(i) for i in range(TRAIN_STEPS)]
+    t0 = time.perf_counter()
+    state = init_train_state(M.init_params(cfg, seed=TRAIN_SEED,
+                                           device=dev))
+    torch.cuda.synchronize()
+    print(f"training: {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}), "
+          f"{_leaf_count(state['params']):,} {cfg.dtype} parameters from "
+          f"seed {TRAIN_SEED} with fp32 master, mu and nu, in "
+          f"{time.perf_counter() - t0:.1f} s; AdamWConfig({TRAIN_OPT}), "
+          f"{b} x {s} tokens a step")
+
+    # ------------------------------------------- (a) the main path, bf16
+    step = make_train_step(cfg, opt)
+    losses, norms, times = [], [], []
+    with Recorder(fa_ops, "flash_attention") as fa_rec:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))          # waits for the step
+            norms.append(float(m["grad_norm"]))
+            times.append(time.perf_counter() - t0)
+        launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers * TRAIN_STEPS
+    assert launches["flash_attention"] == want and \
+        sum(launches.values()) == want, \
+        f"training launches {launches}, predicted {want} flash_attention"
+    assert all(math.isfinite(x) for x in losses + norms), (losses, norms)
+    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+    assert int(m["lr_step"]) == TRAIN_STEPS == int(state["step"])
+    step_s = float(np.median(times[1:]))
+    print(f"train steps {b} x {s} bf16: median {step_s * 1e3:.1f} ms a step "
+          f"over steps 1-{TRAIN_STEPS - 1} ({b * s / step_s:.0f} tokens/s; "
+          f"step 0 {times[0] * 1e3:.1f} ms); peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)} == "
+          f"predicted ({cfg.n_layers} flash_attention a step); loss "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; grad_norm "
+          f"{', '.join(f'{x:.3f}' for x in norms)}")
+    with FunctionTimer(fa_ops.FlashAttention) as ft:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch_at(TRAIN_STEPS))
+        float(m["loss"])
+        timed_s = time.perf_counter() - t0
+    fwd_in_step, bwd_in_step = ft.ms("forward"), ft.ms("backward")
+    share = (fwd_in_step + bwd_in_step) / (timed_s * 1e3)
+    print(f"one more step with CUDA events around FlashAttention: "
+          f"{timed_s * 1e3:.1f} ms; {len(ft.events['forward'])} forwards "
+          f"{fwd_in_step:.2f} ms, {len(ft.events['backward'])} backwards "
+          f"(plain recompute) {bwd_in_step:.2f} ms: {share:.1%} of the step")
+    del state, m, step
+
+    # --------------------------------- (b) remat full and dots, one step
+    remat = {}
+    for mode in ("full", "dots"):
+        st = init_train_state(M.init_params(cfg, seed=TRAIN_SEED, device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        st, m = make_train_step(dataclasses.replace(cfg, remat=mode),
+                                opt)(st, batches[0])
+        lm, gm = float(m["loss"]), float(m["grad_norm"])
+        dt = time.perf_counter() - t0
+        got = read_counts()
+        rl, rg = abs(lm - losses[0]) / losses[0], abs(gm - norms[0]) / norms[0]
+        assert got["flash_attention"] == 2 * cfg.n_layers == \
+            sum(got.values()), f"remat={mode} launches {got}"
+        assert rl <= 1e-5 and rg <= 1e-5, (mode, rl, rg)
+        remat[mode] = (dt, torch.cuda.max_memory_allocated())
+        print(f"check: remat={mode!r} first step vs remat='none': loss "
+              f"{rl:.3g}, grad_norm {rg:.3g} apart (tolerance 1e-5); "
+              f"{got['flash_attention']} flash_attention launches (the "
+              f"recompute launches again); {dt * 1e3:.1f} ms (a first step); "
+              f"peak {remat[mode][1] / 2**30:.2f} GiB")
+        del st, m
+
+    # -------------- (c) kernels vs plain versions, first step, 2 x 2048
+    hold = {k: torch.as_tensor(v[:TRAIN_HOLD_BATCH]).to(dev)
+            for k, v in batches[0].items()}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        prm = M.init_params(c, seed=TRAIN_SEED, device=dev)
+        zero_counts()
+        lk, gk = train_grads(prm, c, hold)
+        torch.cuda.synchronize()
+        got = read_counts()
+        assert got["flash_attention"] == cfg.n_layers == sum(got.values())
+        lp, gp = plain_training(lambda: train_grads(prm, c, hold))
+        rl = abs(float(lk) - float(lp)) / abs(float(lp))
+        if dtype == "float32":
+            assert rl <= 1e-5, f"fp32 loss kernels vs plain: {rl}"
+            worst = hold_grads("fp32 kernels vs plain", gk, gp, 1e-4)
+            detail = (f"every leaf within {worst:.3g} of its largest |g| "
+                      f"(tolerance 1e-4)")
+        else:
+            nk, npl = grad_norm(gk), grad_norm(gp)
+            rn = abs(nk - npl) / npl
+            assert rl <= 2e-2 and rn <= 5e-2, (rl, rn)
+            detail = (f"gradient norm {nk:.4f} vs {npl:.4f}, {rn:.3g} apart "
+                      f"(tolerance 5e-2)")
+        print(f"check: first-step loss and gradients at "
+              f"{TRAIN_HOLD_BATCH} x {s} in {dtype}, kernels vs plain "
+              f"versions on the card: loss {float(lk):.6f} vs "
+              f"{float(lp):.6f}, {rl:.3g} apart (tolerance "
+              f"{1e-5 if dtype == 'float32' else 2e-2}); {detail}")
+        del prm, gk, gp
+
+    # ------------------ (d) TRAIN_REDUCED layers, fp32, card vs CPU
+    rcfg = dataclasses.replace(cfg, n_layers=TRAIN_REDUCED, dtype="float32")
+    rp = M.init_params(rcfg, seed=TRAIN_SEED, device=dev)
+    cp = _to(rp, "cpu")
+    rb, rs_ = TRAIN_CPU_SHAPE
+    small = {k: torch.as_tensor(v[:rb, :rs_]) for k, v in batches[0].items()}
+    t0 = time.perf_counter()
+    lg, gg = train_grads(rp, rcfg, _to(small, dev))
+    lc, gcpu = train_grads(cp, rcfg, small)
+    rl = abs(float(lg) - float(lc)) / abs(float(lc))
+    assert rl <= 1e-4, f"card vs CPU loss: {rl}"
+    worst = hold_grads("card vs CPU", gg, gcpu, 1e-4)
+    _, mg = make_train_step(rcfg, opt)(init_train_state(rp), small)
+    _, mc = make_train_step(rcfg, opt)(init_train_state(cp), small)
+    rm = max(abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+             for k in ("loss", "grad_norm"))
+    assert rm <= 1e-4, f"card vs CPU train step metrics: {rm}"
+    print(f"check: {TRAIN_REDUCED} layers at full width, fp32, {rb} x {rs_} "
+          f"tokens, card vs CPU ({time.perf_counter() - t0:.1f} s): loss "
+          f"{rl:.3g} apart, every gradient leaf within {worst:.3g} of its "
+          f"largest |g|, a train step's loss and grad_norm within {rm:.3g} "
+          f"(tolerance 1e-4)")
+    del rp, cp, gg, gcpu
+
+    # ------------------------------------------------- (e) the Trainer
+    tcfg = dataclasses.replace(cfg, n_layers=TRAIN_REDUCED)
+    tparams = M.init_params(tcfg, seed=TRAIN_SEED, device=dev)
+    tdata = SyntheticLM(cfg.vocab_size, TRAINER_SHAPE[1], TRAINER_SHAPE[0],
+                        seed=TRAIN_SEED + 3)
+    tstep = make_train_step(tcfg, opt)
+    fails = []
+
+    def hook(i):
+        if i == TRAINER_FAIL and not fails:
+            fails.append(i)
+            raise RuntimeError("injected node loss")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tr = Trainer(tstep, init_train_state(tparams), tdata,
+                     TrainerConfig(total_steps=TRAINER_STEPS,
+                                   ckpt_every=TRAINER_CKPT, ckpt_dir=d),
+                     failure_hook=hook)
+        out = tr.run()
+        ckpts = sorted(f for f in os.listdir(d) if f.endswith(".npz"))
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f)) for f in ckpts)
+    faulted_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        plain = Trainer(tstep, init_train_state(tparams), tdata,
+                        TrainerConfig(total_steps=TRAINER_STEPS,
+                                      ckpt_every=10**9, ckpt_dir=d)).run()
+    rl = abs(out["final_loss"] - plain["final_loss"]) / plain["final_loss"]
+    assert out["restarts"] == 1 and out["final_step"] == TRAINER_STEPS, out
+    assert rl <= 1e-5, (out, plain)
+    print(f"check: Trainer at {TRAIN_REDUCED} layers, full width, bf16, "
+          f"{TRAINER_SHAPE[0]} x {TRAINER_SHAPE[1]}: failure at step "
+          f"{TRAINER_FAIL}, {len(ckpts)} checkpoints ({ckpt_bytes / 2**30:.2f}"
+          f" GiB; every {TRAINER_CKPT} steps), restarts {out['restarts']}, "
+          f"final step {out['final_step']}, final loss "
+          f"{out['final_loss']:.6f} vs the uninterrupted run's "
+          f"{plain['final_loss']:.6f} ({rl:.3g} apart, tolerance 1e-5); "
+          f"{faulted_s:.1f} s with the faults")
+    del tparams, tr
+
+    # ---------------- (f) the SSD wrapper's gradient, zamba2's layer
+    bh, ss, p, n, chunk, groups = SSD_GRAD_CASE
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    x = torch.randn((bh, ss, p), generator=gen, device=dev) * 0.5
+    Bm = torch.randn((groups, ss, n), generator=gen, device=dev) * 0.5
+    Cm = torch.randn((groups, ss, n), generator=gen, device=dev) * 0.5
+    dA = -torch.rand((bh, ss), generator=gen, device=dev) * 0.5
+    up = torch.randn((bh, ss, p), generator=gen, device=dev)
+
+    def grads_of(fn):
+        xs = [t.detach().requires_grad_(True) for t in (x, Bm, Cm, dA)]
+        out_ = fn(*xs)
+        return out_, torch.autograd.grad(out_, xs, up)
+
+    def plain_ssd(x_, b_, c_, a_):
+        return mamba2_ssd_chunked(x_, b_, c_, seg_from_dA(a_, chunk),
+                                  chunk=chunk)
+    zero_counts()
+    y, got = grads_of(lambda *t: ssd_ops.mamba2_ssd_op(*t, chunk=chunk))
+    torch.cuda.synchronize()
+    assert read_counts()["mamba2_ssd"] == 1
+    y_want, want_g = grads_of(plain_ssd)
+    y, y_want = y.detach(), y_want.detach()
+    err = check_close(max_err, "mamba2_ssd", "training layer forward", y,
+                      y_want, 3e-6, float(y_want.abs().max()))
+    for name, g, w in zip(("x", "B", "C", "dA"), got, want_g):
+        assert torch.equal(g, w), f"mamba2_ssd gradient of {name}"
+    seg = seg_from_dA(dA, chunk)
+    ssd_fwd = cuda_ms(lambda: mamba2_ssd(x, Bm, Cm, seg, chunk=chunk), REPS)
+    ssd_bwd = cuda_ms(lambda: grads_of(plain_ssd), 3)
+    nbytes, flops = ssd_work(x, Bm, chunk)
+    ssd_bound = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_PER_S) * 1e3
+    print(f"check: mamba2_ssd_op gradient at x {list(x.shape)}, B/C "
+          f"{list(Bm.shape)}, chunk {chunk}: forward within {err:.3g} "
+          f"(3e-6 of max |y|), the gradients of x, B, C, dA equal to plain "
+          f"autograd's bit for bit; kernel forward {ssd_fwd:.3f} ms, plain "
+          f"forward + backward (what a training step adds) {ssd_bwd:.3f} ms; "
+          f"forward bound {ssd_bound:.4f} ms")
+    del x, Bm, Cm, dA, up, y, got, y_want, want_g, seg
+
+    # ------------- (g) flash_attention at the captured training inputs
+    # the first call's inputs, detached from step 0's graph (the raw
+    # launcher refuses inputs that require grad)
+    q, k, v = (t.detach() for t in fa_rec.args)
+    fa_kw = fa_rec.kwargs
+    row = attention_row(f"{cfg.name} training", q, k, v, fa_kw,
+                        launches["flash_attention"], None, max_err)
+    gqa = k.shape[1] < q.shape[1]
+    up = torch.randn(q.shape[:-1] + (v.shape[-1],), device=dev,
+                     dtype=q.dtype)
+    ups = up.transpose(1, 2)                      # the model's layout
+
+    def plain_bwd():
+        xs = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+        with torch.enable_grad():
+            o = blockwise_attention(*xs, **fa_kw)
+        return torch.autograd.grad(o, xs, ups)
+
+    def wrapper_fb():
+        xs = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+        o = fa_ops.prefill_attention(*xs, **fa_kw)
+        return torch.autograd.grad(o, xs, ups)
+    bwd_ms = cuda_ms(plain_bwd, 5)
+    fb_ms = cuda_ms(wrapper_fb, 5)
+    sdpa = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        def sdpa_fb():
+            xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(
+                *xs, is_causal=fa_kw["causal"], enable_gqa=gqa)
+            return torch.autograd.grad(o, xs, up)
+        try:
+            with sdpa_kernel([backend]):
+                sdpa[backend.name] = cuda_ms(sdpa_fb, REPS)
+        except RuntimeError as e:
+            sdpa[backend.name] = "refused (" + \
+                str(e).strip().split(".")[0] + ")"
+    nbytes, flops = attention_work(q, k, v, **fa_kw)
+    elt = q.element_size()
+    grad_bytes = (2 * (q.numel() + k.numel() + v.numel())
+                  + 2 * up.numel()) * elt          # dq dk dv; o and do read
+    fb_bound = max((2 * nbytes + grad_bytes) / PEAK_BYTES_PER_S,
+                   3.5 * flops / PEAK_BF16_PER_S) * 1e3
+    steps_share = cfg.n_layers * (row["ms"] + bwd_ms) / (step_s * 1e3)
+    timed = [x for x in sdpa.values() if isinstance(x, float)]
+    vs_sdpa = (f"; wrapper / best SDPA = {fb_ms / min(timed):.1f}" if timed
+               else "")
+    print(f"flash_attention training [{', '.join(map(str, q.shape))}] "
+          f"{q.dtype}: kernel forward {row['ms']:.3f} ms; plain-recompute "
+          f"backward {bwd_ms:.3f} ms; the wrapper's forward + backward "
+          f"{fb_ms:.3f} ms; {cfg.n_layers} x (forward + backward) = "
+          f"{steps_share:.1%} of the median step ({share:.1%} by events in "
+          f"a step); scaled_dot_product_attention forward + backward "
+          f"(enable_gqa={gqa}) {json.dumps(sdpa)}; bound of forward + "
+          f"backward {fb_bound:.4f} ms (3.5x the forward's "
+          f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s){vs_sdpa}")
+    row.update({
+        "train_step_ms": step_s * 1e3, "train_tokens_per_s": b * s / step_s,
+        "train_peak_gib": peak / 2**30, "launches_per_step": cfg.n_layers,
+        "backward_plain_ms": bwd_ms, "forward_backward_ms": fb_ms,
+        "step_share": steps_share, "step_share_events": share,
+        "sdpa_forward_backward_ms": sdpa, "bound_forward_backward_ms":
+            fb_bound,
+        "ssd_training": {"shape": list(SSD_GRAD_CASE), "forward_ms": ssd_fwd,
+                         "plain_forward_backward_ms": ssd_bwd,
+                         "forward_bound_ms": ssd_bound}})
+    return [row]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4442,6 +4911,11 @@ def main() -> int:
         family_rows += family_model_phase(dev, max_err, arch)
         print(f"phase seconds: {arch} {time.perf_counter() - t0:.1f} s")
 
+    # ------------------------------------ 16. training, qwen3-0.6b
+    t0 = time.perf_counter()
+    train_rows = training_phase(dev, max_err)
+    print(f"phase seconds: training {time.perf_counter() - t0:.1f} s")
+
     # ------------- 14a. full window tape: cache_sim_scan vs its merge tree
     tr0 = windows[0]
     addrs = torch.cat([t.addrs for t in tr0]).to(dev)
@@ -4741,6 +5215,7 @@ def main() -> int:
     rows.extend(model_rows)
     rows.extend(serve_rows)
     rows.extend(family_rows)
+    rows.extend(train_rows)
     # phase 11b's launches beside each row's own (the pool crash's are
     # already on the serving rows)
     for r in rows:

@@ -1,1 +1,1 @@
-"""Data substrate: synthetic block-trace generators."""
+"""Data substrate: synthetic LM pipeline + block-trace generators."""

@@ -13,6 +13,10 @@ tiles).  The kernel takes element strides, so it reads the model's
 source says what bounds it on the card.  On a CPU tensor the wrapper
 returns the reference's own prefill, ``ref.blockwise_attention``; the
 dense ``ref.attention_ref`` is the definition both are held against.
+The launch writes through ``ctypes`` and records no autograd node: the
+differentiable route is ``ops.prefill_attention`` (its ``FlashAttention``
+Function), and on a CUDA tensor with grad mode on and an input that
+requires grad this launcher raises rather than return a detached output.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import load_library
+from repro_torch.kernels.autograd import wants_grad
 from repro_torch.kernels.flash_attention.ref import blockwise_attention
 
 __all__ = ["flash_attention"]
@@ -102,6 +107,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return blockwise_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window).transpose(1, 2)
+    if wants_grad(q, k, v):
+        raise RuntimeError("flash_attention: the kernel records no autograd "
+                           "node and an input requires grad; differentiate "
+                           "through kernels.flash_attention.ops."
+                           "prefill_attention (its FlashAttention Function)")
     if q.dtype not in DTYPES:
         raise ValueError(f"flash_attention: q, k and v must be float32 or "
                          f"bfloat16, got {q.dtype}")

@@ -12,6 +12,11 @@ launcher of its own here, held against its plain version in ``ref.py``.
 The source says what bounds it on the card.  On a CPU tensor the wrapper
 returns the plain chunked form ``ref.mamba2_ssd_chunked``; the sequential
 ``ref.mamba2_ssd_ref`` is the definition both are held against.
+The launches write through ``ctypes`` and record no autograd node: the
+differentiable route is ``ops.mamba2_ssd_op`` (its ``Mamba2SSD``
+Function), and on CUDA tensors with grad mode on and an input that
+requires grad ``mamba2_ssd`` and each pass's launcher raise rather than
+return a detached output.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import pathlib
 import torch
 
 from repro_torch.kernels import load_library
+from repro_torch.kernels.autograd import wants_grad
 from repro_torch.kernels.mamba2_ssd.ref import (chunk_scan_ref,
                                                 chunk_state_ref,
                                                 mamba2_ssd_chunked,
@@ -69,6 +75,7 @@ def _check(name: str, x_dt: torch.Tensor, B: torch.Tensor,
                          f"device")
     if x_dt.device.type != "cuda":
         return False
+    _no_grad_inputs(name, *(t for _, t in named))
     for nm, t in named:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name}: {nm} must be a contiguous float32 "
@@ -82,6 +89,14 @@ def _check(name: str, x_dt: torch.Tensor, B: torch.Tensor,
                          f"{chunk} needs more shared memory than a block "
                          f"has")
     return True
+
+
+def _no_grad_inputs(name: str, *tensors: torch.Tensor) -> None:
+    if wants_grad(*tensors):
+        raise RuntimeError(f"{name}: the kernel records no autograd node and "
+                           f"an input requires grad; differentiate through "
+                           f"kernels.mamba2_ssd.ops.mamba2_ssd_op (its "
+                           f"Mamba2SSD Function)")
 
 
 def _launched(name: str, err: int) -> None:
@@ -117,6 +132,7 @@ def state_pass(states: torch.Tensor, seg: torch.Tensor, *,
     bh, nc1, n, p = states.shape
     if states.device.type != "cuda":
         return state_pass_ref(states, seg, chunk=chunk)
+    _no_grad_inputs("state_pass", states, seg)
     if seg.shape != (bh, (nc1 + 1) * chunk, 1) or seg.device != states.device:
         raise ValueError(f"state_pass: states {tuple(states.shape)} need seg "
                          f"of [BH, S, 1] on their device, got "

@@ -14,7 +14,10 @@ table's width and the SM count (the lengths stay on the card).  The
 source says what bounds it on the card.  On a CPU tensor the wrapper
 returns ``ref.paged_attention_ref``, the definition the kernel is held
 against; ``ref.paged_attention_split_ref`` is the kernel's decomposition
-in plain torch.
+in plain torch.  The launch writes through ``ctypes`` and records no
+autograd node (decode is never differentiated; the reference's decode
+calls the plain version): on CUDA tensors with grad mode on and an input
+that requires grad it raises rather than return a detached output.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import pathlib
 import torch
 
 from repro_torch.kernels import load_library
+from repro_torch.kernels.autograd import wants_grad
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 __all__ = ["paged_attention"]
@@ -115,6 +119,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    seq_lens)
+    if wants_grad(q, k_pages, v_pages):
+        raise RuntimeError("paged_attention: the kernel records no autograd "
+                           "node and an input requires grad; it has no "
+                           "differentiable route (decode is not trained)")
     if q.dtype not in DTYPES:
         raise ValueError(f"paged_attention: float32 or bfloat16 inputs, got "
                          f"{q.dtype}")

@@ -1,1 +1,1 @@
-"""Launchers of the port (the serving launcher; the others are to come)."""
+"""Launchers of the port: serving (``serve``) and training (``train``)."""

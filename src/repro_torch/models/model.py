@@ -20,14 +20,26 @@ cache holds each decoder layer's cross K and V, which the caller fills
 with ``attention.cross_attention_kv`` from the encoder's output.
 
 Prefill does not fill the decode cache (neither does the reference's): a
-request's prompt is teacher-forced through ``decode_step``.  Left out, as
-ROADMAP §1 says: training's remat and losses (item 5), and the split-KV
+request's prompt is teacher-forced through ``decode_step``.  ``prefill``
+and ``decode_step`` run under ``torch.no_grad()``.
+
+Training: ``loss_fn`` is ``forward_hidden`` then ``chunked_cross_entropy``
+(512-token chunks, each under ``torch.utils.checkpoint``, so the
+[B, S, vocab] logits never exist at once).  ``forward_hidden``
+rematerialises each block as ``cfg.remat`` says (``_maybe_remat``) while
+grad mode is on; the kernels on its path record their autograd nodes
+through ``kernels.autograd``.  Left out, as ROADMAP §1 says: the split-KV
 ``commit=False`` path with the sharding hints (item 6).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (attention_cross, attention_decode,
@@ -40,8 +52,9 @@ from repro_torch.models.layers import (Param, dense_init, moe_ffn, rms_norm,
 from repro_torch.models.mamba2 import (init_mamba2_layer, init_ssm_state,
                                        mamba2_decode_step, mamba2_forward)
 
-__all__ = ["decode_step", "forward_hidden", "hybrid_groups",
-           "init_decode_cache", "init_params", "params_from_jax", "prefill"]
+__all__ = ["chunked_cross_entropy", "decode_step", "forward_hidden",
+           "hybrid_groups", "init_decode_cache", "init_params", "loss_fn",
+           "params_from_jax", "prefill"]
 
 _ATTN_FAMILIES = (Family.DENSE, Family.MOE, Family.ENCDEC)
 
@@ -195,6 +208,34 @@ def _ssm_block(p: Param, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                               cfg)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``dots_with_no_batch_dims_saveable``: keep the products without
+    batch dims (``mm``, ``addmm``: every ``x @ W`` of a block), recompute
+    the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` (a block: h -> h) under ``cfg.remat`` while grad mode is on:
+    ``"full"`` saves nothing inside it (recomputed in the backward),
+    ``"dots"`` saves the outputs of the products without batch dims, as
+    the reference's ``jax.checkpoint`` policies; ``"none"`` and no-grad
+    runs (prefill, the server) return ``fn``."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r}: none, full or dots")
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def _lm_head(params: Param, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -205,8 +246,10 @@ def _encode(params: Param, cfg: ModelConfig,
     [B, S_enc, d] -> the encoder's output [B, S_enc, d]."""
     e = enc_embeds
     for i in range(cfg.n_enc_layers):
-        e = _attn_mlp_block(_layer(params, i, "enc_layers"), e, cfg,
-                            causal=False)
+        p = _layer(params, i, "enc_layers")
+        e = _maybe_remat(lambda x, p=p: _attn_mlp_block(p, x, cfg,
+                                                        causal=False),
+                         cfg)(e)
     return rms_norm(e, params["enc_norm"], cfg.rms_eps)
 
 
@@ -215,7 +258,10 @@ def forward_hidden(params: Param, cfg: ModelConfig, tokens: torch.Tensor,
                    ) -> torch.Tensor:
     """Token ids [B, S] (and, for the encoder-decoder family, the
     encoder's stub embeddings ``enc_embeds`` [B, S_enc, d]) -> final
-    hidden states [B, S, d]."""
+    hidden states [B, S, d].  Each block runs under ``_maybe_remat``
+    where the reference's does: every block of the dense, MoE, SSM and
+    encoder-decoder stacks, and the hybrid's grouped Mamba-2 blocks and
+    shared attention block, not its tail."""
     h = params["embed"][tokens]
     if cfg.family == Family.ENCDEC:
         if enc_embeds is None:
@@ -223,20 +269,95 @@ def forward_hidden(params: Param, cfg: ModelConfig, tokens: torch.Tensor,
                              "encoder's stub embeddings (enc_embeds)")
         enc_out = _encode(params, cfg, enc_embeds)
         for i in range(cfg.n_layers):
-            h = _attn_mlp_block(_layer(params, i), h, cfg, causal=True,
-                                enc_out=enc_out)
+            p = _layer(params, i)
+            h = _maybe_remat(lambda x, p=p: _attn_mlp_block(
+                p, x, cfg, causal=True, enc_out=enc_out), cfg)(h)
     elif cfg.family in _ATTN_FAMILIES:
         for i in range(cfg.n_layers):
-            h = _attn_mlp_block(_layer(params, i), h, cfg)
+            p = _layer(params, i)
+            h = _maybe_remat(lambda x, p=p: _attn_mlp_block(p, x, cfg),
+                             cfg)(h)
     else:
         shared = _shared_after(cfg)
+        n_groups, g, _ = hybrid_groups(cfg) \
+            if cfg.family == Family.HYBRID else (0, 0, 0)
         for i in range(cfg.n_layers):
-            h = _ssm_block(_layer(params, i), h, cfg)
+            def block(x, p=_layer(params, i)):
+                return _ssm_block(p, x, cfg)
+            # the hybrid's tail (past its last group) is not rematerialised
+            if cfg.family == Family.SSM or i < n_groups * g:
+                block = _maybe_remat(block, cfg)
+            h = block(h)
             if i in shared:
-                h = _attn_mlp_block(params["shared_attn"], h, cfg)
+                h = _maybe_remat(lambda x: _attn_mlp_block(
+                    params["shared_attn"], x, cfg), cfg)(h)
     return rms_norm(h, params["final_norm"], cfg.rms_eps)
 
 
+def _ce_chunk(h_c: torch.Tensor, head32: torch.Tensor, y_c: torch.Tensor,
+              vocab_real: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk: (its unmasked tokens, its summed cross entropy)."""
+    logits = h_c.float() @ head32                            # [B, c, Vp]
+    logits = logits.masked_fill(
+        torch.arange(logits.shape[-1], device=logits.device) >= vocab_real,
+        -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        y_c.clamp(min=0).long()[..., None])[..., 0]
+    mask = (y_c >= 0).float()
+    return mask.sum(), ((lse - gold) * mask).sum()
+
+
+def chunked_cross_entropy(h: torch.Tensor, lm_head: torch.Tensor,
+                          labels: torch.Tensor, vocab_real: int,
+                          chunk: int = 512) -> torch.Tensor:
+    """Mean cross entropy without the [B, S, V] logits: h [B, S, d],
+    lm_head [d, Vp], labels [B, S] (< 0 masked) -> a float32 scalar.
+
+    The sequence is padded to whole chunks of ``chunk`` (labels -1) and
+    each chunk's logits are formed, reduced and dropped; under grad mode
+    each chunk runs under ``torch.utils.checkpoint`` and is recomputed in
+    the backward, as the reference's ``@jax.checkpoint`` body.  Columns
+    past ``vocab_real`` are -1e30.  The logits are fp32: the product of
+    the operands widened to fp32 (exact products of bf16 values, fp32
+    sums), the reference's ``preferred_element_type=f32``; the head is
+    widened once for all chunks."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    n = -(-s // chunk)
+    pad = n * chunk - s
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    head32 = lm_head.float()
+    n_tok = torch.zeros((), device=h.device)
+    s_ce = torch.zeros((), device=h.device)
+    for c in range(n):
+        part = (h[:, c * chunk:(c + 1) * chunk], head32,
+                labels[:, c * chunk:(c + 1) * chunk], vocab_real)
+        if torch.is_grad_enabled():
+            nt, sc = checkpoint(_ce_chunk, *part, use_reentrant=False)
+        else:
+            nt, sc = _ce_chunk(*part)
+        n_tok, s_ce = n_tok + nt, s_ce + sc
+    return s_ce / torch.clamp(n_tok, min=1.0)
+
+
+def loss_fn(params: Param, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """batch: {"tokens": [B, S] int, "labels": [B, S] int (-1 pad),
+    optional "enc_embeds": [B, S_enc, d]}, tensors on the parameters'
+    device -> the mean next-token cross entropy (float32 scalar).  The
+    stub embeddings enter in the parameters' dtype (the data pipeline
+    makes them float32)."""
+    enc = batch.get("enc_embeds")
+    if enc is not None:
+        enc = enc.to(params["embed"].dtype)
+    h = forward_hidden(params, cfg, batch["tokens"], enc_embeds=enc)
+    return chunked_cross_entropy(h, _lm_head(params, cfg), batch["labels"],
+                                 cfg.vocab_size)
+
+
+@torch.no_grad()
 def prefill(params: Param, cfg: ModelConfig, tokens: torch.Tensor, *,
             enc_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Prefill forward -> fp32 logits of the last position [B, V_padded]
@@ -305,6 +426,7 @@ def _decode_ssm_block(p: Param, h: torch.Tensor, cfg: ModelConfig,
     return h + x
 
 
+@torch.no_grad()
 def decode_step(params: Param, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: dict) -> tuple[torch.Tensor, dict]:
     """One greedy decode step.  tokens [B] -> (fp32 logits [B, V_padded]

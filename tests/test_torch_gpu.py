@@ -1675,3 +1675,212 @@ def test_moe_smoke_engine_on_card_matches_cpu(card):
         [(d.sizes.tolist(), d.policies) for d in c[3].history]
     torch.testing.assert_close(g[1].k_pages.cpu(), c[1].k_pages,
                                rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------ slice 16: training
+def _train_imports():
+    from repro_torch.kernels.flash_attention.ops import prefill_attention
+    from repro_torch.kernels.mamba2_ssd.ops import mamba2_ssd_op
+    return prefill_attention, mamba2_ssd_op
+
+
+def _grads(fn, inputs, upstream):
+    xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+    out = fn(*xs)
+    return out, torch.autograd.grad(out, xs, upstream)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_SWEEP)
+def test_prefill_attention_gradients_on_card(card, case, dtype):
+    """The differentiable wrapper on inputs that require grad: one
+    ``flash_attention`` launch, the forward within the kernel tolerances
+    of ``blockwise_attention`` (f32 2e-5, bf16 2e-2), its node
+    ``FlashAttention``, and the gradients equal bit for bit to plain
+    autograd of ``blockwise_attention`` given the same upstream gradient
+    (the backward is that recompute)."""
+    prefill_attention, _ = _train_imports()
+    b, hq, hkv, sq, skv, d, dv, causal, window = case
+    gen = torch.Generator(device=card).manual_seed(sq + d + 1)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+               for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                             (b, skv, hkv, dv)))
+    up = torch.randn((b, sq, hq, dv), generator=gen, device=card).to(dtype)
+    kw = dict(causal=causal, window=window)
+    before = flash_attention.launches
+    out, got = _grads(lambda *t: prefill_attention(*t, **kw), (q, k, v), up)
+    assert flash_attention.launches == before + 1
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    want_out, want = _grads(lambda *t: blockwise_attention(*t, **kw),
+                            (q, k, v), up)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol,
+                               atol=tol)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", SSD_SWEEP)
+def test_mamba2_ssd_op_gradients_on_card(card, case):
+    """``mamba2_ssd_op`` on inputs that require grad: one ``mamba2_ssd``
+    launch, the forward within 3e-6 of the largest output of the chunked
+    form, and the gradients of x, B, C and dA equal bit for bit to plain
+    autograd of the chunked form (the backward is that recompute)."""
+    _, mamba2_ssd_op = _train_imports()
+    x, B, C, dA, _ = _ssd_card_inputs(case, card)
+    chunk = case[4]
+    up = torch.randn_like(x)
+    before = mamba2_ssd.launches
+    out, got = _grads(lambda *t: mamba2_ssd_op(*t, chunk=chunk),
+                      (x, B, C, dA), up)
+    assert mamba2_ssd.launches == before + 1
+    want_out, want = _grads(lambda x_, b_, c_, a_: mamba2_ssd_chunked(
+        x_, b_, c_, seg_from_dA(a_, chunk), chunk=chunk), (x, B, C, dA), up)
+    _scaled_close_card(out.detach(), want_out.detach())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_raw_launchers_raise_on_inputs_that_require_grad(card):
+    """Each float kernel's raw launcher refuses an input that requires
+    grad while grad mode is on (it would return a detached output) and
+    launches as before under ``torch.no_grad()``."""
+    q = torch.randn(1, 2, 64, 32, device=card, requires_grad=True)
+    x, B, C, dA, seg = _ssd_card_inputs((2, 64, 16, 8, 16, 1), card)
+    x.requires_grad_(True)
+    states = chunk_state_ref(x.detach(), B, seg, chunk=16).contiguous()
+    pq = torch.randn(2, 4, 32, device=card, requires_grad=True)
+    kp = torch.randn(8, 16, 2, 32, device=card)
+    tables = torch.zeros((2, 2), dtype=torch.int32, device=card)
+    lens = torch.full((2,), 20, dtype=torch.int32, device=card)
+    calls = [
+        ("flash_attention", lambda: flash_attention(q, q, q)),
+        ("mamba2_ssd", lambda: mamba2_ssd(x, B, C, seg, chunk=16)),
+        ("chunk_state", lambda: chunk_state(x, B, seg, chunk=16)),
+        ("state_pass", lambda: state_pass(states.clone().requires_grad_(),
+                                          seg, chunk=16)),
+        ("chunk_scan", lambda: chunk_scan(x, B, C, seg,
+                                          states, chunk=16)),
+        ("paged_attention", lambda: paged_attention(pq, kp, kp, tables,
+                                                    lens))]
+    for name, call in calls:
+        with pytest.raises(RuntimeError, match="records no autograd node"):
+            call()
+        with torch.no_grad():
+            out = call()
+        assert out.grad_fn is None, name
+    torch.cuda.synchronize()
+
+
+def _step_grads(params, cfg, batch):
+    """(loss, {path: gradient}) of ``loss_fn`` at ``params``."""
+    from repro_torch.models.model import loss_fn
+    from repro_torch.tree import tree_items, tree_unflatten
+    paths, leaves = zip(*tree_items(params))
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    loss = loss_fn(tree_unflatten(params, leaves), cfg, batch)
+    return loss.detach(), dict(zip(paths, torch.autograd.grad(loss, leaves)))
+
+
+class _Routes:
+    """Wraps ``layers.moe_route`` and keeps each call's chosen experts and
+    its tokens' routing margins (the k-th minus the (k+1)-th router logit
+    over the largest |logit|)."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers, self.calls = layers, []
+
+    def __enter__(self):
+        self.saved = self.layers.moe_route
+
+        def route(x, p, cfg):
+            r = self.saved(x, p, cfg)
+            logits = x.float() @ p["router"].float()
+            top = logits.topk(cfg.top_k + 1, dim=-1).values
+            gap = (top[..., -2] - top[..., -1]) / logits.abs().amax(-1)
+            self.calls.append((r.idx.sort(-1).values.cpu(), gap.cpu()))
+            return r
+        self.layers.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.saved
+
+
+@pytest.mark.parametrize("arch", ["chameleon_34b", "command_r_plus_104b",
+                                  "deepseek_moe_16b", "h2o_danube_3_4b",
+                                  "mamba2_780m", "minicpm3_4b",
+                                  "qwen2_moe_a2_7b", "qwen3_0_6b",
+                                  "seamless_m4t_large_v2", "zamba2_7b"])
+def test_train_step_on_card_matches_cpu(card, arch):
+    """One train step of each arch's smoke config in float32 on the card
+    against the port's CPU run from the same parameters and batch: the
+    loss and every gradient leaf within 1e-4 (of its largest |g|), then
+    ``make_train_step``'s loss, norm and new parameters within 1e-4.  The
+    kernels launch: ``flash_attention`` once an attention block (the
+    encoder-decoder's decoder blocks twice: self and cross), ``mamba2_ssd``
+    once a Mamba-2 layer.  MoE routing follows ``chip_smoke.hold_routed``'s rule:
+    the chosen experts must equal the CPU's at every call, unless the
+    first difference lies at a near tie (margin <= 1e-4 of the token's
+    largest |logit|), past which nothing is held."""
+    import dataclasses
+    from repro_torch.data.lm import SyntheticLM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    from repro_torch.tree import tree_items
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = params_from_jax(_tree_numpy(cpu), "cuda")
+    enc = cfg.d_model if cfg.n_enc_layers else None
+    chunk = cfg.ssm_chunk if cfg.family.value in ("ssm", "hybrid") else 16
+    host = SyntheticLM(cfg.vocab_size, max(chunk, 32), 2, seed=3,
+                       enc_dim=enc, enc_len=24).batch_at(0)
+
+    def on(dev):
+        return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    counts = (flash_attention.launches, mamba2_ssd.launches)
+    with _Routes() as rg:
+        lg, gg = _step_grads(gpu, cfg, on(card))
+    torch.cuda.synchronize()
+    launched = (flash_attention.launches - counts[0],
+                mamba2_ssd.launches - counts[1])
+    with _Routes() as rc:
+        lc, gc = _step_grads(cpu, cfg, on("cpu"))
+    fam = cfg.family.value
+    want_fa = (0 if fam == "ssm" else hybrid_groups(cfg)[0]
+               if fam == "hybrid" else cfg.n_enc_layers + 2 * cfg.n_layers
+               if fam == "encdec" else cfg.n_layers)
+    want_ssd = cfg.n_layers if fam in ("ssm", "hybrid") else 0
+    assert launched == (want_fa, want_ssd)
+    for (gi, _), (ci, cgap) in zip(rg.calls, rc.calls):
+        diff = (gi != ci).any(-1)
+        if bool(diff.any()):
+            assert float(cgap[diff].max()) <= 1e-4, "routed apart off a tie"
+            return                     # the rest is downstream of the flip
+    assert float(lg) == pytest.approx(float(lc), rel=1e-4)
+    for name, g in gg.items():
+        w = gc[name]
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4 * float(
+            w.abs().max()) + 1e-12, msg=name)
+    opt = AdamWConfig(lr_peak=1e-3, warmup_steps=5, total_steps=50)
+    sg, mg = make_train_step(cfg, opt)(init_train_state(gpu), host)
+    sc, mc = make_train_step(cfg, opt)(init_train_state(cpu), host)
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-4)
+    assert float(mg["grad_norm"]) == pytest.approx(float(mc["grad_norm"]),
+                                                   rel=1e-4)
+    for (name, a), (_, b) in zip(tree_items(sg["params"]),
+                                 tree_items(sc["params"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4,
+                                   msg=name)
+
+
+def test_train_launcher_local_on_card(card, tmp_path):
+    """``launch.train --local`` without ``--device``: on the card."""
+    from repro_torch.launch import train as train_launcher
+    before = flash_attention.launches
+    out = train_launcher.main(["--arch", "qwen3_0_6b", "--local", "--steps",
+                               "3", "--ckpt-dir", str(tmp_path)])
+    assert out["final_step"] == 3 and np.isfinite(out["final_loss"])
+    cfg = get_smoke_config("qwen3_0_6b")
+    assert flash_attention.launches - before == 3 * cfg.n_layers
