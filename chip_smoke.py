@@ -261,6 +261,45 @@ Phases:
      plain-recompute backward, ``scaled_dot_product_attention`` forward
      + backward under each fused backend and the bound of forward +
      backward;
+ 17. distribution and launch (``distributed_phase``, run after 16; every
+     mesh is logical shards of the one card): (a) the port's dry run,
+     ``python -m repro_torch.launch.dryrun --all --both-meshes``, started
+     on the host in 8 processes of its own (``--part``, no card, one
+     thread each) beside (e)'s checkpoint save and restore, after every
+     other timing of the phase: every
+     cell of ``configs.all_cells()`` on the 16 x 16 and 2 x 16 x 16
+     meshes on meta, one line a cell (roofline terms,
+     bound, argument bytes a chip, HBM fit); (b) qwen3-0.6b's
+     ``prefill_32k`` (batch cut 32 -> 2) and ``decode_32k`` (batch cut
+     128 -> 8, the cache filled with seeded values, ``commit=False``)
+     cells of ``launch.specs.build_cell`` run on the card as one chip:
+     the cost reader's FLOPs on the card equal to meta's exactly, 28
+     ``flash_attention`` launches in the prefill and none in the decode,
+     time by CUDA events beside the roofline terms, and the kernel at
+     the prefill's layer-0 inputs held to the fp32 plain version per
+     head and 64-row query block (``long_hold``: at most twice the bf16
+     plain version's error there + 2^-8 x the block's max |out|; a kernel
+     that drops one 64-key tile in the last block, the diagonal one or
+     the first, is shown to fail it), timed beside the bf16 plain
+     version (3 warmed runs) and ``scaled_dot_product_attention``; (c) the split-KV decode of
+     qwen3-0.6b and minicpm3-4b (MLA's absorbed merge) at full width, 4
+     rows, a 128-token prompt teacher-forced, then 32 steps both ways:
+     fp32 logits within 1e-5 of max |logit|, bf16 greedy tokens held by
+     phase 12's rule, the deltas equal to what ``commit=True`` wrote
+     (layer 0 bit for bit), the frozen cache untouched bit for bit, ms a
+     step both ways; (d) ``pipeline_forward`` of qwen3-0.6b's 28 blocks
+     as 2 stages on 4 x 2048 tokens in 4 microbatches (112
+     ``flash_attention`` launches) against ``forward_hidden`` (fp32 1e-5
+     of max |h|; bf16 2^-6 |h| + 1e-4 max |h|) and a 2-layer fp32 copy's
+     gradients against the sequential ones (1e-4); (e) the sharded train
+     step of qwen3-0.6b at full width and depth in fp32 on a 2 x 2
+     (data, model) mesh, 2 x 2048 tokens, against the single-device step
+     (loss rel 2e-4, params rtol 2e-3 atol 2e-4; 56 launches), which runs
+     again under the cost reader with FLOPs and calls equal to meta's,
+     then the
+     placed state saved and restored onto 2 x 1 with ``shardings=``,
+     every leaf bit for bit; its ``flash_attention`` row carries phase
+     17's launches;
  14. time each kernel of the earlier slices at a full tape of its path
      (CUDA events) beside its plain version and the bound of the function
      it computes (the larger of its bytes at the memory rate and a tree
@@ -288,8 +327,9 @@ Phases:
      launches include the sharded runs of phases 4 and 9; one
      ``flash_attention`` row a shape of phases 12, 13 and 13b-d, one
      ``paged_attention`` row for phase 13 and one for 13b; phase 16's
-     ``flash_attention`` row carries the training numbers), the card line
-     and, last, the result line.
+     ``flash_attention`` row carries the training numbers, phase 17's its
+     launches and the prefill_32k kernel's times), the card line and,
+     last, the result line.
 
 Exits non-zero, printing no result, when no card is visible or any
 phase fails.
@@ -496,6 +536,36 @@ BF_CAPACITY, BF_C_MIN, BF_TENANTS, BF_ACCESSES, BF_SEED = 8192, 256, 4, \
 # the summary counters a fault run must leave positive (phase 11b)
 FAULT_FINGERPRINTS = ("dirty_loss", "poisoned_windows", "straggler_windows",
                       "tier_failures", "device_stepdowns", "host_stepdowns")
+# phase 17 (distributed and launch): the dry run of every cell on both
+# production meshes, on meta in DRYRUN_PARTS host processes of their own
+# (started just before (e)'s checkpoint save and restore, after every
+# other timing of the phase; at most DRYRUN_TIMEOUT_S); two of
+# build_cell's cells executed at full width as one chip, their batch cut
+# (prefill_32k 32 -> DIST_PREFILL_BATCH, decode_32k 128 ->
+# DIST_DECODE_BATCH, the decode cache filled with seeded values in place
+# of a 32k prefill); the split-KV decode of DIST_ARCH and DIST_MLA_ARCH on
+# SPLIT_ROWS rows, a SPLIT_PROMPT-token prompt teacher-forced with
+# commit=True (cut from 256: eager steps of 60-200 ms made the four
+# prompts 112 s), then SPLIT_STEPS steps both ways; pipeline_forward of
+# DIST_ARCH's blocks as PIPE_STAGES stages on PIPE_SHAPE tokens in
+# PIPE_MICRO microbatches, and its gradients at PIPE_GRAD_LAYERS layers on
+# PIPE_GRAD_SHAPE; the sharded train step on a logical SHARD_MESH mesh at
+# SHARD_SHAPE, restored onto SHARD_RESTORE_MESH
+DIST_ARCH, DIST_MLA_ARCH, DIST_SEED = "qwen3_0_6b", "minicpm3_4b", 0
+DRYRUN_TIMEOUT_S, DRYRUN_PARTS = 600, 8
+DIST_PREFILL_BATCH, DIST_DECODE_BATCH = 2, 8
+# (b)'s hold of flash_attention at S 32768 (long_hold): per head and
+# LONG_HOLD_ROWS-row query block, max |kernel - fp32 plain| at most twice
+# the bf16 plain version's there + LONG_HOLD_REL x the block's max |out|;
+# a kernel with one LONG_DROP_KEYS-key tile (the kernel's kBN) dropped in
+# the last block must fail it; the bf16 plain version timed over
+# PLAIN_LONG_REPS warmed runs
+LONG_HOLD_ROWS, LONG_HOLD_REL, LONG_DROP_KEYS = 64, 2.0 ** -8, 64
+PLAIN_LONG_REPS = 3
+SPLIT_ROWS, SPLIT_PROMPT, SPLIT_STEPS = 4, 128, 32
+PIPE_SHAPE, PIPE_MICRO, PIPE_STAGES = (4, 2048), 4, 2
+PIPE_GRAD_LAYERS, PIPE_GRAD_SHAPE = 2, (4, 512)
+SHARD_MESH, SHARD_RESTORE_MESH, SHARD_SHAPE = (2, 2), (2, 1), (2, 2048)
 T_START = time.perf_counter()
 
 
@@ -4459,6 +4529,649 @@ def training_phase(dev, max_err: dict) -> list[dict]:
     return [row]
 
 
+class DryRun:
+    """The port's dry run, ``python -m repro_torch.launch.dryrun --all
+    --both-meshes``, in DRYRUN_PARTS host processes of their own (``--part
+    I/N``), each on ``meta`` (no card: ``CUDA_VISIBLE_DEVICES`` is empty,
+    one CPU thread).  Phase 17 starts them just before (e)'s checkpoint
+    save and restore, after its other timings, so no phase's step or
+    kernel time runs beside them.  ``stop`` (also at exit) ends any that
+    still runs."""
+
+    def __init__(self):
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="dryrun_")
+        src = pathlib.Path(importlib.util.find_spec("repro_torch")
+                           .submodule_search_locations[0]).parent
+        env = dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS="1")
+        self.log = open(os.path.join(self.dir, "log"), "w")
+        self.start = time.time()
+        self.results = [os.path.join(self.dir, f"dryrun_{i}.json")
+                        for i in range(DRYRUN_PARTS)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--both-meshes", "--part", f"{i}/{DRYRUN_PARTS}", "--results",
+             path], env=env, stdout=self.log, stderr=subprocess.STDOUT)
+            for i, path in enumerate(self.results)]
+        import atexit
+        atexit.register(self.stop)
+
+    def wait(self, timeout: float) -> tuple[list, float]:
+        """(the records, the dry run's wall seconds: its last part's);
+        fails on a non-zero exit, with the end of the log."""
+        deadline = time.time() + timeout
+        rcs = [p.wait(timeout=max(1.0, deadline - time.time()))
+               for p in self.procs]
+        self.log.flush()
+        if any(rcs):
+            with open(os.path.join(self.dir, "log")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"dry run exited {rcs}:\n{tail}")
+        recs = []
+        for path in self.results:
+            with open(path) as f:
+                recs += json.load(f)
+        return recs, max(os.path.getmtime(p) for p in self.results) \
+            - self.start
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        self.log.close()
+        import shutil
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def dryrun_part(dry: DryRun) -> None:
+    """Phase 17 (a): every cell of ``configs.all_cells()`` on both
+    production meshes, one line a cell."""
+    from repro_torch.configs import all_cells
+    recs, wall = dry.wait(max(60.0, DRYRUN_TIMEOUT_S
+                              - (time.time() - dry.start)))
+    cells = {(a, s.name) for a, s in all_cells()}
+    for mesh in ("16x16", "2x16x16"):
+        ok = {(r["arch"], r["shape"]) for r in recs
+              if r["mesh"] == mesh and r["ok"]}
+        assert ok == cells, f"dry run on {mesh}: missing {cells - ok}"
+    for r in sorted(recs, key=lambda r: (r["arch"], r["shape"], r["mesh"])):
+        t, pd = r["roofline_s"], r["per_device"]
+        assert all(math.isfinite(v) and v >= 0 for v in t.values()), r
+        print(f"dry run {r['arch']} x {r['shape']} x {r['mesh']} "
+              f"({r['kind']}, {r['n_chips']} chips): compute "
+              f"{t['compute']:.3e} s, memory {t['memory']:.3e} s, "
+              f"collective {t['collective']:.3e} s -> "
+              f"{max(t, key=t.get)}-bound; args {pd['arg_bytes'] / 1e9:.3f} "
+              f"GB a chip (HBM fit {r['hbm_fit']}); model/analyzed "
+              f"{r['model_flops_ratio']:.3f}; analyzed in {r['analyze_s']} s")
+    print(f"(a) dry run: {len(recs)} records ({len(cells)} cells x 2 "
+          f"meshes) ran on meta in {wall:.1f} s wall, in {DRYRUN_PARTS} "
+          f"host processes beside (e)'s save and restore; "
+          f"roofline against the "
+          f"NVIDIA H100 80GB HBM3 (SXM5, 700 W) sheet figures (989 TFLOP/s "
+          f"bf16, 3.35 TB/s, NVLink 450 GB/s, 50 GB/s across pods)")
+
+
+def executed_cells_part(dev, max_err: dict) -> tuple[int, dict]:
+    """Phase 17 (b): qwen3-0.6b's prefill_32k and decode_32k cells run for
+    real on the card as one chip; the analyzer's FLOPs on the card equal
+    its FLOPs on meta for the same cell, exactly.  Returns
+    (flash_attention launches, the kernel row at the prefill's captured
+    inputs)."""
+    import repro_torch.kernels.flash_attention.ops as fa_ops
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import blockwise_attention
+    from repro_torch.launch import specs as L
+    from repro_torch.launch.cost_analysis import analyze_step
+    from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.roofline import model_bytes, model_flops
+    from repro_torch.models.config import SHAPES
+    F = torch.nn.functional
+    cfg = get_config(DIST_ARCH)
+    row = None
+    launches = 0
+    for shape_name, b in (("prefill_32k", DIST_PREFILL_BATCH),
+                          ("decode_32k", DIST_DECODE_BATCH)):
+        shape = dataclasses.replace(SHAPES[shape_name], global_batch=b)
+        meta = L.build_cell(DIST_ARCH, shape_name, tp=1, global_batch=b)
+        want = analyze_step(meta.step_fn, *meta.args)
+        free_cards()
+        t0 = time.perf_counter()
+        cell = L.build_cell(DIST_ARCH, shape_name, tp=1, device=dev,
+                            seed=DIST_SEED, global_batch=b)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        print(f"executed cell {DIST_ARCH} x {shape_name}: batch cut "
+              f"{SHAPES[shape_name].global_batch} -> {b}, one chip"
+              + (f"; the {shape.seq_len}-deep decode cache filled with "
+                 f"seeded normal values (len {shape.seq_len - 1}) in place "
+                 f"of a prefill" if cell.kind == "decode" else "")
+              + f"; built in {build_s:.1f} s")
+        with Recorder(fa_ops, "flash_attention") as rec:
+            zero_counts()
+            got = analyze_step(cell.step_fn, *cell.args)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        out = cell.step_fn(*cell.args)
+        logits = out[0] if cell.kind == "decode" else out
+        assert logits.shape == (b, cfg.padded_vocab()) and \
+            bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
+        fa_want = cfg.n_layers if cell.kind == "prefill" else 0
+        assert counts["flash_attention"] == fa_want and \
+            sum(counts.values()) == fa_want, counts
+        launches += counts["flash_attention"]
+        assert got.flops == want.flops, \
+            f"{shape_name}: analyzer FLOPs on the card {got.flops} != meta " \
+            f"{want.flops}"
+        assert got.while_trip_counts == want.while_trip_counts
+        if cell.kind == "decode":
+            k = out[1]["kv"]["k"]
+            assert k.shape == (cfg.n_layers, b, 1, cfg.n_kv_heads,
+                               cfg.head_dim)
+        ms = cuda_ms(lambda: cell.step_fn(*cell.args), 3)
+        mf = model_flops(cfg, shape)
+        compute_ms = got.flops / PEAK_FLOPS * 1e3
+        memory_ms = model_bytes(cfg, shape, 1) / HBM_BW * 1e3
+        print(f"(b) {shape_name} on the card: {ms:.2f} ms a step (CUDA "
+              f"events, 3 steps); analyzer FLOPs {got.flops:.6e} on the "
+              f"card == {want.flops:.6e} on meta (bytes proxy "
+              f"{got.bytes:.4e} / {want.bytes:.4e}); model_flops {mf:.6e} "
+              f"(model/analyzed {mf / got.flops:.3f}); roofline as one chip: "
+              f"compute {compute_ms:.3f} ms, memory {memory_ms:.3f} ms; "
+              f"launches {json.dumps(counts)} (kernel-op calls "
+              f"{json.dumps(got.while_trip_counts)})")
+        del cell, out, logits
+        free_cards()
+        if shape_name == "prefill_32k":
+            q, k, v = rec.args
+            row = _long_prefill_row(q, k, v, rec.kwargs, max_err,
+                                    blockwise_attention, F)
+            del q, k, v, rec
+            free_cards()
+    return launches, row
+
+
+def long_hold(got, exact, noise_ref, rows: int = LONG_HOLD_ROWS):
+    """The hold of ``flash_attention`` over long prefills, per (batch,
+    head, ``rows``-row query block) of [B, H, S, D] outputs: (max |got -
+    exact|, its bound 2 max |noise_ref - exact| + LONG_HOLD_REL max
+    |exact|), each [B, H, S / rows].  The bound follows each block's own
+    bf16 noise and |out|, which shrink together along a causal prefill."""
+    def block_max(x):
+        b, h, s, d = x.shape
+        return x.abs().reshape(b, h, s // rows, rows * d).amax(-1)
+    err = block_max(got.float() - exact)
+    bound = 2 * block_max(noise_ref.float() - exact) \
+        + LONG_HOLD_REL * block_max(exact)
+    return err, bound
+
+
+def tail_attention(q, k, v, kw: dict, rows: int, drop: slice | None
+                   ) -> torch.Tensor:
+    """fp32 attention of the last ``rows`` query rows of [B, H, S, D]
+    q/k/v (grouped KV heads), with the keys in ``drop`` masked out: what
+    a kernel that loses those keys' tile would give there."""
+    b, hq, s, d = q.shape
+    rep = hq // k.shape[1]
+    sc = torch.einsum("bhqd,bhkd->bhqk", q[:, :, s - rows:].float(),
+                      k.float().repeat_interleave(rep, 1)) / math.sqrt(d)
+    qp = torch.arange(s - rows, s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None]
+    mask = torch.ones((rows, s), dtype=torch.bool, device=q.device)
+    if kw["causal"]:
+        mask &= kp <= qp
+    if kw["window"] > 0:
+        mask &= kp > qp - kw["window"]
+    if drop is not None:
+        mask[:, drop] = False
+    p = torch.softmax(torch.where(mask, sc, -1e30), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.float().repeat_interleave(rep, 1))
+
+
+def _long_prefill_row(q, k, v, kw: dict, max_err: dict, blockwise, F
+                      ) -> dict:
+    """``flash_attention`` at the prefill_32k cell's captured inputs
+    (layer 0's [B, H, S, D] views, bf16), held to the plain blockwise
+    prefill computed in fp32 from the same inputs by ``long_hold``: over
+    32,768 keys bf16 rounding alone moves an output by more than phase
+    12's 2^-6 |out| + 1e-4 max |out|, and |out| falls along the prefill
+    (about 1.45 / sqrt(i) at row i), so each 64-row block is held at its
+    own scale.  Two kernels that lose one 64-key tile (``kBN``) in the
+    last block, the diagonal one or one at long range, must fail the
+    hold.  Timed beside the bf16 plain version (warmed, PLAIN_LONG_REPS
+    runs) and ``scaled_dot_product_attention``, with its bound."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ops import seen_pairs
+
+    def kern():
+        return flash_attention(q, k, v, **kw)
+
+    def plain(a=q, b=k, c=v):
+        return blockwise(a.transpose(1, 2), b.transpose(1, 2),
+                         c.transpose(1, 2), **kw).transpose(1, 2)
+    s, rows = q.shape[2], LONG_HOLD_ROWS
+    exact = plain(q.float(), k.float(), v.float())
+    bf16 = plain()                         # the warm-up of the timed runs
+    got = kern()
+    errs, bounds = long_hold(got, exact, bf16)
+    err = float((got.float() - exact).abs().max())
+    noise = float((bf16.float() - exact).abs().max())
+    ratio = errs / bounds
+    worst = divmod(int(ratio.flatten().argmax()), ratio.shape[-1])
+    scale = lambda x: float(x.float().abs().max())      # noqa: E731
+    for where, blk in (("first", slice(0, rows)), ("last", slice(s - rows,
+                                                                  s))):
+        print(f"long hold, the {where} {rows}-row block: max |err| "
+              f"{scale(got[:, :, blk].float() - exact[:, :, blk]):.4g}, "
+              f"bf16 plain's {scale(bf16[:, :, blk].float() - exact[:, :, blk]):.4g}"
+              f", max |out| {scale(exact[:, :, blk]):.4g}")
+    assert bool((errs <= bounds).all()), \
+        f"flash_attention at S {s}: block {worst} err {float(errs.max())} " \
+        f"over its bound (worst ratio {float(ratio.max()):.3f})"
+    tail = tail_attention(q, k, v, kw, rows, None)
+    assert torch.allclose(tail, exact[:, :, s - rows:], rtol=1e-4,
+                          atol=1e-6), "tail_attention disagrees"
+    last_bound = bounds[..., -1]
+    mutants = {}
+    for name, drop in (("diagonal", slice(s - LONG_DROP_KEYS, s)),
+                       ("long range", slice(0, LONG_DROP_KEYS))):
+        mut = tail_attention(q, k, v, kw, rows, drop).to(q.dtype).float()
+        m_err = (mut - exact[:, :, s - rows:]).abs().flatten(2).amax(-1)
+        caught = m_err > last_bound
+        mutants[name] = float((m_err / last_bound).max())
+        assert bool(caught.any()), \
+            f"a kernel without the {name} tile passes the hold"
+        print(f"long hold: the {name} {LONG_DROP_KEYS}-key tile dropped in "
+              f"the last block fails it in {int(caught.sum())} of "
+              f"{caught.numel()} heads (err / bound {float((m_err / last_bound).min()):.2f}"
+              f" .. {mutants[name]:.2f})")
+    del exact, bf16, got, tail
+    plain_runs = []
+    for _ in range(PLAIN_LONG_REPS):      # warmed by the noise run above
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        plain()
+        t1.record()
+        torch.cuda.synchronize()
+        plain_runs.append(t0.elapsed_time(t1))
+    plain_ms = sum(plain_runs) / len(plain_runs)
+    max_err["flash_attention"] = max(max_err["flash_attention"], err)
+    b, hq, s, d = q.shape
+    gqa = k.shape[1] != hq
+    ms = cuda_ms(kern, 5)
+    try:
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=kw["causal"], enable_gqa=gqa), 5)
+    except RuntimeError as e:
+        lib_ms = None
+        print(f"scaled_dot_product_attention refused: {e}")
+    flops = 2 * (d + v.shape[-1]) * b * hq * seen_pairs(
+        s, k.shape[2], kw["causal"], kw["window"])
+    nbytes = (q.numel() + k.numel() + v.numel() + b * hq * s * v.shape[-1]) \
+        * q.element_size()
+    bound, by = max((nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+                    (flops / PEAK_BF16_PER_S * 1e3, "operations"))
+    print(f"flash_attention [{b}, {hq}/{k.shape[1]}, {s}, {d}] {q.dtype} "
+          f"(the prefill_32k cell's layer 0, captured): {ms:.3f} ms, plain "
+          f"blockwise {plain_ms:.1f} ms (runs {json.dumps(plain_runs)}), "
+          f"scaled_dot_product_attention "
+          f"{lib_ms if lib_ms is None else f'{lib_ms:.3f}'} ms, bound "
+          f"{bound:.4f} ms by {by} ({flops / 1e12:.2f} TFLOP); max |err| "
+          f"from the fp32 plain version {err:.4g}, the bf16 plain "
+          f"version's {noise:.4g}; held per {rows}-row block and head at "
+          f"2 x the bf16 plain's + 2^-8 x max |out|: worst err / bound "
+          f"{float(ratio.max()):.3f} at (batch x head, block) {worst}")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
+            "shape": "phase 17: qwen3-0.6b prefill_32k, batch 2",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms, "long_hold": {
+                "noise": noise, "worst_ratio": float(ratio.max()),
+                "dropped_tile_ratio": mutants}}
+
+
+def split_kv_part(dev) -> None:
+    """Phase 17 (c): the split-KV decode at full width and depth against
+    the committing decode, for GQA (qwen3-0.6b) and MLA's absorbed merge
+    (minicpm3-4b), in fp32 and bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    for arch in (DIST_ARCH, DIST_MLA_ARCH):
+        base = get_config(arch)
+        v = base.vocab_size
+        rng = np.random.default_rng(DIST_SEED)
+        toks = torch.as_tensor(rng.integers(
+            0, v, (SPLIT_ROWS, SPLIT_PROMPT + SPLIT_STEPS)), device=dev)
+        rows = torch.arange(SPLIT_ROWS, device=dev)
+        runs = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, dtype=dtype)
+            params = M.init_params(cfg, seed=DIST_SEED, device=dev)
+            cache = M.init_decode_cache(cfg, SPLIT_ROWS,
+                                        SPLIT_PROMPT + SPLIT_STEPS, dev)
+            t0 = time.perf_counter()
+            for t in range(SPLIT_PROMPT):
+                _, cache = M.decode_step(params, cfg, toks[:, t], cache)
+            torch.cuda.synchronize()
+            prompt_s = time.perf_counter() - t0
+            split, commit, f_ms, t_ms = [], [], [], []
+            layer0 = deeper = 0.0
+            for t in range(SPLIT_PROMPT, SPLIT_PROMPT + SPLIT_STEPS):
+                snap = {k: x.clone() for k, x in cache["kv"].items()}
+                at = cache["len"].long()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lf, frozen = M.decode_step(params, cfg, toks[:, t], cache,
+                                           commit=False)
+                torch.cuda.synchronize()
+                f_ms.append((time.perf_counter() - t0) * 1e3)
+                for k, x in cache["kv"].items():
+                    assert torch.equal(x, snap[k]), f"{arch} {k} written"
+                assert torch.equal(frozen["len"], cache["len"])
+                t0 = time.perf_counter()
+                lt, cache = M.decode_step(params, cfg, toks[:, t], cache)
+                torch.cuda.synchronize()
+                t_ms.append((time.perf_counter() - t0) * 1e3)
+                for k, delta in frozen["kv"].items():
+                    wrote = cache["kv"][k][:, rows, at]
+                    assert torch.equal(wrote[0], delta[0, :, 0]), \
+                        f"{arch} {dtype} {k}: layer 0's delta"
+                    deeper = max(deeper, _rel(delta[:, :, 0], wrote))
+                split.append(lf[:, :v].float().cpu())
+                commit.append(lt[:, :v].float().cpu())
+            if dtype == "float32":
+                assert deeper <= 1e-5, f"{arch} fp32 deltas: {deeper}"
+            runs[dtype] = (torch.stack(split), torch.stack(commit),
+                           float(np.median(f_ms)), float(np.median(t_ms)),
+                           prompt_s, deeper)
+            del params, cache, snap, frozen
+            free_cards()
+        f32, t32 = runs["float32"][:2]
+        rel32 = max(_rel(a, b) for a, b in zip(f32, t32))
+        assert rel32 <= 1e-5, f"{arch} fp32 split-KV logits: {rel32}"
+        f16, t16 = runs["bfloat16"][:2]
+        noise = max(_rel(a, b) for a, b in zip(t16, t32))
+        held = ties = 0
+        for step in range(SPLIT_STEPS):
+            top2 = t32[step].topk(2, dim=-1).values
+            lead = (top2[:, 0] - top2[:, 1]) / t32[step].abs().max()
+            for r in range(SPLIT_ROWS):
+                if float(lead[r]) > noise:
+                    assert int(f16[step, r].argmax()) == \
+                        int(t16[step, r].argmax()), \
+                        f"{arch} bf16 step {step} row {r}"
+                    held += 1
+                else:
+                    ties += 1
+        print(f"(c) split-KV decode {arch} ({base.attn.value}, "
+              f"{base.n_layers} layers) at full width, {SPLIT_ROWS} rows, "
+              f"prompt {SPLIT_PROMPT} teacher-forced with commit=True, then "
+              f"{SPLIT_STEPS} steps: fp32 commit=False logits within "
+              f"{rel32:.3g} of max |logit| of commit=True's (tolerance "
+              f"1e-5), deltas layer 0 bit for bit and the rest within "
+              f"{runs['float32'][5]:.3g} of max |delta|; bf16: {held} greedy "
+              f"tokens held, {ties} near ties let go (fp32 lead <= "
+              f"{noise:.3g}, what bf16 moves the logits), layer 0's deltas "
+              f"bit for bit (deeper {runs['bfloat16'][5]:.3g}); the frozen "
+              f"cache untouched bit for bit every step; ms a step (median) "
+              f"commit=False / commit=True: fp32 {runs['float32'][2]:.2f} / "
+              f"{runs['float32'][3]:.2f}, bf16 {runs['bfloat16'][2]:.2f} / "
+              f"{runs['bfloat16'][3]:.2f} (prompt {runs['float32'][4]:.1f} s "
+              f"and {runs['bfloat16'][4]:.1f} s)")
+
+
+def pipeline_part(dev) -> int:
+    """Phase 17 (d): qwen3-0.6b's blocks as ``PIPE_STAGES`` GPipe stages on
+    a logical ``("pod",)`` mesh of the card, against ``forward_hidden``;
+    the gradients of a ``PIPE_GRAD_LAYERS``-layer fp32 copy against the
+    sequential ones.  Returns the bf16 run's flash_attention launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import pipeline_forward, stack_stages
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.tree import tree_items
+    base = get_config(DIST_ARCH)
+    mesh = Mesh.of(dev, (PIPE_STAGES,), ("pod",))
+    rng = np.random.default_rng(DIST_SEED + 1)
+    toks = torch.as_tensor(rng.integers(0, base.vocab_size, PIPE_SHAPE),
+                           device=dev)
+    launches = 0
+
+    def stage_fn(cfg):
+        def run(p_stage, h):
+            for i in range(p_stage["ln1"].shape[0]):
+                h = M._attn_mlp_block(M._layer({"layers": p_stage}, i), h,
+                                      cfg)
+            return h
+        return run
+
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        params = M.init_params(cfg, seed=DIST_SEED, device=dev)
+        staged = stack_stages(params["layers"], PIPE_STAGES)
+        with torch.no_grad():
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = pipeline_forward(stage_fn(cfg), staged, params["embed"][toks],
+                                 mesh=mesh, axis="pod",
+                                 n_microbatches=PIPE_MICRO)
+            got = rms_norm(h, params["final_norm"], cfg.rms_eps)
+            torch.cuda.synchronize()
+            pipe_ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            t0 = time.perf_counter()
+            want = M.forward_hidden(params, cfg, toks)
+            torch.cuda.synchronize()
+            seq_ms = (time.perf_counter() - t0) * 1e3
+        n_fa = PIPE_MICRO * cfg.n_layers
+        assert counts["flash_attention"] == n_fa and \
+            sum(counts.values()) == n_fa, counts
+        scale = float(want.float().abs().max())
+        err = (got.float() - want.float()).abs()
+        if dtype == "float32":
+            assert float(err.max()) <= 1e-5 * scale, \
+                f"fp32 pipeline: {float(err.max())} of {scale}"
+        else:
+            launches = counts["flash_attention"]
+            tol = 2.0 ** -6 * want.float().abs() + 1e-4 * scale
+            assert bool((err <= tol).all()), f"bf16 pipeline: {err.max()}"
+        print(f"(d) pipeline_forward {DIST_ARCH} {dtype}: {cfg.n_layers} "
+              f"blocks as {PIPE_STAGES} stages on {PIPE_STAGES} logical "
+              f"shards of the card, {PIPE_SHAPE[0]} x {PIPE_SHAPE[1]} tokens "
+              f"in {PIPE_MICRO} microbatches: {counts['flash_attention']} "
+              f"flash_attention launches; against forward_hidden max |err| "
+              f"{float(err.max()):.3g} of max |h| {scale:.3g}; "
+              f"{pipe_ms:.1f} ms pipelined, {seq_ms:.1f} ms unpipelined "
+              f"(host clock; the stages share one card)")
+        del params, staged, h, got, want
+        free_cards()
+    cfg = dataclasses.replace(base, dtype="float32",
+                              n_layers=PIPE_GRAD_LAYERS)
+    params = M.init_params(cfg, seed=DIST_SEED, device=dev)
+    leaves = [t.requires_grad_(True) for _, t in tree_items(params["layers"])]
+    x = params["embed"][toks[:PIPE_GRAD_SHAPE[0], :PIPE_GRAD_SHAPE[1]]] \
+        .detach()
+    y = pipeline_forward(stage_fn(cfg), stack_stages(params["layers"],
+                                                     PIPE_GRAD_LAYERS),
+                         x, mesh=Mesh.of(dev, (PIPE_GRAD_LAYERS,), ("pod",)),
+                         n_microbatches=2)
+    g_pipe = torch.autograd.grad(y.square().mean(), leaves)
+    g_seq = torch.autograd.grad(stage_fn(cfg)(params["layers"], x)
+                                .square().mean(), leaves)
+    worst = 0.0
+    for (name, _), a, b in zip(tree_items(params["layers"]), g_pipe, g_seq):
+        e = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        assert e <= 1e-4, f"pipeline gradient {name}: {e}"
+        worst = max(worst, e)
+    print(f"(d) pipeline gradients, {PIPE_GRAD_LAYERS} layers fp32 at "
+          f"{PIPE_GRAD_SHAPE[0]} x {PIPE_GRAD_SHAPE[1]} ({PIPE_GRAD_LAYERS} "
+          f"stages, 2 microbatches): every leaf within {worst:.3g} of its "
+          f"largest |g| of the sequential gradients (tolerance 1e-4)")
+    del params, leaves, x, y, g_pipe, g_seq
+    free_cards()
+    return launches
+
+
+def sharded_step_part(dev, before_restore=lambda: None) -> int:
+    """Phase 17 (e): the sharded train step of qwen3-0.6b at full width and
+    depth in fp32 on a logical ``SHARD_MESH`` ("data", "model") mesh of
+    the card against the single-device step, which then runs once more
+    under the cost reader (its FLOPs and kernel-op calls equal to the
+    same step's on meta: a train cell's count does not depend on the
+    device); then the
+    placed state saved and restored onto ``SHARD_RESTORE_MESH`` with
+    ``shardings=``, exact (``before_restore()`` is called just before the
+    save).  Returns the sharded step's flash_attention launches."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.checkpoint import (restore_checkpoint,
+                                                   save_checkpoint)
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import SyntheticLM
+    from repro_torch.distributed.sharding import (Mesh, _gather_leaf,
+                                                  param_specs, place,
+                                                  state_specs)
+    from repro_torch.launch.cost_analysis import analyze_step
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    from repro_torch.tree import tree_items
+    cfg = dataclasses.replace(get_config(DIST_ARCH), dtype="float32")
+    opt = AdamWConfig(**TRAIN_OPT)
+    batch = SyntheticLM(cfg.vocab_size, SHARD_SHAPE[1], SHARD_SHAPE[0],
+                        seed=DIST_SEED).batch_at(0)
+    params = M.init_params(cfg, seed=DIST_SEED, device=dev)
+    state = init_train_state(params)
+    mesh = Mesh.of(dev, SHARD_MESH, ("data", "model"))
+    placed = place(state, state_specs(state, mesh))
+    gsh = param_specs(params, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s1, m1 = make_train_step(cfg, opt)(state, batch)
+    l1 = float(m1["loss"])
+    one_s = time.perf_counter() - t0
+    p1 = s1["params"]
+    del s1
+    got = analyze_step(make_train_step(cfg, opt), state, batch)
+    want = analyze_step(make_train_step(cfg, opt), init_train_state(
+        M.init_params(cfg, seed=DIST_SEED, device="meta")), batch)
+    assert got.flops == want.flops and \
+        got.while_trip_counts == want.while_trip_counts, \
+        f"train step: analyzer on the card {got.flops} " \
+        f"{got.while_trip_counts} != meta {want.flops} " \
+        f"{want.while_trip_counts}"
+    print(f"(e) cost reader on the single-device train step: FLOPs "
+          f"{got.flops:.6e} on the card == {want.flops:.6e} on meta, "
+          f"kernel-op calls {json.dumps(got.while_trip_counts)} (each "
+          f"backward counted by its formula)")
+    del state, params, m1
+    free_cards()
+    step = make_train_step(cfg, opt, grad_shardings=gsh)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s2, m2 = step(placed, batch)
+    l2 = float(m2["loss"])
+    sharded_s = time.perf_counter() - t0
+    counts = read_counts()
+    del placed
+    free_cards()
+    n_fa = SHARD_MESH[0] * cfg.n_layers
+    assert counts["flash_attention"] == n_fa and \
+        sum(counts.values()) == n_fa, counts
+    assert abs(l1 - l2) / abs(l1) < 2e-4, (l1, l2)
+    worst = 0.0
+    for (name, a), (_, x) in zip(tree_items(p1), tree_items(s2["params"])):
+        c = _gather_leaf(x, dev)
+        assert torch.allclose(c, a, rtol=2e-3, atol=2e-4), name
+        worst = max(worst, float((c - a).abs().max()))
+    del p1
+    free_cards()
+    print(f"(e) sharded train step {DIST_ARCH} fp32 full width and depth on "
+          f"a logical {SHARD_MESH[0]} x {SHARD_MESH[1]} (data, model) mesh of "
+          f"the card, {SHARD_SHAPE[0]} x {SHARD_SHAPE[1]} tokens: loss "
+          f"{l2:.6f} vs single-device {l1:.6f} (rel "
+          f"{abs(l1 - l2) / abs(l1):.3g}, tolerance 2e-4), params within "
+          f"{worst:.3g} (rtol 2e-3, atol 2e-4); {counts['flash_attention']} "
+          f"flash_attention launches ({SHARD_MESH[0]} DP blocks x "
+          f"{cfg.n_layers}); {sharded_s * 1e3:.0f} ms sharded, "
+          f"{one_s * 1e3:.0f} ms single-device (host clock, first steps)")
+    mesh2 = Mesh.of(dev, SHARD_RESTORE_MESH, ("data", "model"))
+    specs2 = state_specs(s2, mesh2)
+    tmp = tempfile.mkdtemp(prefix="elastic_")
+    need = sum(math.prod(x.shape) * x.shards[0].element_size()
+               for _, x in tree_items(s2))
+    saved, what = s2, "the whole placed state"
+    if shutil.disk_usage(tmp).free < 2 * need:
+        saved = {"params": s2["params"], "step": s2["step"]}
+        specs2 = {"params": specs2["params"], "step": specs2["step"]}
+        what = (f"the parameters and step only (the whole state, "
+                f"{need / 1e9:.1f} GB, is more than half the free disk)")
+    try:
+        before_restore()
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, saved, 1)
+        restored, step_no = restore_checkpoint(tmp, saved, shardings=specs2)
+        io_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert step_no == 1
+    n = 0
+    for (name, a), (_, b) in zip(tree_items(saved), tree_items(restored)):
+        assert b.sharding.mesh is mesh2 and a.dtype == b.dtype, name
+        assert torch.equal(_gather_leaf(a, dev), _gather_leaf(b, dev)), name
+        n += 1
+    print(f"(e) elastic restore: {what} ({need / 1e9:.1f} GB placed on "
+          f"{SHARD_MESH[0]} x {SHARD_MESH[1]}) saved and restored onto a "
+          f"logical {SHARD_RESTORE_MESH[0]} x {SHARD_RESTORE_MESH[1]} mesh "
+          f"with shardings=: all {n} leaves equal bit for bit; save + "
+          f"restore {io_s:.1f} s (beside the dry run)")
+    del s2, saved, restored
+    free_cards()
+    return counts["flash_attention"]
+
+
+def distributed_phase(dev, max_err: dict) -> list[dict]:
+    """Phase 17: distributed/ and launch/ (ROADMAP section 1 item 6), on
+    one card: every mesh is made of logical shards of it.  The dry run (a)
+    runs on the host beside (e)'s checkpoint save and restore, after every
+    other timing of the phase, and is read last."""
+    print("phase 17: distributed and launch; every mesh below is logical "
+          "shards of the one card (distinct cards have not run)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    launches, row = executed_cells_part(dev, max_err)
+    print(f"phase seconds: 17 (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    split_kv_part(dev)
+    print(f"phase seconds: 17 (c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches += pipeline_part(dev)
+    print(f"phase seconds: 17 (d) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dry = []
+    try:
+        launches += sharded_step_part(dev, lambda: dry.append(DryRun()))
+        print(f"phase seconds: 17 (e) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dryrun_part(dry[0])
+    finally:
+        for d in dry:
+            d.stop()
+    print(f"phase seconds: 17 (a) the rest of the dry run "
+          f"{time.perf_counter() - t0:.1f} s")
+    row["launches"] = launches
+    return [row]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4532,6 +5245,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+
 
     # ------------------------------------- 3. kernels vs plain, small tapes
     max_err = dict.fromkeys(KERNEL_NAMES, 0)
@@ -4916,6 +5630,12 @@ def main() -> int:
     train_rows = training_phase(dev, max_err)
     print(f"phase seconds: training {time.perf_counter() - t0:.1f} s")
 
+    # ------------------------------ 17. distributed and launch, qwen3-0.6b
+    t0 = time.perf_counter()
+    dist_rows = distributed_phase(dev, max_err)
+    print(f"phase seconds: 17 distributed and launch "
+          f"{time.perf_counter() - t0:.1f} s")
+
     # ------------- 14a. full window tape: cache_sim_scan vs its merge tree
     tr0 = windows[0]
     addrs = torch.cat([t.addrs for t in tr0]).to(dev)
@@ -5216,6 +5936,7 @@ def main() -> int:
     rows.extend(serve_rows)
     rows.extend(family_rows)
     rows.extend(train_rows)
+    rows.extend(dist_rows)
     # phase 11b's launches beside each row's own (the pool crash's are
     # already on the serving rows)
     for r in rows:

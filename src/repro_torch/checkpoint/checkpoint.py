@@ -6,9 +6,12 @@ The port of the reference's ``src/repro/checkpoint/checkpoint.py``: one
 JSON manifest (paths, shapes, dtypes, step); saves are atomic (tmp +
 rename), the latest complete step wins, and an async writer thread
 overlaps serialization with the next step.  A checkpoint written by
-either package restores into the other.  ``restore_checkpoint`` puts
-each leaf on its like-leaf's device and dtype; the reference's
-``shardings=`` restore onto another mesh belongs to ROADMAP §1 item 6.
+either package restores into the other.  A placed tree
+(``distributed.sharding.place``) is saved as its whole (gathered) leaves:
+the manifest holds logical shapes only.  ``restore_checkpoint`` puts each
+leaf on its like-leaf's device and dtype, or, given ``shardings=``,
+places it by that tree: the elastic restore, onto any mesh, whatever mesh
+the checkpoint was written from.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import ShardedTensor, gather, place
 from repro_torch.tree import tree_items, tree_map, tree_unflatten
 
 __all__ = ["AsyncCheckpointer", "latest_step", "restore_checkpoint",
@@ -26,7 +30,10 @@ __all__ = ["AsyncCheckpointer", "latest_step", "restore_checkpoint",
 
 
 def _host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array (bf16 widened to f32, exactly)."""
+    """A leaf as a host numpy array (bf16 widened to f32, exactly); a
+    placed leaf is gathered whole."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = gather(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -64,18 +71,24 @@ def latest_step(path: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(path: str, like_tree, step: int | None = None):
+def restore_checkpoint(path: str, like_tree, step: int | None = None,
+                       shardings=None):
     """Restore into the structure of ``like_tree`` (its leaves' devices
-    and dtypes) -> (tree, step)."""
+    and dtypes; placed or not) -> (tree, step).  ``shardings``: a
+    matching tree of ``NamedSharding``s; each restored leaf is placed by
+    it (the elastic restore re-shards here)."""
     if step is None:
         step = latest_step(path)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {path}")
     with np.load(os.path.join(path, f"step_{step}.npz")) as data:
-        leaves = [torch.from_numpy(data[key]).to(device=leaf.device,
-                                                 dtype=leaf.dtype)
-                  for key, leaf in tree_items(like_tree)]
-    return tree_unflatten(like_tree, leaves), step
+        leaves = [torch.from_numpy(data[key]).to(
+            device="cpu" if shardings is not None else leaf.device,
+            dtype=leaf.dtype) for key, leaf in tree_items(like_tree)]
+    tree = tree_unflatten(like_tree, leaves)
+    if shardings is not None:
+        tree = place(tree, shardings)
+    return tree, step
 
 
 class AsyncCheckpointer:

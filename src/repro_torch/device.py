@@ -2,9 +2,11 @@
 and how host tensors cross to it."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["resolve_device", "to_device"]
+__all__ = ["on_device", "resolve_device", "to_device"]
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -29,3 +31,10 @@ def to_device(x: torch.Tensor, device: str | torch.device) -> torch.Tensor:
     if dev.type == "cuda" and x.device.type == "cpu":
         return x.pin_memory().to(dev, non_blocking=True)
     return x.to(dev)
+
+
+def on_device(dev: torch.device):
+    """Work issued under ``dev``: its card made current for a CUDA device
+    (a mesh's shards may sit on distinct cards), nothing elsewhere."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())

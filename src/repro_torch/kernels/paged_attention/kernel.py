@@ -28,11 +28,12 @@ import pathlib
 
 import torch
 
+from repro_torch.costs import kernel_op
 from repro_torch.kernels import load_library
 from repro_torch.kernels.autograd import wants_grad
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-__all__ = ["paged_attention"]
+__all__ = ["paged_attention", "paged_attention_work"]
 
 SOURCES = [pathlib.Path(__file__).resolve().parent / "csrc"
            / "paged_attention.cu"]
@@ -93,8 +94,29 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     from the Pallas kernel (``ref.paged_attention_ref`` gives the mean of
     its gathered V).  On CPU tensors it returns ``ref.paged_attention_ref``.
     ``paged_attention.launches`` counts calls that launched (one or two
-    kernels each).
+    kernels each); ``costs.kernel_op`` counts each call's work as
+    ``paged_attention_work``.
     """
+    with kernel_op("paged_attention", lambda: paged_attention_work(
+            q, k_pages, seq_lens)):
+        return _paged_attention(q, k_pages, v_pages, block_tables, seq_lens)
+
+
+def paged_attention_work(q: torch.Tensor, k_pages: torch.Tensor,
+                         seq_lens: torch.Tensor) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call's useful work: 4 D FLOPs per (head,
+    position below the row's length); q read, each row's K and V
+    positions read once and the output written once."""
+    _, hq, d = q.shape
+    hkv = k_pages.shape[2]
+    seen = int(seq_lens.sum())
+    return (4 * d * hq * seen,
+            (2 * q.numel() + 2 * seen * hkv * d) * q.element_size())
+
+
+def _paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, block_tables: torch.Tensor,
+                     seq_lens: torch.Tensor) -> torch.Tensor:
     b, hq, d = q.shape
     if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         raise ValueError(f"paged_attention: k_pages and v_pages must be "

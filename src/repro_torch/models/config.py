@@ -109,6 +109,24 @@ class ModelConfig:
     def padded_vocab(self, multiple: int = 256) -> int:
         return _round_up(self.vocab_size, multiple)
 
+    def padded_experts(self, ep: int = 16) -> int:
+        return _round_up(self.n_experts, ep) if self.n_experts else 0
+
+    def padded_heads(self, tp: int = 16) -> int:
+        """q heads padded up so tp | n_heads (minicpm3: 40 -> 48)."""
+        if self.n_heads % tp == 0:
+            return self.n_heads
+        return _round_up(self.n_heads, tp)
+
+    def kv_repeat(self, tp: int = 16) -> int:
+        """Repeat factor so each TP shard owns whole KV heads (GQA -> TP)."""
+        if self.n_kv_heads >= tp:
+            return 1
+        rep = tp // self.n_kv_heads
+        if self.n_kv_heads * rep != tp:
+            rep = _round_up(tp, self.n_kv_heads) // self.n_kv_heads
+        return rep
+
     @property
     def qk_head_dim(self) -> int:
         if self.attn == AttnKind.MLA:

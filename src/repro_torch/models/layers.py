@@ -7,9 +7,10 @@ start at zero), RoPE rotates the two halves of D (not interleaved pairs),
 ``kernels/flash_attention/ref.py``) is the same online softmax over KV
 blocks, and ``decode_attention`` the same masked softmax over the cache,
 so at float32 the CPU path repeats the reference's arithmetic.  The
-reference's sharding ``constrain`` calls are identities on one device and
-are left out.  ``moe_ffn`` is the reference's grouped capacity-based top-k
-dispatch (GShard), each batch row one routing group.
+reference's sharding hints (``constrain`` "mlp_mid" and "moe_xe") sit
+where its do and change no value (``distributed.ctx``).  ``moe_ffn`` is
+the reference's grouped capacity-based top-k dispatch (GShard), each batch
+row one routing group.
 
 Matrix products run in the parameters' dtype (on the card cuBLAS
 accumulates bfloat16 products in fp32 and rounds once).  The reference
@@ -26,10 +27,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.ctx import constrain
 from repro_torch.kernels.flash_attention.ref import blockwise_attention
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["Param", "apply_rope", "blockwise_attention", "decode_attention",
+__all__ = ["MetaGenerator", "Param", "apply_rope", "blockwise_attention", "decode_attention",
            "dense_init", "moe_capacity", "moe_ffn", "moe_route", "rms_norm",
            "rope_freqs", "swiglu"]
 
@@ -37,6 +39,13 @@ Param = dict  # nested-dict parameter trees, as the reference's
 
 
 # --------------------------------------------------------------------- init
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` when parameters are built on
+    ``meta`` (shapes and dtypes only): the initialisers draw nothing."""
+
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape: tuple[int, ...],
                dtype: torch.dtype, scale: float | None = None, *,
                layers: int | None = None) -> torch.Tensor:
@@ -50,6 +59,8 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...],
     std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     out = torch.empty(shape if layers is None else (layers, *shape),
                       dtype=dtype, device=gen.device)
+    if out.is_meta:
+        return out
     for part in ([out] if layers is None else out):
         draw = torch.empty(shape, device=gen.device)
         torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=gen)
@@ -116,7 +127,7 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     g = (x @ w_gate).float()
     u = (x @ w_up).float()
-    return (F.silu(g) * u).to(x.dtype) @ w_down
+    return constrain((F.silu(g) * u).to(x.dtype), "mlp_mid") @ w_down
 
 
 def moe_capacity(cfg: ModelConfig, tokens: int, experts: int) -> int:
@@ -185,10 +196,11 @@ def moe_ffn(x: torch.Tensor, p: Param, cfg: ModelConfig) -> torch.Tensor:
     buf = torch.zeros((rows + 1, d), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, flat, x[:, :, None, :].expand(b, s, k, d)
                     .reshape(-1, d))
-    xe = buf[:rows].view(e, b * r.capacity, d)
+    xe = constrain(buf[:rows].view(e, b * r.capacity, d), "moe_xe")
     g = torch.bmm(xe, p["w_gate"]).float()
     u = torch.bmm(xe, p["w_up"]).float()
-    ye = torch.bmm((F.silu(g) * u).to(x.dtype), p["w_down"])
+    ye = constrain(torch.bmm((F.silu(g) * u).to(x.dtype), p["w_down"]),
+                   "moe_xe")
     ye = torch.cat([ye.reshape(rows, d), ye.new_zeros((1, d))])
     y_tk = ye[flat].view(b, s, k, d).float()
     y = (y_tk * r.gates[..., None]).sum(2).to(x.dtype)

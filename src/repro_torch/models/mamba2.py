@@ -36,7 +36,8 @@ def init_mamba2_layer(gen: torch.Generator, cfg: ModelConfig,
     generator's device, with the reference's shapes and init laws."""
     d, dev = cfg.d_model, gen.device
     d_inner, nh, conv_dim = _dims(cfg)
-    u = torch.rand((layers, nh), generator=gen, device=dev)
+    u = torch.rand((layers, nh), device=dev,
+                   generator=None if dev.type == "meta" else gen)
     lo, hi = math.log(1e-3), math.log(0.1)
     return {
         "in_proj": dense_init(gen, (d, 2 * d_inner + 2 * cfg.ssm_state + nh),

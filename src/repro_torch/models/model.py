@@ -28,8 +28,23 @@ Training: ``loss_fn`` is ``forward_hidden`` then ``chunked_cross_entropy``
 [B, S, vocab] logits never exist at once).  ``forward_hidden``
 rematerialises each block as ``cfg.remat`` says (``_maybe_remat``) while
 grad mode is on; the kernels on its path record their autograd nodes
-through ``kernels.autograd``.  Left out, as ROADMAP §1 says: the split-KV
-``commit=False`` path with the sharding hints (item 6).
+through ``kernels.autograd``.
+
+Distribution (the reference's ``tp`` and ``constrain`` hints):
+``init_params(tp=)`` builds the tree a tensor-parallel degree needs (q
+heads padded to ``cfg.padded_heads(tp)``, MoE experts to
+``cfg.padded_experts(tp)``, whose router logits are masked), and every
+forward takes the same ``tp``.  The hints ("act", "gathered", "dec_mlp",
+and in the layers "attn_qkv", "mlp_mid", "moe_xe") sit where the
+reference's do; on one controller they change no value
+(``distributed.ctx``).  ``init_params(device="meta")`` builds the tree's
+shapes only, allocating nothing (the dry run's stand-ins).
+
+``decode_step(commit=False)`` is the split-KV decode: the attention
+caches stay frozen, each layer's new K/V (or latent) comes back as a
+1-token delta stacked [L, B, 1, ...] in the cache's ``kv`` place, and
+``len`` is left for the caller's commit; SSM states update in place as
+with ``commit=True``.
 """
 from __future__ import annotations
 
@@ -42,13 +57,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.ctx import constrain
 from repro_torch.models.attention import (attention_cross, attention_decode,
                                           attention_train,
                                           cross_attention_decode,
                                           init_attention, init_kv_cache)
 from repro_torch.models.config import Family, ModelConfig
-from repro_torch.models.layers import (Param, dense_init, moe_ffn, rms_norm,
-                                       swiglu)
+from repro_torch.models.layers import (MetaGenerator, Param, dense_init,
+                                       moe_ffn, rms_norm, swiglu)
 from repro_torch.models.mamba2 import (init_mamba2_layer, init_ssm_state,
                                        mamba2_decode_step, mamba2_forward)
 
@@ -77,7 +93,7 @@ def _shared_after(cfg: ModelConfig) -> dict[int, int]:
 
 
 def _init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-              layers: int | None) -> Param:
+              layers: int | None, tp: int = 1) -> Param:
     d = cfg.d_model
     if cfg.family != Family.MOE:
         return {
@@ -85,9 +101,9 @@ def _init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
             "w_up": dense_init(gen, (d, cfg.d_ff), dtype, layers=layers),
             "w_down": dense_init(gen, (cfg.d_ff, d), dtype, layers=layers),
         }
-    # the reference's _init_moe at one device (no expert padding); its
-    # fan-in is each tensor's first axis, the expert count for the experts
-    e, f = cfg.n_experts, cfg.expert_d_ff
+    # the reference's _init_moe, experts padded to the EP degree (= tp);
+    # its fan-in is each tensor's first axis, the expert count for experts
+    e, f = cfg.padded_experts(tp), cfg.expert_d_ff
     p = {
         "router": dense_init(gen, (d, e), dtype, layers=layers),
         "w_gate": dense_init(gen, (e, d, f), dtype, layers=layers),
@@ -104,31 +120,37 @@ def _init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
 
 def _init_attn_block(gen: torch.Generator, cfg: ModelConfig,
                      dtype: torch.dtype, layers: int | None,
-                     cross: bool = False) -> Param:
+                     cross: bool = False, tp: int = 1) -> Param:
     d, lead = cfg.d_model, (() if layers is None else (layers,))
     p = {
         "ln1": torch.zeros((*lead, d), device=gen.device),
-        "attn": init_attention(gen, cfg, dtype, layers),
+        "attn": init_attention(gen, cfg, dtype, layers, tp=tp),
         "ln2": torch.zeros((*lead, d), device=gen.device),
-        "mlp": _init_mlp(gen, cfg, dtype, layers),
+        "mlp": _init_mlp(gen, cfg, dtype, layers, tp),
     }
     if cross:
         p["ln_x"] = torch.zeros((*lead, d), device=gen.device)
-        p["cross"] = init_attention(gen, cfg, dtype, layers)
+        p["cross"] = init_attention(gen, cfg, dtype, layers, tp=tp)
     return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: str | torch.device | None = None) -> Param:
+                device: str | torch.device | None = None, *,
+                tp: int = 1) -> Param:
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (default: the CUDA card), matrices in ``cfg.dtype``.  Norm
-    weights are zeros (``rms_norm`` scales by ``1 + w``), matrices fan-in
-    truncated normals, the embedding std 0.02, as the reference's laws;
-    the numbers differ (it draws from ``jax.random``)."""
+    ``device`` (default: the CUDA card), matrices in ``cfg.dtype``, built
+    for tensor-parallel degree ``tp``.  Norm weights are zeros
+    (``rms_norm`` scales by ``1 + w``), matrices fan-in truncated normals,
+    the embedding std 0.02, as the reference's laws; the numbers differ
+    (it draws from ``jax.random``).  On ``"meta"`` the tree has the
+    shapes and dtypes only: nothing is drawn or allocated."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    if dev.type == "meta":
+        gen = MetaGenerator()
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     d, n = cfg.d_model, cfg.n_layers
     params: Param = {
         "embed": dense_init(gen, (cfg.padded_vocab(), d), dtype, scale=0.02),
@@ -138,16 +160,18 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         params["lm_head"] = dense_init(gen, (d, cfg.padded_vocab()), dtype)
     if cfg.family == Family.ENCDEC:
         params["enc_layers"] = _init_attn_block(gen, cfg, dtype,
-                                                cfg.n_enc_layers)
-        params["layers"] = _init_attn_block(gen, cfg, dtype, n, cross=True)
+                                                cfg.n_enc_layers, tp=tp)
+        params["layers"] = _init_attn_block(gen, cfg, dtype, n, cross=True,
+                                            tp=tp)
         params["enc_norm"] = torch.zeros((d,), device=dev)
     elif cfg.family in _ATTN_FAMILIES:
-        params["layers"] = _init_attn_block(gen, cfg, dtype, n)
+        params["layers"] = _init_attn_block(gen, cfg, dtype, n, tp=tp)
     else:
         params["layers"] = {"ln1": torch.zeros((n, d), device=dev),
                             "mixer": init_mamba2_layer(gen, cfg, dtype, n)}
     if cfg.family == Family.HYBRID:
-        params["shared_attn"] = _init_attn_block(gen, cfg, dtype, None)
+        params["shared_attn"] = _init_attn_block(gen, cfg, dtype, None,
+                                                 tp=tp)
     return params
 
 
@@ -191,16 +215,18 @@ def _ffn(p: Param, hn: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                   p["mlp"]["w_down"])
 
 
-def _attn_mlp_block(p: Param, h: torch.Tensor, cfg: ModelConfig, *,
-                    causal: bool | None = None,
+def _attn_mlp_block(p: Param, h: torch.Tensor, cfg: ModelConfig,
+                    tp: int = 1, *, causal: bool | None = None,
                     enc_out: torch.Tensor | None = None) -> torch.Tensor:
-    h = h + attention_train(p["attn"], rms_norm(h, p["ln1"], cfg.rms_eps),
-                            cfg, causal=causal)
+    x = constrain(rms_norm(h, p["ln1"], cfg.rms_eps), "gathered")
+    h = h + attention_train(p["attn"], x, cfg, tp, causal=causal)
     if enc_out is not None:
-        h = h + attention_cross(p["cross"],
-                                rms_norm(h, p["ln_x"], cfg.rms_eps),
-                                enc_out, cfg)
-    return h + _ffn(p, rms_norm(h, p["ln2"], cfg.rms_eps), cfg)
+        h = h + attention_cross(
+            p["cross"],
+            constrain(rms_norm(h, p["ln_x"], cfg.rms_eps), "gathered"),
+            enc_out, cfg, tp)
+    hn = constrain(rms_norm(h, p["ln2"], cfg.rms_eps), "gathered")
+    return h + _ffn(p, constrain(hn, "dec_mlp"), cfg)
 
 
 def _ssm_block(p: Param, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -240,21 +266,20 @@ def _lm_head(params: Param, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _encode(params: Param, cfg: ModelConfig,
-            enc_embeds: torch.Tensor) -> torch.Tensor:
+def _encode(params: Param, cfg: ModelConfig, enc_embeds: torch.Tensor,
+            tp: int = 1) -> torch.Tensor:
     """The encoder stack (bidirectional) and ``enc_norm``: enc_embeds
     [B, S_enc, d] -> the encoder's output [B, S_enc, d]."""
     e = enc_embeds
     for i in range(cfg.n_enc_layers):
         p = _layer(params, i, "enc_layers")
-        e = _maybe_remat(lambda x, p=p: _attn_mlp_block(p, x, cfg,
-                                                        causal=False),
-                         cfg)(e)
+        e = constrain(_maybe_remat(lambda x, p=p: _attn_mlp_block(
+            p, x, cfg, tp, causal=False), cfg)(constrain(e, "act")), "act")
     return rms_norm(e, params["enc_norm"], cfg.rms_eps)
 
 
 def forward_hidden(params: Param, cfg: ModelConfig, tokens: torch.Tensor,
-                   *, enc_embeds: torch.Tensor | None = None
+                   tp: int = 1, *, enc_embeds: torch.Tensor | None = None
                    ) -> torch.Tensor:
     """Token ids [B, S] (and, for the encoder-decoder family, the
     encoder's stub embeddings ``enc_embeds`` [B, S_enc, d]) -> final
@@ -262,21 +287,22 @@ def forward_hidden(params: Param, cfg: ModelConfig, tokens: torch.Tensor,
     where the reference's does: every block of the dense, MoE, SSM and
     encoder-decoder stacks, and the hybrid's grouped Mamba-2 blocks and
     shared attention block, not its tail."""
-    h = params["embed"][tokens]
+    h = constrain(params["embed"][tokens], "act")
     if cfg.family == Family.ENCDEC:
         if enc_embeds is None:
             raise ValueError("the encoder-decoder family needs the "
                              "encoder's stub embeddings (enc_embeds)")
-        enc_out = _encode(params, cfg, enc_embeds)
+        enc_out = _encode(params, cfg, enc_embeds, tp)
         for i in range(cfg.n_layers):
             p = _layer(params, i)
-            h = _maybe_remat(lambda x, p=p: _attn_mlp_block(
-                p, x, cfg, causal=True, enc_out=enc_out), cfg)(h)
+            h = constrain(_maybe_remat(lambda x, p=p: _attn_mlp_block(
+                p, x, cfg, tp, causal=True, enc_out=enc_out), cfg)(
+                    constrain(h, "act")), "act")
     elif cfg.family in _ATTN_FAMILIES:
         for i in range(cfg.n_layers):
             p = _layer(params, i)
-            h = _maybe_remat(lambda x, p=p: _attn_mlp_block(p, x, cfg),
-                             cfg)(h)
+            h = constrain(_maybe_remat(lambda x, p=p: _attn_mlp_block(
+                p, x, cfg, tp), cfg)(constrain(h, "act")), "act")
     else:
         shared = _shared_after(cfg)
         n_groups, g, _ = hybrid_groups(cfg) \
@@ -287,10 +313,12 @@ def forward_hidden(params: Param, cfg: ModelConfig, tokens: torch.Tensor,
             # the hybrid's tail (past its last group) is not rematerialised
             if cfg.family == Family.SSM or i < n_groups * g:
                 block = _maybe_remat(block, cfg)
-            h = block(h)
+                h = constrain(block(constrain(h, "act")), "act")
+            else:
+                h = block(h)
             if i in shared:
-                h = _maybe_remat(lambda x: _attn_mlp_block(
-                    params["shared_attn"], x, cfg), cfg)(h)
+                h = constrain(_maybe_remat(lambda x: _attn_mlp_block(
+                    params["shared_attn"], x, cfg, tp), cfg)(h), "act")
     return rms_norm(h, params["final_norm"], cfg.rms_eps)
 
 
@@ -343,7 +371,8 @@ def chunked_cross_entropy(h: torch.Tensor, lm_head: torch.Tensor,
     return s_ce / torch.clamp(n_tok, min=1.0)
 
 
-def loss_fn(params: Param, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def loss_fn(params: Param, cfg: ModelConfig, batch: dict,
+            tp: int = 1) -> torch.Tensor:
     """batch: {"tokens": [B, S] int, "labels": [B, S] int (-1 pad),
     optional "enc_embeds": [B, S_enc, d]}, tensors on the parameters'
     device -> the mean next-token cross entropy (float32 scalar).  The
@@ -352,30 +381,34 @@ def loss_fn(params: Param, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     enc = batch.get("enc_embeds")
     if enc is not None:
         enc = enc.to(params["embed"].dtype)
-    h = forward_hidden(params, cfg, batch["tokens"], enc_embeds=enc)
+    h = forward_hidden(params, cfg, batch["tokens"], tp, enc_embeds=enc)
     return chunked_cross_entropy(h, _lm_head(params, cfg), batch["labels"],
                                  cfg.vocab_size)
 
 
 @torch.no_grad()
-def prefill(params: Param, cfg: ModelConfig, tokens: torch.Tensor, *,
-            enc_embeds: torch.Tensor | None = None) -> torch.Tensor:
+def prefill(params: Param, cfg: ModelConfig, tokens: torch.Tensor,
+            tp: int = 1, *, enc_embeds: torch.Tensor | None = None
+            ) -> torch.Tensor:
     """Prefill forward -> fp32 logits of the last position [B, V_padded]
     (unmasked, as the reference's)."""
-    h = forward_hidden(params, cfg, tokens, enc_embeds=enc_embeds)
+    h = forward_hidden(params, cfg, tokens, tp, enc_embeds=enc_embeds)
     return h[:, -1].float() @ _lm_head(params, cfg).float()
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device: str | torch.device | None = None,
-                      enc_len: int = 0) -> dict:
+                      enc_len: int = 0, *, tp: int = 1) -> dict:
     """Zero decode state on ``device`` (default: the CUDA card): ``len``
     [B], the KV caches of every attention layer (MLA: its latent caches;
     the hybrid: each group's shared-block application) in ``cfg.dtype``,
     the fp32 conv and SSM states of every Mamba-2 layer, and for the
     encoder-decoder family each decoder layer's cross K and V
     [L, B, enc_len, Hkv, D] (zeros, for the caller to fill) and
-    ``enc_len`` [B]."""
+    ``enc_len`` [B].  No shape depends on ``tp`` (the caches keep the
+    original KV heads, as the reference's); it is taken for the
+    reference's signature."""
+    del tp
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     cache: dict = {"len": torch.zeros((batch,), dtype=torch.int32,
@@ -399,20 +432,23 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _decode_attn_block(p: Param, h: torch.Tensor, cfg: ModelConfig,
-                       cache: dict, i: int, cache_len: torch.Tensor
-                       ) -> torch.Tensor:
-    """Block ``i``'s decode: self attention over (and into) layer ``i`` of
-    the cache, cross attention over its encoder K/V where the cache has
-    them, then the feed-forward."""
-    a, _ = attention_decode(p["attn"], rms_norm(h, p["ln1"], cfg.rms_eps),
-                            cfg, {k: t[i] for k, t in cache["kv"].items()},
-                            cache_len)
+                       cache: dict, i: int, cache_len: torch.Tensor,
+                       tp: int, commit: bool) -> tuple[torch.Tensor, dict]:
+    """Block ``i``'s decode: self attention over layer ``i`` of the cache
+    (written in place, or its 1-token delta returned when not
+    ``commit``), cross attention over its encoder K/V where the cache
+    has them, then the feed-forward."""
+    a, delta = attention_decode(
+        p["attn"], rms_norm(h, p["ln1"], cfg.rms_eps), cfg,
+        {k: t[i] for k, t in cache["kv"].items()}, cache_len, tp=tp,
+        update_cache=commit)
     h = h + a
     if "cross_k" in cache:
         h = h + cross_attention_decode(
             p["cross"], rms_norm(h, p["ln_x"], cfg.rms_eps), cfg,
-            cache["cross_k"][i], cache["cross_v"][i], cache["enc_len"])
-    return h + _ffn(p, rms_norm(h, p["ln2"], cfg.rms_eps), cfg)
+            cache["cross_k"][i], cache["cross_v"][i], cache["enc_len"], tp)
+    hn = constrain(rms_norm(h, p["ln2"], cfg.rms_eps), "dec_mlp")
+    return h + _ffn(p, hn, cfg), delta
 
 
 def _decode_ssm_block(p: Param, h: torch.Tensor, cfg: ModelConfig,
@@ -428,26 +464,38 @@ def _decode_ssm_block(p: Param, h: torch.Tensor, cfg: ModelConfig,
 
 @torch.no_grad()
 def decode_step(params: Param, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: dict) -> tuple[torch.Tensor, dict]:
+                cache: dict, tp: int = 1,
+                commit: bool = True) -> tuple[torch.Tensor, dict]:
     """One greedy decode step.  tokens [B] -> (fp32 logits [B, V_padded]
-    with the padded vocab at -1e30, the cache).  The cache's K/V (or
-    latent) and SSM tensors are updated in place; the returned dict
-    carries ``len`` + 1."""
+    with the padded vocab at -1e30, the cache).  SSM states are updated
+    in place.  With ``commit`` the K/V (or latent) caches are written in
+    place too and the returned dict carries ``len`` + 1; without it they
+    are left as they are, the returned dict's ``kv`` holds each attention
+    layer's 1-token delta stacked [L, B, 1, ...] and ``len`` is
+    unchanged."""
     h = params["embed"][tokens][:, None, :]                  # [B,1,d]
     cache_len = cache["len"]
+    deltas = []
     if cfg.family in _ATTN_FAMILIES:
         for i in range(cfg.n_layers):
-            h = _decode_attn_block(_layer(params, i), h, cfg, cache, i,
-                                   cache_len)
+            h, delta = _decode_attn_block(_layer(params, i), h, cfg, cache,
+                                          i, cache_len, tp, commit)
+            deltas.append(delta)
     else:
         shared = _shared_after(cfg)
         for i in range(cfg.n_layers):
             h = _decode_ssm_block(_layer(params, i), h, cfg, cache["ssm"], i)
             if i in shared:
-                h = _decode_attn_block(params["shared_attn"], h, cfg,
-                                       {"kv": cache["kv"]}, shared[i],
-                                       cache_len)
+                h, delta = _decode_attn_block(
+                    params["shared_attn"], h, cfg, {"kv": cache["kv"]},
+                    shared[i], cache_len, tp, commit)
+                deltas.append(delta)
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
     logits = h[:, 0].float() @ _lm_head(params, cfg).float()
     logits[:, cfg.vocab_size:] = -1e30
-    return logits, {**cache, "len": cache_len + 1}
+    if commit:
+        return logits, {**cache, "len": cache_len + 1}
+    if not deltas:
+        return logits, dict(cache)
+    return logits, {**cache, "kv": {k: torch.stack([d[k] for d in deltas])
+                                    for k in deltas[0]}}

@@ -78,17 +78,21 @@ def init_opt_state(params) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(grads, opt_state: dict, cfg: AdamWConfig, params=None):
+def adamw_update(grads, opt_state: dict, cfg: AdamWConfig, params=None,
+                 gnorm: torch.Tensor | None = None):
     """Returns (new_params, new_opt_state, grad_norm).
 
     ``params`` (the old tree) gives each new leaf its dtype, so bf16
     leaves stay bf16 and fp32 leaves (norm scales) fp32; without it every
     leaf comes back bf16, as the reference's.  The global norm sums the
-    leaves' squares in ``jax.tree`` order."""
+    leaves' squares in ``jax.tree`` order; a caller that updates a part
+    of the tree (a sharded step, shard by shard) passes the whole tree's
+    ``gnorm`` for the clipping."""
     count = opt_state["count"] + 1
     g32 = tree_map(lambda g: g.to(torch.float32), grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
-                           for g in tree_leaves(g32)))
+    if gnorm is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
+                               for g in tree_leaves(g32)))
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     g32 = tree_map(lambda g: g * scale, g32)

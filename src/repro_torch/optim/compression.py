@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding import ShardMesh
+from repro_torch.costs import moved
+from repro_torch.distributed.sharding import Mesh, ShardMesh
 from repro_torch.tree import tree_map
 
 __all__ = ["compressed_psum", "dequantize_int8", "init_error_state",
@@ -36,10 +37,21 @@ def init_error_state(grads):
                                           device=g.device), grads)
 
 
+def _ring(mesh: ShardMesh | Mesh, axis_name: str | None) -> ShardMesh:
+    """The shards a reduce runs over: a ``ShardMesh`` as it is, or the
+    devices along ``axis_name`` of a ``Mesh`` (the other axes at 0)."""
+    if isinstance(mesh, ShardMesh):
+        return mesh
+    at = [0] * len(mesh.axis_names)
+    at[mesh.axis_names.index(axis_name)] = slice(None)
+    return ShardMesh(tuple(mesh.devices[tuple(at)]))
+
+
 @torch.no_grad()
-def compressed_psum(grads: list, err_state: list, mesh: ShardMesh
-                    ) -> tuple[list, list]:
-    """Error-feedback int8 all-reduce over the shards of ``mesh``.
+def compressed_psum(grads: list, err_state: list, mesh: ShardMesh | Mesh,
+                    axis_name: str | None = None) -> tuple[list, list]:
+    """Error-feedback int8 all-reduce over the shards of ``mesh`` (a
+    ``ShardMesh``, or a ``Mesh``'s ``axis_name`` axis).
 
     ``grads`` and ``err_state`` hold one tree per shard, on that shard's
     device.  Each shard quantizes ``g + e`` and keeps ``g + e - deq`` as
@@ -55,6 +67,7 @@ def compressed_psum(grads: list, err_state: list, mesh: ShardMesh
     shard's tree and does the reduce itself.  The values are the same:
     each shard's mean is ``sum_s deq_s / n``.
     """
+    mesh = _ring(mesh, axis_name)
     n = mesh.size
     if len(grads) != n or len(err_state) != n:
         raise ValueError(f"compressed_psum: {n} shards, got {len(grads)} "
@@ -69,6 +82,7 @@ def compressed_psum(grads: list, err_state: list, mesh: ShardMesh
             g32 = g.to(torch.float32) + e
             q, scale = quantize_int8(g32)
             errs.append(g32 - dequantize_int8(q, scale))
+            moved("all-reduce", q.numel() + 4)
             deq = dequantize_int8(q.to(root), scale.to(root))
             total = deq if total is None else total + deq
         return total / float(n), errs

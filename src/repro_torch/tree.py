@@ -6,7 +6,8 @@ from __future__ import annotations
 
 from typing import Callable, Iterator
 
-__all__ = ["tree_items", "tree_leaves", "tree_map", "tree_unflatten"]
+__all__ = ["tree_items", "tree_leaves", "tree_map", "tree_map_with_path",
+           "tree_unflatten"]
 
 
 def tree_items(tree, prefix: str = "") -> Iterator[tuple[str, object]]:
@@ -30,6 +31,17 @@ def tree_map(fn: Callable, tree, *rest):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree, *rest, prefix: str = ""):
+    """``fn(path, leaf, *like_leaves)`` over the leaves, keeping the
+    structure; ``path`` is the leaf's keys joined by ``/``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      prefix=f"{prefix}/{k}" if prefix
+                                      else str(k))
+                for k, v in tree.items()}
+    return fn(prefix, tree, *rest)
 
 
 def tree_unflatten(like, leaves):

@@ -1884,3 +1884,124 @@ def test_train_launcher_local_on_card(card, tmp_path):
     assert out["final_step"] == 3 and np.isfinite(out["final_loss"])
     cfg = get_smoke_config("qwen3_0_6b")
     assert flash_attention.launches - before == 3 * cfg.n_layers
+
+
+# ------------------------------------------------- slice 17: distributed
+def test_analyzer_counts_the_kernel_op_on_card_as_on_meta(card):
+    """``analyze_step`` of a smoke prefill on the card (the kernels run,
+    invisible to the dispatch mode) equals its count on meta, exactly."""
+    from repro_torch.launch.cost_analysis import analyze_step
+    from repro_torch.models import model as M
+    for arch in ("qwen3_0_6b", "zamba2_7b"):
+        cfg = get_smoke_config(arch)
+        out = {}
+        for dev in (card, torch.device("meta")):
+            params = M.init_params(cfg, device=dev)
+            toks = torch.zeros((2, 64), dtype=torch.int64, device=dev)
+            out[dev.type] = analyze_step(M.prefill, params, cfg, toks)
+        assert out["cuda"].flops == out["meta"].flops > 0, arch
+        assert out["cuda"].while_trip_counts == \
+            out["meta"].while_trip_counts, arch
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "zamba2_7b"])
+def test_analyzer_counts_a_train_step_on_card_as_on_meta(card, arch):
+    """``analyze_step`` of a smoke train step on the card (the forward
+    kernels run inside their autograd Functions, the backwards recompute
+    the plain versions) equals its count on meta, exactly: each backward
+    is counted by its formula."""
+    import dataclasses
+    from repro_torch.launch.cost_analysis import analyze_step
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    out = {}
+    for dev in (card, torch.device("meta")):
+        state = init_train_state(M.init_params(cfg, device=dev))
+        toks = torch.zeros((2, 64), dtype=torch.int32, device=dev)
+        out[dev.type] = analyze_step(make_train_step(cfg, AdamWConfig()),
+                                     state, {"tokens": toks, "labels": toks})
+    assert out["cuda"].flops == out["meta"].flops > 0, arch
+    assert out["cuda"].while_trip_counts == out["meta"].while_trip_counts
+    assert any(k.endswith(".backward") for k in out["cuda"].while_trip_counts)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "minicpm3_4b",
+                                  "zamba2_7b", "seamless_m4t_large_v2"])
+def test_split_kv_decode_on_card(card, arch):
+    """``decode_step(commit=False)`` on the card against the card's
+    ``commit=True`` and the CPU's ``commit=False``, in fp32; the frozen
+    cache untouched."""
+    import dataclasses
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = M.init_params(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    cache = M.init_decode_cache(cfg, 3, 40, "cpu", enc_len=8)
+    for name in ("kv", "cross_k", "cross_v"):
+        for t in (cache[name].values() if name == "kv" else
+                  [cache[name]] if name in cache else []):
+            t.copy_(torch.randn(t.shape, generator=gen))
+    cache["len"].copy_(torch.tensor([30, 7, 1], dtype=torch.int32))
+    toks = torch.tensor([5, 9, 11])
+    on = (lambda tree: {k: on(v) for k, v in tree.items()}
+          if isinstance(tree, dict) else tree.to(card, copy=True))
+    gc = on(cache)
+    kv_before = {k: t.clone() for k, t in gc.get("kv", {}).items()}
+    lf, split = M.decode_step(on(params), cfg, toks.to(card), gc,
+                              commit=False)
+    for k, t in kv_before.items():
+        assert torch.equal(gc["kv"][k], t), k
+    lt, _ = M.decode_step(on(params), cfg, toks.to(card), on(cache))
+    lc, split_c = M.decode_step(params, cfg, toks, cache, commit=False)
+    v = cfg.vocab_size
+    scale = float(lc[:, :v].abs().max())
+    assert float((lf.cpu() - lc)[:, :v].abs().max()) <= 1e-4 * scale
+    assert float((lf - lt)[:, :v].abs().max()) <= 1e-5 * scale
+    for k, d in split_c.get("kv", {}).items():
+        torch.testing.assert_close(split["kv"][k].cpu(), d, rtol=0,
+                                   atol=1e-4 * float(d.abs().max()))
+
+
+def test_pipeline_and_sharded_step_on_card(card):
+    """``pipeline_forward`` over 2 logical shards of the card against the
+    sequential forward, and the sharded train step on a logical 2 x 2 mesh
+    against the single-device step (the reference's tolerances)."""
+    import dataclasses
+    from repro_torch.tree import tree_items
+    from repro_torch.distributed.pipeline import pipeline_forward, stack_stages
+    from repro_torch.distributed.sharding import (Mesh, gather, param_specs,
+                                                  place, state_specs)
+    from repro_torch.data.lm import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_smoke_config("qwen3_0_6b"),
+                              dtype="float32")
+    params = M.init_params(cfg, device=card)
+
+    def stage(p_stage, h):
+        for i in range(p_stage["ln1"].shape[0]):
+            h = M._attn_mlp_block(M._layer({"layers": p_stage}, i), h, cfg)
+        return h
+    x = params["embed"][torch.randint(0, cfg.vocab_size, (4, 64),
+                                      device=card)]
+    with torch.no_grad():
+        got = pipeline_forward(stage, stack_stages(params["layers"], 2), x,
+                               mesh=Mesh.of(card, (2,), ("pod",)),
+                               n_microbatches=2)
+        want = stage(params["layers"], x)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    state = init_train_state(params)
+    batch = SyntheticLM(cfg.vocab_size, 32, 8, seed=0).batch_at(0)
+    opt = AdamWConfig(lr_peak=1e-3)
+    s1, m1 = make_train_step(cfg, opt)(state, batch)
+    mesh = Mesh.of(card, (2, 2), ("data", "model"))
+    s2, m2 = make_train_step(cfg, opt, grad_shardings=param_specs(
+        params, mesh))(place(state, state_specs(state, mesh)), batch)
+    assert float(m2["loss"]) == pytest.approx(float(m1["loss"]), rel=2e-4)
+    for (name, a), (_, b) in zip(tree_items(s1["params"]),
+                                 tree_items(gather(s2["params"]))):
+        torch.testing.assert_close(b, a, rtol=2e-3, atol=2e-4, msg=name)
