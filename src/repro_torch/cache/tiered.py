@@ -33,7 +33,18 @@ Monitor, host metadata like the pool's); at window boundaries
 runs on its own device), re-runs Alg. 1/3 per level, and applies both
 quota vectors and both policy vectors through the pool's quota
 enforcement and the host tier's LRU trim: the Actuator.
-``rebalance_seconds`` accumulates the wall time spent in that path.
+
+Tracing (``core/profile.py``, the cache's ``profile``: the process
+profile unless one is given): ``rebalance`` is the span
+``cache.rebalance``, partitioned into ``.flush`` (the window's events
+into the manager), ``.analyze`` and ``.enforce`` (quotas, host-tier
+trim); ``rebalance_seconds`` accumulates it (and stays put while the
+profile is disabled).  Counters: ``cache.evict.quota`` (pages the
+Actuator evicted) and ``cache.evict.pressure`` (pages evicted to admit
+another).  Each rebalance logs one window row: the window's events and
+reads (``window``: the cache's rebalances so far), the deltas of ``hbm_hits``, ``misses``, ``hbm_writes`` and
+``bypassed_writes``, evictions by cause, unmanaged pages staged, the
+quotas and policies applied and the rebalance's ms.
 
 Tier failures: ``fail_tier(level)`` crashes the HBM pool (1) or the
 managed host tier (2): its residents drop, dirty pages count as
@@ -44,13 +55,13 @@ managed host tier (2): its residents drop, dirty pages count as
 from __future__ import annotations
 
 import dataclasses
-import time
 from collections import OrderedDict
 
 import numpy as np
 
 from repro_torch.cache.block_pool import BlockPool, PageMeta
 from repro_torch.core.manager import ECICacheManager
+from repro_torch.core.profile import StageProfile, process_profile
 from repro_torch.core.write_policy import WritePolicy
 
 __all__ = ["TieredKVCache", "TierStats"]
@@ -81,7 +92,8 @@ class TieredKVCache:
     """Prefix-page cache across tenants with ECI-managed partitioning."""
 
     def __init__(self, pool: BlockPool, manager: ECICacheManager,
-                 window_events: int = 4096):
+                 window_events: int = 4096,
+                 profile: StageProfile | None = None):
         self.pool = pool
         self.manager = manager
         self.host: dict[tuple, int] = {}       # key -> host "address"
@@ -105,7 +117,10 @@ class TieredKVCache:
         self._ev_addr = np.empty(cap, np.int64)
         self._ev_read = np.empty(cap, bool)
         self._n_ev = 0
-        self.rebalance_seconds = 0.0           # Actuator-path wall time
+        self.rebalance_seconds = 0.0           # the cache.rebalance spans
+        self.profile = profile if profile is not None else process_profile()
+        self._window_marks = self._window_totals()
+        self._windows_logged = 0
         # tier-failure state (fail_tier/recover_tier): while a level is in
         # ``_down`` its residents are gone and traffic re-routes to the
         # next tier; the manager handles the policy and quota consequences
@@ -152,9 +167,11 @@ class TieredKVCache:
 
         if fresh:
             if self.policies[tenant] is WritePolicy.WB and not down1:
-                pid, _ = self.pool.allocate(tenant, key,
-                                            quota=self.quotas[tenant],
-                                            dirty=True)
+                pid, evicted = self.pool.allocate(tenant, key,
+                                                  quota=self.quotas[tenant],
+                                                  dirty=True)
+                if evicted:
+                    self.profile.count("cache.evict.pressure", len(evicted))
                 if pid is not None:
                     st.hbm_writes += 1
                     served = "hbm"
@@ -180,9 +197,11 @@ class TieredKVCache:
                     # promote on proven reuse (the hierarchy's L2-hit rule)
                     if self.managed_host:
                         self.host_lru[tenant].pop(key, None)
-                    pid, _ = self.pool.allocate(tenant, key,
-                                                quota=self.quotas[tenant],
-                                                dirty=False)
+                    pid, evicted = self.pool.allocate(
+                        tenant, key, quota=self.quotas[tenant], dirty=False)
+                    if evicted:
+                        self.profile.count("cache.evict.pressure",
+                                           len(evicted))
                     if pid is not None:
                         st.hbm_writes += 1
                         st.promotions += 1
@@ -311,36 +330,71 @@ class TieredKVCache:
         n = self._n_ev
         if n == 0:
             return
-        t0 = time.perf_counter()
-        ten = self._ev_tenant[:n]
-        ad = self._ev_addr[:n]
-        rd = self._ev_read[:n]
-        self._n_ev = 0
-        for t in range(len(self.manager.tenants)):
-            mask = ten == t
-            if mask.any():
-                self.manager.record(t, ad[mask].copy(), rd[mask].copy())
-        joins = self.manager._drain_joined(self.manager.windows_run)
-        if joins:
-            self.manager._record_events(joins)
-        decision = self.manager.analyze(trigger=tuple(joins))
-        sizes = decision.sizes.tolist()
-        sizes2 = (decision.sizes2.tolist()
-                  if decision.sizes2 is not None else None)
-        for i, tstate in enumerate(self.manager.tenants):
-            if not tstate.active:
-                continue
-            self.quotas[i] = int(sizes[i])
-            self.policies[i] = tstate.policy
-            self.pool.enforce_quota(i, self.quotas[i])
-            if self.managed_host and sizes2 is not None:
-                self.host_quotas[i] = int(sizes2[i])
-                q = self.host_lru[i]
-                while len(q) > self.host_quotas[i]:
-                    q.popitem(last=False)
-                    self.stats[i].host_evictions += 1
-            tstate.clear_window()
-        self.rebalance_seconds += time.perf_counter() - t0
+        prof = self.profile
+        span = prof.span("cache.rebalance")
+        with span:
+            with prof.span("cache.rebalance.flush"):
+                ten = self._ev_tenant[:n]
+                ad = self._ev_addr[:n]
+                rd = self._ev_read[:n]
+                self._n_ev = 0
+                for t in range(len(self.manager.tenants)):
+                    mask = ten == t
+                    if mask.any():
+                        self.manager.record(t, ad[mask].copy(),
+                                            rd[mask].copy())
+            with prof.span("cache.rebalance.analyze"):
+                joins = self.manager._drain_joined(self.manager.windows_run)
+                if joins:
+                    self.manager._record_events(joins)
+                decision = self.manager.analyze(trigger=tuple(joins))
+                sizes = decision.sizes.tolist()
+                sizes2 = (decision.sizes2.tolist()
+                          if decision.sizes2 is not None else None)
+            with prof.span("cache.rebalance.enforce"):
+                evicted = 0
+                for i, tstate in enumerate(self.manager.tenants):
+                    if not tstate.active:
+                        continue
+                    self.quotas[i] = int(sizes[i])
+                    self.policies[i] = tstate.policy
+                    evicted += len(self.pool.enforce_quota(i, self.quotas[i]))
+                    if self.managed_host and sizes2 is not None:
+                        self.host_quotas[i] = int(sizes2[i])
+                        q = self.host_lru[i]
+                        while len(q) > self.host_quotas[i]:
+                            q.popitem(last=False)
+                            self.stats[i].host_evictions += 1
+                    tstate.clear_window()
+        self.rebalance_seconds += span.ns * 1e-9
+        if evicted:
+            prof.count("cache.evict.quota", evicted)
+        self._log_window(n, int(rd.sum()), span.ns)
+
+    # ------------------------------------------------------- window log
+    def _window_totals(self) -> dict:
+        """Every tenant's summed window-logged stats, and the profile's
+        eviction and unmanaged-page counters."""
+        out = {k: sum(getattr(s, k) for s in self.stats)
+               for k in ("hbm_hits", "misses", "hbm_writes",
+                         "bypassed_writes")}
+        c = self.profile.counters
+        out.update(evict_quota=c.get("cache.evict.quota", 0),
+                   evict_pressure=c.get("cache.evict.pressure", 0),
+                   unmanaged=c.get("serve.pages.unmanaged", 0))
+        return out
+
+    def _log_window(self, events: int, reads: int, ns: int) -> None:
+        now = self._window_totals()
+        self._windows_logged += 1
+        row = {"window": self._windows_logged, "events": events,
+               "reads": reads}
+        row.update((k, v - self._window_marks[k]) for k, v in now.items())
+        row.update(quotas=dict(self.quotas),
+                   policies={i: p.value for i, p in self.policies.items()},
+                   ms=ns * 1e-6)
+        self._window_marks = now
+        self.profile.log_window(row)
 
     # ------------------------------------------------------------ report
     def summary(self) -> dict:

@@ -7,6 +7,10 @@ random parameters, seed 0:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \\
         --requests 12
+
+It prints what was served, the tiered cache's summary (``pool:``) and
+the run's profile (``profile:``): the mean ms of each span, the
+counters, the last window-log rows and the requests' mean queue wait.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import torch
 
 from repro_torch.cache import BlockPool, TieredKVCache
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import ECICacheManager
+from repro_torch.core import ECICacheManager, StageProfile
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.attention import build_heads
@@ -48,10 +52,11 @@ def main(argv: list[str] | None = None) -> None:
         args.capacity, [f"tenant{i}" for i in range(args.tenants)],
         c_min=8, initial_blocks=args.capacity // max(args.tenants, 1),
         device=dev)
-    tiered = TieredKVCache(pool, manager, window_events=128)
+    profile = StageProfile()
+    tiered = TieredKVCache(pool, manager, window_events=128, profile=profile)
     engine = MultiTenantEngine(cfg, params, tiered,
                                page_size=args.page_size,
-                               max_pages_per_seq=32)
+                               max_pages_per_seq=32, profile=profile)
 
     rng = np.random.default_rng(0)
     shared = {t: rng.integers(0, cfg.vocab_size, 24).astype(np.int32)
@@ -74,6 +79,10 @@ def main(argv: list[str] | None = None) -> None:
     print(f"served {done}/{args.requests} requests, {toks} tokens "
           f"in {dt:.1f}s ({toks / dt:.1f} tok/s) on {where}")
     print("pool:", tiered.summary())
+    waits = [r.scheduled_ns - r.submit_ns for r in engine.completed]
+    print("profile:", {**profile.spans_report(),
+                       "queue_wait_ms": (sum(waits) / len(waits) * 1e-6
+                                         if waits else None)})
 
 
 if __name__ == "__main__":

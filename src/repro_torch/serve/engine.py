@@ -35,17 +35,37 @@ the reference's: a prefill request is one group of its padded length, and
 in a decode step each row is a group of one token (capacity 4), every
 expert computed for every row (``_decode_step``, the reference's
 ``:277-281``).
+
+Tracing (``core/profile.py``, the engine's ``profile``: the process
+profile unless one is given).  ``serve.prefill`` is partitioned into
+``.upload`` (the prompt's copy to the device, which waits on the stream),
+``.forward`` (enqueueing ``prefill_with_kv``), ``.pages`` (the page loop:
+prefix hashes, lookups, ECI events, page writes, allocation, pins) and
+``.sample`` (the first token read back); ``serve.decode`` into ``.pages``,
+``.upload`` (tables, lengths and tokens to the device), ``.forward``
+(enqueueing ``_decode_step``, whose device spans
+``serve.decode.merge_self`` and ``serve.decode.head`` time each layer's
+``_merge_self`` and the fp32 head, on CUDA in one step of
+``DEVICE_EVERY``), ``.writeback`` (the new KV's indices copied,
+which waits for the forward, and put into the pool), ``.sample`` and
+``.finish``.  Counters: ``serve.pages.unmanaged`` (pages staged as tenant
+-2), ``serve.pages.refused`` (page 0 standing in for a refused page) and
+``cache.evict.pressure``.  Each ``Request`` carries its host stamps
+(``time.perf_counter_ns``): submitted, scheduled (its prefill starts),
+first token and done.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.cache.block_pool import BlockPool
 from repro_torch.cache.tiered import TieredKVCache
+from repro_torch.core.profile import StageProfile, process_profile
 from repro_torch.kernels.paged_attention.kernel import paged_attention
 from repro_torch.kernels.paged_attention.ref import gather_pages
 from repro_torch.models.attention import build_heads
@@ -66,6 +86,11 @@ class Request:
     pages: list[int] = dataclasses.field(default_factory=list)   # pool pids
     length: int = 0                      # tokens with KV in the pool
     done: bool = False
+    # host stamps (perf_counter_ns); queue wait = scheduled - submit
+    submit_ns: int = 0
+    scheduled_ns: int = 0                # its prefill starts
+    first_token_ns: int = 0
+    done_ns: int = 0
 
 
 def _prefix_key(tenant: int, tokens: np.ndarray) -> tuple:
@@ -111,7 +136,8 @@ class MultiTenantEngine:
 
     def __init__(self, cfg: ModelConfig, params: Param,
                  tiered: TieredKVCache, page_size: int = 16,
-                 max_pages_per_seq: int = 64):
+                 max_pages_per_seq: int = 64,
+                 profile: StageProfile | None = None):
         _check_family(cfg)
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
@@ -128,24 +154,46 @@ class MultiTenantEngine:
         self._rid = 0
         self.completed: list[Request] = []
         self.aborted_restarts = 0    # requests restarted after a pool crash
+        self.profile = profile if profile is not None else process_profile()
+        # a profile given is handed to ``_decode_step``, which otherwise
+        # takes the process profile too
+        self._step_kw = {} if profile is None else {"profile": profile}
 
     # ------------------------------------------------------------ intake
     def submit(self, req: Request) -> None:
         req.rid = self._rid
         self._rid += 1
+        req.submit_ns = time.perf_counter_ns()
         self.waiting.append(req)
 
     # ----------------------------------------------------------- prefill
     def _prefill_one(self, req: Request) -> None:
-        cfg, page = self.cfg, self.page
-        prompt = np.asarray(req.prompt, np.int32)
-        S = len(prompt)
-        n_pages = -(-S // page)
-        pad = n_pages * page - S
-        tok = torch.as_tensor(np.pad(prompt, (0, pad))[None, :],
-                              dtype=torch.int64, device=self.device)
-        logits, ks, vs = prefill_with_kv(self.params, cfg, tok)
+        cfg, page, prof = self.cfg, self.page, self.profile
+        req.scheduled_ns = time.perf_counter_ns()
+        with prof.span("serve.prefill"):
+            with prof.span("serve.prefill.upload"):
+                prompt = np.asarray(req.prompt, np.int32)
+                S = len(prompt)
+                n_pages = -(-S // page)
+                pad = n_pages * page - S
+                tok = torch.as_tensor(np.pad(prompt, (0, pad))[None, :],
+                                      dtype=torch.int64, device=self.device)
+            with prof.span("serve.prefill.forward"):
+                logits, ks, vs = prefill_with_kv(self.params, cfg, tok)
+            with prof.span("serve.prefill.pages"):
+                self._prompt_pages(req, prompt, n_pages, ks, vs)
+            with prof.span("serve.prefill.sample"):
+                req.length = S
+                req.generated.append(int(logits[0, :cfg.vocab_size].argmax()))
+            req.first_token_ns = time.perf_counter_ns()
+            self.active.append(req)
 
+    def _prompt_pages(self, req: Request, prompt: np.ndarray, n_pages: int,
+                      ks: torch.Tensor, vs: torch.Tensor) -> None:
+        """Cut the prompt into pages: reuse those whose content key is in
+        the HBM pool, admit fresh ones per the tenant's policy, stage the
+        rest unmanaged, and pin every page the request takes."""
+        page = self.page
         for pi in range(n_pages):
             key = _prefix_key(req.tenant, prompt[:(pi + 1) * page])
             pid = self.pool.lookup(key)
@@ -162,70 +210,88 @@ class MultiTenantEngine:
                 # the host tier; stage it unmanaged (tenant -2) so decode
                 # can still attend: latency accounting treats it as a
                 # host-tier fetch, and it never counts against quotas.
-                pid, _ = self.pool.allocate(-2, None, quota=None)
+                pid = self._unmanaged_page()
                 if pid is not None and self.pool.k_pages is not None:
                     sl = slice(pi * page, (pi + 1) * page)
                     self.pool.write_page(ks[:, 0, sl], vs[:, 0, sl], pid)
             if pid is not None:
                 self.pool.pin(pid)
             req.pages.append(pid if pid is not None else 0)
-        req.length = S
-        req.generated.append(int(logits[0, :cfg.vocab_size].argmax()))
-        self.active.append(req)
+
+    def _unmanaged_page(self) -> int | None:
+        """A page staged outside every quota (tenant -2); None when the
+        pool refuses it (the caller then stands page 0 in)."""
+        pid, evicted = self.pool.allocate(-2, None, quota=None)
+        if evicted:
+            self.profile.count("cache.evict.pressure", len(evicted))
+        self.profile.count("serve.pages.unmanaged" if pid is not None
+                           else "serve.pages.refused")
+        return pid
 
     # ------------------------------------------------------------ decode
     def _decode_batch(self) -> None:
-        cfg, page = self.cfg, self.page
+        cfg, page, prof = self.cfg, self.page, self.profile
         reqs = [r for r in self.active if not r.done]
         if not reqs:
             return
-        B = len(reqs)
-        # ensure every request has a page with room for the next token
-        for r in reqs:
-            if r.length % page == 0:
-                key = (r.tenant, "decode", r.rid, r.length // page)
-                self.tiered.access_page(r.tenant, key, fresh=True)
-                pid = self.pool.by_key.get(key)
-                if pid is None:
-                    pid, _ = self.pool.allocate(-2, None, quota=None)
-                if pid is not None:
-                    self.pool.pin(pid)
-                r.pages.append(pid if pid is not None else 0)
-
-        tables = np.zeros((B, self.max_pages), np.int32)
-        lens = np.zeros((B,), np.int32)
-        toks = np.zeros((B,), np.int64)
-        for i, r in enumerate(reqs):
-            tables[i, :len(r.pages)] = r.pages
-            lens[i] = r.length
-            toks[i] = r.generated[-1]
-        dev = self.device
-        logits, k_new, v_new = _decode_step(
-            self.params, self.pool.k_pages, self.pool.v_pages,
-            torch.as_tensor(toks, device=dev),
-            torch.as_tensor(tables, device=dev),
-            torch.as_tensor(lens, device=dev), cfg)
-        # write the new token's KV into each request's current page
-        pids = np.array([r.pages[r.length // page] for r in reqs])
-        offs = np.array([r.length % page for r in reqs])
-        L = self.pool.shape[0]
-        li = torch.as_tensor(np.repeat(np.arange(L), B), device=dev)
-        pi = torch.as_tensor(np.tile(pids, L), device=dev)
-        oi = torch.as_tensor(np.tile(offs, L), device=dev)
-        for pages, new in ((self.pool.k_pages, k_new),
-                           (self.pool.v_pages, v_new)):
-            pages[li, pi, oi] = new.reshape(L * B, *new.shape[2:]).to(
-                pages.dtype)
-        nxt = logits[:, :cfg.vocab_size].argmax(dim=-1).tolist()
-        for i, r in enumerate(reqs):
-            r.length += 1
-            r.generated.append(int(nxt[i]))
-            if len(r.generated) >= r.max_new_tokens:
-                r.done = True
-                self.completed.append(r)
-                for pid in r.pages:           # pages stay cached (prefix
-                    self.pool.unpin(pid)      # reuse), but become evictable
-        self.active = [r for r in self.active if not r.done]
+        with prof.span("serve.decode"):
+            B = len(reqs)
+            with prof.span("serve.decode.pages"):
+                # every request gets a page with room for the next token
+                for r in reqs:
+                    if r.length % page == 0:
+                        key = (r.tenant, "decode", r.rid, r.length // page)
+                        self.tiered.access_page(r.tenant, key, fresh=True)
+                        pid = self.pool.by_key.get(key)
+                        if pid is None:
+                            pid = self._unmanaged_page()
+                        if pid is not None:
+                            self.pool.pin(pid)
+                        r.pages.append(pid if pid is not None else 0)
+            with prof.span("serve.decode.upload"):
+                tables = np.zeros((B, self.max_pages), np.int32)
+                lens = np.zeros((B,), np.int32)
+                toks = np.zeros((B,), np.int64)
+                for i, r in enumerate(reqs):
+                    tables[i, :len(r.pages)] = r.pages
+                    lens[i] = r.length
+                    toks[i] = r.generated[-1]
+                dev = self.device
+                toks_d = torch.as_tensor(toks, device=dev)
+                tables_d = torch.as_tensor(tables, device=dev)
+                lens_d = torch.as_tensor(lens, device=dev)
+            with prof.span("serve.decode.forward"):
+                prof.next_round()
+                logits, k_new, v_new = _decode_step(
+                    self.params, self.pool.k_pages, self.pool.v_pages,
+                    toks_d, tables_d, lens_d, cfg, **self._step_kw)
+            with prof.span("serve.decode.writeback"):
+                # the new token's KV into each request's current page
+                pids = np.array([r.pages[r.length // page] for r in reqs])
+                offs = np.array([r.length % page for r in reqs])
+                L = self.pool.shape[0]
+                li = torch.as_tensor(np.repeat(np.arange(L), B), device=dev)
+                pi = torch.as_tensor(np.tile(pids, L), device=dev)
+                oi = torch.as_tensor(np.tile(offs, L), device=dev)
+                for pages, new in ((self.pool.k_pages, k_new),
+                                   (self.pool.v_pages, v_new)):
+                    pages[li, pi, oi] = new.reshape(L * B, *new.shape[2:]).to(
+                        pages.dtype)
+            with prof.span("serve.decode.sample"):
+                nxt = logits[:, :cfg.vocab_size].argmax(dim=-1).tolist()
+            with prof.span("serve.decode.finish"):
+                prof.resolve()          # the step's device spans, no wait
+                now = time.perf_counter_ns()
+                for i, r in enumerate(reqs):
+                    r.length += 1
+                    r.generated.append(int(nxt[i]))
+                    if len(r.generated) >= r.max_new_tokens:
+                        r.done = True
+                        r.done_ns = now
+                        self.completed.append(r)
+                        for pid in r.pages:       # pages stay cached (prefix
+                            self.pool.unpin(pid)  # reuse), but evictable
+                self.active = [r for r in self.active if not r.done]
 
     # ----------------------------------------------------- tier failures
     def _requeue_active(self) -> None:
@@ -264,12 +330,19 @@ class MultiTenantEngine:
 
 def _decode_step(params: Param, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  toks: torch.Tensor, tables: torch.Tensor,
-                 lens: torch.Tensor, cfg: ModelConfig
+                 lens: torch.Tensor, cfg: ModelConfig, *,
+                 profile: StageProfile | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched one-token decode over the paged pool (the reference's
     ``_decode_step_jit``).  Returns (fp32 logits [B, V_padded], the new
-    token's k and v [L, B, Hkv, D], not yet in the pool)."""
+    token's k and v [L, B, Hkv, D], not yet in the pool).  Each layer's
+    ``_merge_self`` and the fp32 head are device spans of ``profile`` (the
+    process profile when None): ``serve.decode.merge_self`` and
+    ``serve.decode.head``."""
     _check_family(cfg)
+    dspan = (profile if profile is not None
+             else process_profile()).device_span
+    dev = toks.device
     hq, hkv = build_heads(cfg)
     b, d = toks.shape[0], cfg.head_dim
     h = params["embed"][toks][:, None, :]
@@ -292,14 +365,16 @@ def _decode_step(params: Param, k_pool: torch.Tensor, v_pool: torch.Tensor,
         att = paged_attention(q[:, 0].to(k_pool.dtype), k_pool[i],
                               v_pool[i], tables, lens).to(q.dtype)
         # exact online merge of the in-flight token's KV (not yet pooled)
-        att = _merge_self(q[:, 0], k[:, 0], v[:, 0], att, k_pool[i], tables,
-                          lens, d, hq, hkv)
+        with dspan("serve.decode.merge_self", dev):
+            att = _merge_self(q[:, 0], k[:, 0], v[:, 0], att, k_pool[i],
+                              tables, lens, d, hq, hkv)
         h = h + att.reshape(b, 1, hq * d) @ a["wo"]
         h = h + _ffn(p, rms_norm(h, p["ln2"], cfg.rms_eps), cfg)
         ks.append(k[:, 0])
         vs.append(v[:, 0])
     h = rms_norm(h, params["final_norm"], cfg.rms_eps)
-    logits = h[:, 0].float() @ _lm_head(params, cfg).float()
+    with dspan("serve.decode.head", dev):
+        logits = h[:, 0].float() @ _lm_head(params, cfg).float()
     return logits, torch.stack(ks), torch.stack(vs)
 
 

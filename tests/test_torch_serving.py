@@ -18,6 +18,13 @@
   quotas, policies, pool stats and decisions equal; pool pages within
   1e-5.  Three distinct padded prompt lengths at most, so that the
   reference jits few shapes.
+* The engine and the tiered cache traced into a profile of their own
+  (``core/profile.py``): tokens, states and decisions still equal the
+  reference's; one ``serve.prefill`` span a request and one
+  ``serve.decode`` a step, each covered by its children, with a
+  ``serve.decode.merge_self`` device span a layer; the requests' stamps
+  in order; the window log's deltas summing to the ``TierStats`` totals;
+  ``rebalance_seconds`` the sum of the ``cache.rebalance`` spans.
 * The first token comes from the *padded* last position (the reference's
   ``engine.py:121-122`` and ``:84``), which the port keeps.
 * ``core.stack_distances`` and ``trace.total_cache_writes_wb`` against
@@ -45,8 +52,9 @@ from repro.serve.engine import MultiTenantEngine as RefEngine
 from repro.serve.engine import Request as RefRequest
 from repro_torch import configs
 from repro_torch.cache import BlockPool, TieredKVCache
-from repro_torch.core import (ECICacheManager, Trace, WritePolicy,
-                              stack_distances, total_cache_writes_wb)
+from repro_torch.core import (ECICacheManager, StageProfile, Trace,
+                              WritePolicy, stack_distances,
+                              total_cache_writes_wb)
 from repro_torch.data.traces import msr_trace
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import model as M
@@ -460,6 +468,148 @@ def test_engine_matches_reference(case):
                                atol=1e-5)
 
 
+class _CountingEngine(MultiTenantEngine):
+    """The engine, counting the steps that decoded some request."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.decoding_steps = 0
+
+    def _decode_batch(self) -> None:
+        self.decoding_steps += any(not r.done for r in self.active)
+        super()._decode_batch()
+
+
+@lru_cache(maxsize=None)
+def _traced_engine(case):
+    """``test_engine_matches_reference``'s port side, the engine and the
+    tiered cache given one profile of their own."""
+    params_np = _reference_engine(case)[0]
+    arch, capacity, capacity2, window, ro = ENGINE_CASES[case]
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+    params = M.params_from_jax(params_np, "cpu")
+    pool = BlockPool(96, 8, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
+                     dtype=torch.float32, device="cpu")
+    mgr = ECICacheManager(capacity, ["chat", "batch"], c_min=4,
+                          initial_blocks=16, capacity2=capacity2,
+                          device="cpu")
+    prof = StageProfile()
+    tiered = TieredKVCache(pool, mgr, window_events=window, profile=prof)
+    if ro is not None:
+        tiered.policies[ro] = WritePolicy.RO
+    eng = _CountingEngine(cfg, params, tiered, page_size=8,
+                          max_pages_per_seq=8, profile=prof)
+    for t, p in _prompts(cfg.vocab_size):
+        eng.submit(Request(tenant=t, prompt=p.copy(), max_new_tokens=5))
+    eng.run(64)
+    return eng, tiered, mgr, prof
+
+
+@pytest.mark.parametrize("case", sorted(ENGINE_CASES))
+def test_traced_engine_matches_reference(case):
+    _, tokens, state, decisions, kp, vp = _reference_engine(case)
+    eng, tiered, mgr, prof = _traced_engine(case)
+    assert sorted((r.rid, list(r.generated)) for r in eng.completed) == \
+        tokens
+    assert _tiered_state(tiered) == state
+    assert _decisions(mgr) == decisions
+    np.testing.assert_allclose(tiered.pool.k_pages.numpy(), kp, rtol=1e-5,
+                               atol=1e-5)
+    assert len(prof.spans("serve.decode")) == eng.decoding_steps > 0
+    assert len(prof.window_log) == len(decisions)
+
+
+def _covered(prof, parent, children):
+    """Each child span lies inside one parent span; returns the children's
+    total over the parents' (ns)."""
+    par = prof.spans(parent)
+    kids = [prof.spans(c) for c in children]
+    for k in kids:
+        j = np.searchsorted(par.start, k.start, side="right") - 1
+        assert (j >= 0).all()
+        assert (k.end <= par.end[j]).all()
+    return sum(int((k.end - k.start).sum()) for k in kids) / \
+        int((par.end - par.start).sum())
+
+
+@pytest.mark.parametrize("case", ["two_level_ro", "moe_wb"])
+def test_engine_spans_partition_their_parents(case):
+    eng, tiered, _, prof = _traced_engine(case)
+    n_req = len(_prompts(eng.cfg.vocab_size))
+    assert len(prof.spans("serve.prefill")) == n_req
+    for c in ("upload", "forward", "pages", "sample"):
+        assert len(prof.spans(f"serve.prefill.{c}")) == n_req
+    steps = eng.decoding_steps
+    for c in ("pages", "upload", "forward", "writeback", "sample", "finish"):
+        assert len(prof.spans(f"serve.decode.{c}")) == steps
+    assert len(prof.spans("serve.decode.merge_self")) == \
+        steps * eng.cfg.n_layers
+    assert len(prof.spans("serve.decode.head")) == steps
+    # children partition their parents: the gaps are the spans' own cost
+    assert _covered(prof, "serve.prefill", [
+        f"serve.prefill.{c}" for c in ("upload", "forward", "pages",
+                                       "sample")]) > 0.95
+    assert _covered(prof, "serve.decode", [
+        f"serve.decode.{c}" for c in ("pages", "upload", "forward",
+                                      "writeback", "sample",
+                                      "finish")]) > 0.95
+    assert _covered(prof, "serve.decode.forward", [
+        "serve.decode.merge_self", "serve.decode.head"]) < 1
+    assert _covered(prof, "cache.rebalance", [
+        f"cache.rebalance.{c}" for c in ("flush", "analyze",
+                                         "enforce")]) > 0.95
+    m = prof.spans("serve.decode.merge_self")
+    np.testing.assert_allclose(m.device_ms, m.ms)   # the CPU's device time
+
+
+def test_request_stamps_are_ordered():
+    eng, *_ = _traced_engine("two_level_ro")
+    assert len(eng.completed) == len(_prompts(eng.cfg.vocab_size))
+    for r in eng.completed:
+        assert 0 < r.submit_ns <= r.scheduled_ns <= r.first_token_ns \
+            <= r.done_ns
+    waits = [r.scheduled_ns - r.submit_ns for r in eng.completed]
+    assert waits == sorted(waits)           # served in submission order
+
+
+def test_window_log_deltas_sum_to_tier_stats():
+    eng, tiered, mgr, prof = _traced_engine("two_level_ro")
+    rows = list(prof.window_log)
+    assert len(rows) >= 2
+    assert [r["window"] for r in rows] == list(range(1, len(rows) + 1))
+    # flush the tail of the events as a window of its own, on a copy of
+    # the totals: the engine's run is shared with other tests
+    totals = tiered._window_totals()
+    logged = {k: sum(r[k] for r in rows) for k in totals}
+    pending = {k: totals[k] - tiered._window_marks[k] for k in totals}
+    for k in ("hbm_hits", "misses", "hbm_writes", "bypassed_writes"):
+        assert logged[k] + pending[k] == sum(getattr(s, k)
+                                             for s in tiered.stats), k
+    assert logged["bypassed_writes"] > 0            # the RO tenant's
+    assert logged["evict_quota"] + pending["evict_quota"] == \
+        prof.counters.get("cache.evict.quota", 0)
+    assert logged["unmanaged"] + pending["unmanaged"] == \
+        prof.counters["serve.pages.unmanaged"] > 0
+    # a read is served from exactly one of HBM, the host tier or a miss
+    assert all(0 <= r["reads"] <= r["events"] for r in rows)
+    assert sum(r["reads"] for r in rows) \
+        + int(tiered._ev_read[:tiered._n_ev].sum()) == sum(
+            s.hbm_hits + s.host_hits + s.misses for s in tiered.stats)
+    assert rows[-1]["quotas"] == {i: int(q) for i, q in
+                                  enumerate(mgr.history[-1].sizes)}
+    assert all(r["ms"] > 0 for r in rows)
+
+
+def test_rebalance_seconds_is_the_rebalance_spans():
+    _, tiered, mgr, prof = _traced_engine("two_level_ro")
+    s = prof.spans("cache.rebalance")
+    assert len(s) == len(mgr.history)
+    assert tiered.rebalance_seconds == pytest.approx(
+        float((s.end - s.start).sum()) * 1e-9, rel=1e-12)
+    assert tiered.rebalance_seconds == pytest.approx(
+        sum(r["ms"] for r in prof.window_log) * 1e-3, rel=1e-12)
+
+
 def test_first_token_is_the_padded_last_positions():
     """The reference takes a request's first token at the last position
     of the page-padded prompt (its ``engine.py:121-122``, ``:84``), not at
@@ -543,3 +693,7 @@ def test_launch_serve_on_the_cpu(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("served 4/4 requests, 12 tokens")
     assert out[0].endswith("on cpu") and out[1].startswith("pool: {")
+    assert out[2].startswith("profile: {")
+    for key in ("'span_ms'", "'serve.prefill.pages'", "'serve.decode'",
+                "'counters'", "'windows'", "'queue_wait_ms'"):
+        assert key in out[2], key
