@@ -199,10 +199,13 @@ Phases:
      stats, quotas, policies and decisions exactly equal, fp32 tokens
      equal and last logits within 1e-4 of max |logit|, bf16 tokens held
      where the fp32 top token leads by more than bf16 moves the logits;
-     the kernel at the captured decode inputs element by element, timed
-     beside ``paged_attention_ref``, ``_merge_self`` and its bound, a call
-     and the kernels alone (a CUDA graph of the calls), with its split
-     count, and at the first 1 and 4 captured rows;
+     the kernel at the captured decode inputs (the in-flight token folded
+     in, as the engine calls it, and without) element by element, timed
+     beside ``paged_attention_ref``, itself without the fold, the
+     composition the fold replaced (the kernel, then ``regather_merge``:
+     a regather of every page in fp32) and its bound, a call and the
+     kernels alone (a CUDA graph of the calls), with its split count, and
+     at the first 1 and 4 captured rows;
      ``flash_attention`` at the captured prefill inputs the same way as in
      phase 12, and its share of a request's prefill; 2 layers at full
      width in fp32, the card against the CPU, then the same with the pool
@@ -2979,19 +2982,46 @@ def held_tokens(kern: dict, plain: dict, ref32: dict, leads32: list,
     return held, ties
 
 
-def paged_row(what: str, cfg, args, margs, step_ms: float, launches: int,
+def regather_merge(q, k_self, v_self, att_pool, k_pg, tables, lens):
+    """The merge the serving decode made before the in-flight token was
+    folded into ``paged_attention`` (the reference's ``_merge_self``,
+    ``src/repro/serve/engine.py:293``): the pool's log-sum-exp rebuilt
+    from a second gather of every table page in fp32, the KV heads
+    repeated, merged with the in-flight token's score.  Timed here beside
+    the fold that replaced it."""
+    from repro_torch.kernels.paged_attention.ref import gather_pages
+    rep = q.shape[1] // k_self.shape[1]
+    kr = k_self.repeat_interleave(rep, dim=1)
+    vr = v_self.repeat_interleave(rep, dim=1)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    kp = gather_pages(k_pg, tables).repeat_interleave(rep, dim=2)
+    s_pool = torch.einsum("bhd,bkhd->bhk", q.float(), kp.float()) * scale
+    pos = torch.arange(kp.shape[1], device=q.device)
+    s_pool = torch.where(pos[None, None, :] < lens[:, None, None], s_pool,
+                         -1e30)
+    lse_pool = torch.logsumexp(s_pool, dim=-1)
+    s_self = torch.einsum("bhd,bhd->bh", q.float(), kr.float()) * scale
+    lse_all = torch.logaddexp(lse_pool, s_self)
+    return (att_pool.float() * torch.exp(lse_pool - lse_all)[..., None]
+            + vr.float() * torch.exp(s_self - lse_all)[..., None]
+            ).to(att_pool.dtype)
+
+
+def paged_row(what: str, cfg, args, kwargs, step_ms: float, launches: int,
               max_err: dict, shape: bool = False) -> dict:
     """``paged_attention`` at decode inputs captured from a serving path
-    (``args``; ``margs`` those of the ``_merge_self`` beside it): every
-    element within 2^-6 |out| + 1e-4 max |out| of ``paged_attention_ref``,
-    then timed beside it, ``_merge_self``, the gather +
-    ``scaled_dot_product_attention`` reading and its bound, a call and the
-    kernels alone (a CUDA graph of the calls), with its split count, and
-    at the first 1 and 4 captured rows.  Returns the kernel's row (with
-    ``shape`` when asked)."""
+    (``args``, and ``kwargs``: the in-flight token's ``k_self`` /
+    ``v_self`` the engine folds in): with the fold and without, every
+    element within 2^-6 |out| + 1e-4 max |out| of ``paged_attention_ref``
+    on the same arguments, then timed beside it, beside the kernel without
+    the fold and beside the composition the fold replaced (the kernel,
+    then ``regather_merge``), the gather + ``scaled_dot_product_attention``
+    reading and its bound, a call and the kernels alone (a CUDA graph of
+    the calls), with its split count, and at the first 1 and 4 captured
+    rows.  Returns the kernel's row (with ``shape`` when asked): ``ms``
+    the call with the fold, as the serving decode makes it."""
     import torch.nn.functional as F
 
-    import repro_torch.serve.engine as engine_mod
     from repro_torch.kernels.paged_attention.kernel import (TILE,
                                                             paged_attention,
                                                             split_count)
@@ -2999,25 +3029,44 @@ def paged_row(what: str, cfg, args, margs, step_ms: float, launches: int,
                                                          paged_attention_ref)
     L = cfg.n_layers
     q, kp, vp, tables, lens = args
-    got = paged_attention(q, kp, vp, tables, lens)
-    want = paged_attention_ref(q, kp, vp, tables, lens)
-    want32, diff = want.float(), (got.float() - want.float()).abs()
-    top, typical = float(want32.abs().max()), float(want32.abs().mean())
-    worst = float((diff / (2.0 ** -6 * want32.abs() + 1e-4 * top)).max())
-    err = float(diff.max())
-    assert got.shape == want.shape and worst <= 1.0, \
-        f"paged_attention at the captured inputs: {worst} of its limit"
-    max_err["paged_attention"] = max(max_err["paged_attention"], err)
-    print(f"check: paged_attention == paged_attention_ref at the captured "
-          f"bf16 {what} inputs (q {list(q.shape)}, pages {list(kp.shape)}, "
-          f"tables {list(tables.shape)}, lengths {lens.min().item()}.."
-          f"{lens.max().item()}): max err {err:.3g} (max |out| {top:.3g}, "
-          f"mean |out| {typical:.3g}); the worst element at {worst:.3g} of "
-          f"its limit 2^-6 |out| + 1e-4 max |out|")
-    ms = cuda_ms(lambda: paged_attention(q, kp, vp, tables, lens), REPS)
-    plain_ms = cuda_ms(lambda: paged_attention_ref(q, kp, vp, tables, lens),
+    ks, vs = kwargs["k_self"], kwargs["v_self"]
+    folds = paged_attention.self_folds
+    for fold in (kwargs, {}):
+        got = paged_attention(q, kp, vp, tables, lens, **fold)
+        want = paged_attention_ref(q, kp, vp, tables, lens, **fold)
+        want32, diff = want.float(), (got.float() - want.float()).abs()
+        top, typical = float(want32.abs().max()), float(want32.abs().mean())
+        worst = float((diff / (2.0 ** -6 * want32.abs() + 1e-4 * top)).max())
+        err = float(diff.max())
+        assert got.shape == want.shape and worst <= 1.0, \
+            f"paged_attention at the captured inputs (fold {bool(fold)}): " \
+            f"{worst} of its limit"
+        max_err["paged_attention"] = max(max_err["paged_attention"], err)
+        print(f"check: paged_attention == paged_attention_ref at the "
+              f"captured bf16 {what} inputs "
+              f"{'with' if fold else 'without'} the in-flight token (q "
+              f"{list(q.shape)}, pages {list(kp.shape)}, tables "
+              f"{list(tables.shape)}, lengths {lens.min().item()}.."
+              f"{lens.max().item()}): max err {err:.3g} (max |out| "
+              f"{top:.3g}, mean |out| {typical:.3g}); the worst element at "
+              f"{worst:.3g} of its limit 2^-6 |out| + 1e-4 max |out|")
+    assert paged_attention.self_folds == folds + 1
+
+    def fused():
+        return paged_attention(q, kp, vp, tables, lens, k_self=ks, v_self=vs)
+
+    def unfused():
+        return paged_attention(q, kp, vp, tables, lens)
+
+    def composed():
+        return regather_merge(q, ks, vs, unfused(), kp, tables, lens)
+    comp_err = float((composed().float() - fused().float()).abs().max())
+    ms = cuda_ms(fused, REPS)
+    bare_ms = cuda_ms(unfused, REPS)
+    comp_ms = cuda_ms(composed, REPS // 4)
+    plain_ms = cuda_ms(lambda: paged_attention_ref(q, kp, vp, tables, lens,
+                                                   k_self=ks, v_self=vs),
                        REPS // 4)
-    merge_ms = cuda_ms(lambda: engine_mod._merge_self(*margs), REPS // 4)
     b, hq, d = q.shape
     seq = torch.arange(tables.shape[1] * SERVE_PAGE, device=q.device)
     mask = (seq[None, :] < lens[:, None])[:, None, None, :]
@@ -3027,7 +3076,8 @@ def paged_row(what: str, cfg, args, margs, step_ms: float, launches: int,
         v = gather_pages(vp, tables).transpose(1, 2)
         return F.scaled_dot_product_attention(q[:, :, None], k, v,
                                               attn_mask=mask, enable_gqa=True)
-    lib_err = float((gather_sdpa()[:, :, 0].float() - want32).abs().max())
+    lib_err = float((gather_sdpa()[:, :, 0].float()
+                     - paged_attention_ref(*args).float()).abs().max())
     lib_ms = cuda_ms(gather_sdpa, REPS)
     seen = int(lens.clamp(max=tables.shape[1] * SERVE_PAGE).sum())
     esize = q.element_size()
@@ -3037,32 +3087,39 @@ def paged_row(what: str, cfg, args, margs, step_ms: float, launches: int,
     bnd, by = max((nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
                   (flops / PEAK_BF16_PER_S * 1e3, "operations"))
     print(f"paged_attention at the {what} shape (B {b}, {seen} positions "
-          f"seen): {ms:.4f} ms, paged_attention_ref {plain_ms:.3f} ms, "
-          f"_merge_self {merge_ms:.3f} ms; a reading: gather + "
-          f"scaled_dot_product_attention (two calls) {lib_ms:.3f} ms (max "
-          f"diff {lib_err:.3g}); {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
-          f"GFLOP: bound {bnd:.4f} ms by {by}; kernel / bound = "
-          f"{ms / bnd:.1f}; of a {step_ms:.2f} ms decode step, {L} kernel "
-          f"launches are {L * ms / step_ms:.1%} and {L} _merge_self "
-          f"{L * merge_ms / step_ms:.1%}")
+          f"seen): with the in-flight token folded in {ms:.4f} ms, without "
+          f"it {bare_ms:.4f} ms, the composition it replaced (the kernel, "
+          f"then regather_merge) {comp_ms:.3f} ms (max diff {comp_err:.3g}),"
+          f" paged_attention_ref with the token {plain_ms:.3f} ms; a "
+          f"reading: gather + scaled_dot_product_attention (two calls, no "
+          f"token) {lib_ms:.3f} ms (max diff {lib_err:.3g}); "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP: bound "
+          f"{bnd:.4f} ms by {by}; kernel / bound = {ms / bnd:.1f}; of a "
+          f"{step_ms:.2f} ms decode step, {L} fused launches are "
+          f"{L * ms / step_ms:.1%}, where the {L} compositions they replace "
+          f"would be {L * comp_ms / step_ms:.1%}")
     # the split count chosen, the kernels alone (a CUDA graph of the
     # calls), and the first 1 and 4 rows of the same captured inputs
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     pps = tables.shape[1]
     n_split, per = split_count(b, cfg.n_kv_heads, pps, SERVE_PAGE,
                                TILE[q.dtype], sms)
-    alone = graph_ms(lambda: paged_attention(q, kp, vp, tables, lens), REPS)
+    alone = graph_ms(fused, REPS)
+    bare_alone = graph_ms(unfused, REPS)
     prev = "" if shape else \
         f" (before its redesign {PREV_MS['paged_attention']} ms)"
     print(f"paged_attention at B {b}: {n_split} splits of {per} pages "
           f"({b * cfg.n_kv_heads * n_split} CTAs on {sms} SMs); per call "
-          f"{ms:.4f} ms{prev}, the kernels alone (a CUDA graph of {REPS} "
-          f"calls) {alone:.4f} ms")
+          f"{ms:.4f} ms with the fold, {bare_ms:.4f} without{prev}; the "
+          f"kernels alone (a CUDA graph of {REPS} calls) {alone:.4f} ms "
+          f"with the fold, {bare_alone:.4f} without")
     for rows in (1, 4):
         sub = (q[:rows].contiguous(), kp, vp, tables[:rows].contiguous(),
                lens[:rows].contiguous())
-        got_s = paged_attention(*sub).float()
-        want_s = paged_attention_ref(*sub).float()
+        fold = dict(k_self=ks[:rows].contiguous(),
+                    v_self=vs[:rows].contiguous())
+        got_s = paged_attention(*sub, **fold).float()
+        want_s = paged_attention_ref(*sub, **fold).float()
         lim = 2.0 ** -6 * want_s.abs() + 1e-4 * float(want_s.abs().max())
         assert bool(((got_s - want_s).abs() <= lim).all()), \
             f"paged_attention at the first {rows} captured rows"
@@ -3074,16 +3131,21 @@ def paged_row(what: str, cfg, args, margs, step_ms: float, launches: int,
                    + 4 * (sub[3].numel() + sub[4].numel()))
         print(f"paged_attention at the first {rows} captured row(s) ({seen_s}"
               f" positions; {ns} splits of {ps} pages, "
-              f"{rows * cfg.n_kv_heads * ns} CTAs; within its element limit): "
-              f"{cuda_ms(lambda: paged_attention(*sub), REPS):.4f} ms a call, "
-              f"{graph_ms(lambda: paged_attention(*sub), REPS):.4f} ms alone; "
-              f"bound {bytes_s / PEAK_BYTES_PER_S * 1e3:.4f} ms by bytes")
+              f"{rows * cfg.n_kv_heads * ns} CTAs; with the fold, within its "
+              f"element limit): "
+              f"{cuda_ms(lambda: paged_attention(*sub, **fold), REPS):.4f} "
+              f"ms a call, "
+              f"{graph_ms(lambda: paged_attention(*sub, **fold), REPS):.4f} "
+              f"ms alone; bound {bytes_s / PEAK_BYTES_PER_S * 1e3:.4f} ms by "
+              f"bytes")
     row = {"name": "paged_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/paged_attention/csrc/"
                      "paged_attention.cu",
            "replaces": "src/repro/kernels/paged_attention/kernel.py:76",
            "launches": launches, "max_abs_err": None,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+           "ms": ms, "alone_ms": alone, "no_fold_ms": bare_ms,
+           "no_fold_alone_ms": bare_alone, "replaced_composition_ms": comp_ms,
+           "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
            "library_ms": None}
     if shape:
         row["shape"] = what
@@ -3100,7 +3162,8 @@ def serving_phase(dev, max_err: dict) -> list[dict]:
     and decode times, peak memory, the rebalances and the tiered summary.
     (b) ``paged_attention`` at the captured layer-0 decode inputs against
     ``paged_attention_ref`` element by element (two bf16 steps plus 1e-4
-    of max |out|), timed beside the plain version, ``_merge_self``, the
+    of max |out|), with the in-flight token and without, timed beside the
+    plain version, the composition the fold replaced, the
     gather + ``scaled_dot_product_attention`` reading and its bound.  (c)
     the same traffic through the plain versions on the card (neither
     kernel launched): summaries, pool stats, quotas, policies and
@@ -3149,7 +3212,6 @@ def serving_phase(dev, max_err: dict) -> list[dict]:
     torch.cuda.reset_peak_memory_stats()
     with Tap(engine_mod, V) as tap, \
             Recorder(engine_mod, "paged_attention") as pa_rec, \
-            Recorder(engine_mod, "_merge_self") as merge_rec, \
             Recorder(fa_ops, "flash_attention") as fa_rec:
         zero_counts()
         run = serve_run(eng, traffic, SERVE_NEW)
@@ -3202,10 +3264,10 @@ def serving_phase(dev, max_err: dict) -> list[dict]:
           f"(median {np.median(pre) * 1e3:.2f} ms), {L} flash_attention "
           f"launches a request at {fa_row['ms']:.3f} ms each: "
           f"{L * fa_row['ms'] / (np.median(pre) * 1e3):.1%} of a request")
-    row = paged_row("decode", cfg, pa_rec.args, merge_rec.args, step_ms,
+    row = paged_row("decode", cfg, pa_rec.args, pa_rec.kwargs, step_ms,
                     launches["paged_attention"], max_err)
     del eng
-    pa_rec.args = merge_rec.args = None
+    pa_rec.args = pa_rec.kwargs = None
     free_cards()
 
     # ---- (c) the plain versions on the card; the model in fp32 as well
@@ -3573,7 +3635,6 @@ def moe_serving_phase(dev, max_err: dict) -> list[dict]:
     torch.cuda.reset_peak_memory_stats()
     with Tap(engine_mod, V) as tap, \
             Recorder(engine_mod, "paged_attention") as pa_rec, \
-            Recorder(engine_mod, "_merge_self") as merge_rec, \
             Recorder(fa_ops, "flash_attention") as fa_rec, \
             FfnTimer(M, engine_mod) as ffn:
         zero_counts()
@@ -3631,10 +3692,10 @@ def moe_serving_phase(dev, max_err: dict) -> list[dict]:
           f"(median {np.median(pre) * 1e3:.2f} ms), the MoE FFN "
           f"{ffn_pre / n_req:.2f} ms a request")
     pa_row = paged_row(f"{cfg.name} serving decode (KV group 1)", cfg,
-                       pa_rec.args, merge_rec.args, step_ms,
+                       pa_rec.args, pa_rec.kwargs, step_ms,
                        launches["paged_attention"], max_err, shape=True)
     del eng
-    pa_rec.args = merge_rec.args = None
+    pa_rec.args = pa_rec.kwargs = None
     free_cards()
 
     # ---- (c) the plain versions on the card; the model in fp32 as well

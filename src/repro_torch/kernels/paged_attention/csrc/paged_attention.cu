@@ -18,7 +18,13 @@
 // (g = Hq / Hkv) read KV head h. Scores are (q . k) * scale in fp32;
 // positions at or past min(seq_len, pps * page) are never read; the output
 // is acc / max(l, 1e-30) in q's dtype. A row of length 0 reads nothing and
-// writes 0, as the Pallas kernel does. A table entry outside [0, n_pool) is
+// writes 0, as the Pallas kernel does. Optionally, k_self and v_self
+// [B, Hkv, D] (null for none) are one more position of each row, past its
+// pooled ones: the serving decode's in-flight token, whose K/V enters the
+// pool only after the step. Its score (q . k_self) * scale is formed in
+// fp32 and it enters the merge as one more partial (m = s_self, l = 1,
+// acc = v_self) after the splits, so a row of length 0 then gives v_self
+// exactly. A table entry outside [0, n_pool) is
 // clamped into it, as JAX's gather clamps, so no read leaves the pool (the
 // wrapper cannot check the entries without a host sync). f32 and bf16; D a
 // multiple of 4 up to 128; g up to 16.
@@ -51,7 +57,10 @@
 // - Merge: with one split the CTA writes the output itself. Otherwise each
 //   CTA writes an fp32 partial (m, l, acc) per query head to a workspace
 //   and a second small kernel combines the splits in order, so the result
-//   is the same from call to call. (Merging in the last CTA of each (row,
+//   is the same from call to call. The in-flight position is the last
+//   partial the merge kernel takes (with one split, the split's CTA folds
+//   it into its own output), so the order stays fixed. (Merging in the
+//   last CTA of each (row,
 //   KV head), found by an atomic ticket, gave the same bits and measured
 //   slower; PERF.md section 6.) An empty split's exp(-1e30 - m) is 0, and a
 //   row whose splits are all empty comes out as 0 / 1e-30 = 0: no -inf, no
@@ -64,9 +73,10 @@
 // against 0.54 GFLOP, 0.080 ms at 3.35 TB/s, so the bytes bound it. The
 // ring keeps two tiles (64 KB in bf16) in flight per CTA and two CTAs fit
 // an SM; the partials add B * Hq * splits * (D + 2) * 4 bytes each way
-// (under 1 MB at that shape). What is left above the bound is the
-// per-tile barriers and the score and P.V phases, which do not overlap the
-// copies of the same CTA (PERF.md section 6 has the times).
+// (under 1 MB at that shape), the in-flight K/V 2 * B * Hkv * D values.
+// What is left above the bound is the per-tile barriers and the score and
+// P.V phases, which do not overlap the copies of the same CTA (PERF.md
+// section 6 has the times).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -221,16 +231,24 @@ __device__ __forceinline__ float dot_row(const __nv_bfloat16* k,
   return (a0 + a1) + (a2 + a3);
 }
 
+// One lane's share of q . k_self: four columns, in a fixed order.
+__device__ __forceinline__ float dot4(float4 q, float4 k) {
+  return (q.x * k.x + q.y * k.y) + (q.z * k.z + q.w * k.w);
+}
+
 // The log-sum-exp merge of one query head's n_split partials, four output
-// columns c .. c + 3 (splits in order, so the sums' order is fixed).
+// columns c .. c + 3 (splits in order, so the sums' order is fixed), and
+// with fold the in-flight position's partial (s_self, 1, v_self) last.
 template <typename T>
 __device__ __forceinline__ void merge_head(const float* ws_acc,
                                            const float* ws_ml, T* out,
                                            int row, int D, int n_split,
-                                           int c) {
+                                           int c, bool fold, float s_self,
+                                           float4 v_self) {
   const float* ml = ws_ml + static_cast<long long>(row) * n_split * 2;
   float top = kNegInf;
   for (int z = 0; z < n_split; ++z) top = fmaxf(top, __ldcg(ml + 2 * z));
+  if (fold) top = fmaxf(top, s_self);
   float lsum = 0.f;
   float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
   const float* acc = ws_acc + static_cast<long long>(row) * n_split * D + c;
@@ -243,6 +261,14 @@ __device__ __forceinline__ void merge_head(const float* ws_acc,
     o.z += w * x.z;
     o.w += w * x.w;
   }
+  if (fold) {
+    const float w = expf(s_self - top);
+    lsum += w;
+    o.x += w * v_self.x;
+    o.y += w * v_self.y;
+    o.z += w * v_self.z;
+    o.w += w * v_self.w;
+  }
   const float denom = fmaxf(lsum, 1e-30f);
   store4(out + static_cast<long long>(row) * D + c,
          make_float4(o.x / denom, o.y / denom, o.z / denom, o.w / denom));
@@ -254,7 +280,9 @@ template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ tables,
-                   const int* __restrict__ lens, T* __restrict__ out,
+                   const int* __restrict__ lens,
+                   const T* __restrict__ k_self,
+                   const T* __restrict__ v_self, T* __restrict__ out,
                    float* __restrict__ ws, int n_pool, int B, int Hq,
                    int Hkv, int D, int page, int pps, int pages_per_split,
                    int n_split, float scale) {
@@ -426,6 +454,21 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   cp_async_wait<0>();
   __syncthreads();
 
+  // with one split this CTA folds the in-flight position in itself: its
+  // score per head into al (free now), one warp a head, lanes over columns
+  const bool fold = k_self != nullptr && n_split == 1;
+  const long long kv_row = (static_cast<long long>(b) * Hkv + h) * D;
+  if (fold) {
+    for (int hh = warp; hh < g; hh += kWarps) {
+      const int c = lane * 4;
+      const float part =
+          c < D ? dot4(load4(qs + hh * D + c), load4(k_self + kv_row + c))
+                : 0.f;
+      const float s = warp_sum(part);
+      if (lane == 0) al[hh] = s * scale;
+    }
+  }
+
   // sum the slices: red [slices][g][D] over the ring
   float* red = reinterpret_cast<float*>(smem);
   if (pv) {
@@ -450,7 +493,21 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       x.z += y.z;
       x.w += y.w;
     }
-    if (n_split == 1) {
+    if (fold) {
+      // the merge's two partials: the pool's (ms, ls, x), then the
+      // in-flight position's (s_self, 1, v_self)
+      const float s_self = al[r];
+      const float top = fmaxf(ms[r], s_self);
+      const float wp = expf(ms[r] - top);
+      const float w = expf(s_self - top);
+      const float denom = fmaxf(ls[r] * wp + w, 1e-30f);
+      const float4 v = load4(v_self + kv_row + c);
+      store4(out + (bh + r) * D + c,
+             make_float4((x.x * wp + w * v.x) / denom,
+                         (x.y * wp + w * v.y) / denom,
+                         (x.z * wp + w * v.z) / denom,
+                         (x.w * wp + w * v.w) / denom));
+    } else if (n_split == 1) {
       const float denom = fmaxf(ls[r], 1e-30f);
       store4(out + (bh + r) * D + c, make_float4(x.x / denom, x.y / denom,
                                                  x.z / denom, x.w / denom));
@@ -465,21 +522,42 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-// one warp a (row, query head), lanes over columns
+// one warp a (row, query head), lanes over columns; with k_self the warp
+// first forms the in-flight position's score (query head hq reads KV head
+// hq / g) and each lane reads its four columns of v_self
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-paged_merge_kernel(const float* __restrict__ ws, T* __restrict__ out, int B,
-                   int Hq, int D, int n_split) {
+paged_merge_kernel(const float* __restrict__ ws, const T* __restrict__ q,
+                   const T* __restrict__ k_self,
+                   const T* __restrict__ v_self, T* __restrict__ out, int B,
+                   int Hq, int Hkv, int D, int n_split, float scale) {
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int c = (threadIdx.x & 31) * 4;
-  if (row >= B * Hq || c >= D) return;
+  // a whole warp leaves here or none: the score below is a warp's sum
+  if (row >= B * Hq) return;
+  const bool fold = k_self != nullptr;
+  float s_self = 0.f;
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (fold) {
+    const long long kv_row =
+        (static_cast<long long>(row / Hq) * Hkv + row % Hq / (Hq / Hkv)) * D;
+    float part = 0.f;
+    if (c < D) {
+      part = dot4(load4(q + static_cast<long long>(row) * D + c),
+                  load4(k_self + kv_row + c));
+      v = load4(v_self + kv_row + c);
+    }
+    s_self = warp_sum(part) * scale;
+  }
+  if (c >= D) return;
   merge_head(ws, ws + static_cast<long long>(B) * Hq * n_split * D, out, row,
-             D, n_split, c);
+             D, n_split, c, fold, s_self, v);
 }
 
 template <typename T, int G>
 int launch_group(const void* q, const void* kp, const void* vp,
-                 const int* tables, const int* lens, void* out, void* ws,
+                 const int* tables, const int* lens, const void* ks,
+                 const void* vs, void* out, void* ws,
                  int B, int n_pool, int Hq, int Hkv, int D, int page,
                  int pps, int pages_per_split, int n_split,
                  float scale, cudaStream_t stream) {
@@ -502,27 +580,32 @@ int launch_group(const void* q, const void* kp, const void* vp,
   const dim3 grid(Hkv, B, n_split);
   paged_split_kernel<T, G><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), tables, lens, static_cast<T*>(out),
+      static_cast<const T*>(vp), tables, lens, static_cast<const T*>(ks),
+      static_cast<const T*>(vs), static_cast<T*>(out),
       static_cast<float*>(ws), n_pool, B, Hq, Hkv, D, page, pps,
       pages_per_split, n_split, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
   const int rows = B * Hq;
   paged_merge_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0,
-                          stream>>>(static_cast<const float*>(ws),
-                                    static_cast<T*>(out), B, Hq, D, n_split);
+                          stream>>>(
+      static_cast<const float*>(ws), static_cast<const T*>(q),
+      static_cast<const T*>(ks), static_cast<const T*>(vs),
+      static_cast<T*>(out), B, Hq, Hkv, D, n_split, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* q, const void* kp, const void* vp, const int* tables,
-           const int* lens, void* out, void* ws, int B, int n_pool, int Hq,
+           const int* lens, const void* ks, const void* vs, void* out,
+           void* ws, int B, int n_pool, int Hq,
            int Hkv, int D, int page, int pps,
            int pages_per_split, int n_split, float scale,
            cudaStream_t stream) {
   const int g = Hq / Hkv;
 #define PAGED_LAUNCH(G)                                                     \
-  return launch_group<T, G>(q, kp, vp, tables, lens, out, ws, B, n_pool,   \
+  return launch_group<T, G>(q, kp, vp, tables, lens, ks, vs, out, ws, B,   \
+                            n_pool,                                         \
                             Hq, Hkv, D, page, pps, pages_per_split,         \
                             n_split, scale, stream)
   if (g <= 1) PAGED_LAUNCH(1);
@@ -536,14 +619,16 @@ int launch(const void* q, const void* kp, const void* vp, const int* tables,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. ws: B * Hq * n_split * (D + 2) floats
-// (unused when n_split is 1). Returns a cudaError_t (0 on success); the
+// (unused when n_split is 1). k_self, v_self: [B, Hkv, D] in q's dtype, or
+// both null. Returns a cudaError_t (0 on success); the
 // caller also checks shapes, contiguity and 16-byte alignment. The kernel
 // reads a row's first
 // ceil(min(seq_len, pps * page) / page) table entries and those pages, no
 // other.
 extern "C" int paged_attention(const void* q, const void* k_pages,
                                const void* v_pages, const void* tables,
-                               const void* lens, void* out, void* ws, int B,
+                               const void* lens, const void* k_self,
+                               const void* v_self, void* out, void* ws, int B,
                                int n_pool, int Hq, int Hkv, int D, int page,
                                int pps, int pages_per_split, int n_split,
                                float scale, int dtype, void* stream) {
@@ -552,6 +637,7 @@ extern "C" int paged_attention(const void* q, const void* k_pages,
       Hq / Hkv > kMaxGroup || page <= 0 || pps < 0 || n_pool <= 0 ||
       static_cast<long long>(n_pool) * page >= (1LL << 31) ||
       n_split <= 0 || pages_per_split <= 0 ||
+      (k_self == nullptr) != (v_self == nullptr) ||
       pages_per_split > kMaxSplitPages ||
       static_cast<long long>(pages_per_split) * n_split <
           static_cast<long long>(pps))
@@ -560,11 +646,13 @@ extern "C" int paged_attention(const void* q, const void* k_pages,
   const int* t = static_cast<const int*>(tables);
   const int* n = static_cast<const int*>(lens);
   if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, t, n, out, ws, B, n_pool,
+    return launch<float>(q, k_pages, v_pages, t, n, k_self, v_self, out, ws,
+                         B, n_pool,
                          Hq, Hkv, D, page, pps, pages_per_split, n_split,
                          scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, t, n, out, ws, B,
+    return launch<__nv_bfloat16>(q, k_pages, v_pages, t, n, k_self, v_self,
+                                 out, ws, B,
                                  n_pool, Hq, Hkv, D, page, pps,
                                  pages_per_split, n_split, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);

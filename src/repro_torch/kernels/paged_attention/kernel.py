@@ -14,10 +14,13 @@ table's width and the SM count (the lengths stay on the card).  The
 source says what bounds it on the card.  On a CPU tensor the wrapper
 returns ``ref.paged_attention_ref``, the definition the kernel is held
 against; ``ref.paged_attention_split_ref`` is the kernel's decomposition
-in plain torch.  The launch writes through ``ctypes`` and records no
-autograd node (decode is never differentiated; the reference's decode
-calls the plain version): on CUDA tensors with grad mode on and an input
-that requires grad it raises rather than return a detached output.
+in plain torch.  The serving decode hands in its in-flight token's K/V
+(``k_self`` / ``v_self``), which is not in the pool yet: the kernel folds
+it in as one more partial of the same log-sum-exp merge.  The launch
+writes through ``ctypes`` and records no autograd node (decode is never
+differentiated; the reference's decode calls the plain version): on CUDA
+tensors with grad mode on and an input that requires grad it raises
+rather than return a detached output.
 """
 from __future__ import annotations
 
@@ -52,7 +55,7 @@ CTAS_PER_SM = 4
 def _lib() -> ctypes.CDLL:
     lib = load_library("paged_attention", SOURCES)
     fn = lib.paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -80,26 +83,35 @@ def split_count(batch: int, hkv: int, pages_per_seq: int, page: int,
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
-                    seq_lens: torch.Tensor) -> torch.Tensor:
+                    seq_lens: torch.Tensor,
+                    k_self: torch.Tensor | None = None,
+                    v_self: torch.Tensor | None = None) -> torch.Tensor:
     """q [B, Hq, D]; k/v_pages [n_pool, page, Hkv, D] (Hkv divides Hq);
     block_tables [B, pages_per_seq] and seq_lens [B], int32 -> [B, Hq, D]
-    in q's dtype, scores scaled by ``1 / sqrt(D)``.
+    in q's dtype, scores scaled by ``1 / sqrt(D)``.  With ``k_self`` and
+    ``v_self`` ([B, Hkv, D] in q's dtype) the attention also covers one
+    in-flight position past each row's pooled ones (score ``q . k_self``,
+    value ``v_self``); without them the call is unchanged.
 
     On CUDA tensors (contiguous; q and the pages float32 or bfloat16 of one
     dtype, D a multiple of 4 up to 128, Hq / Hkv up to 16) this launches
     the kernel on the current stream and raises if it cannot; it reads no
     length or table entry on the host; an entry outside the pool is
     clamped into it.  The splits (``split_count``) are merged by a second
-    kernel, in order, so a call gives the same bits every time.  A row of length 0 comes back as 0, as
-    from the Pallas kernel (``ref.paged_attention_ref`` gives the mean of
-    its gathered V).  On CPU tensors it returns ``ref.paged_attention_ref``.
-    ``paged_attention.launches`` counts calls that launched (one or two
-    kernels each); ``costs.kernel_op`` counts each call's work as
-    ``paged_attention_work``.
+    kernel, in order, so a call gives the same bits every time; the
+    in-flight position is merged after the splits (with one split, by the
+    split's own kernel).  A row of length 0 comes back as 0, as from the
+    Pallas kernel (``ref.paged_attention_ref`` gives the mean of its
+    gathered V), or as ``v_self`` exactly.  On CPU tensors it returns
+    ``ref.paged_attention_ref``.  ``paged_attention.launches`` counts
+    calls that launched (one or two kernels each), ``.self_folds`` those
+    of them with the in-flight position; ``costs.kernel_op`` counts each
+    call's work as ``paged_attention_work``.
     """
     with kernel_op("paged_attention", lambda: paged_attention_work(
             q, k_pages, seq_lens)):
-        return _paged_attention(q, k_pages, v_pages, block_tables, seq_lens)
+        return _paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
+                                k_self, v_self)
 
 
 def paged_attention_work(q: torch.Tensor, k_pages: torch.Tensor,
@@ -116,7 +128,8 @@ def paged_attention_work(q: torch.Tensor, k_pages: torch.Tensor,
 
 def _paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, block_tables: torch.Tensor,
-                     seq_lens: torch.Tensor) -> torch.Tensor:
+                     seq_lens: torch.Tensor, k_self: torch.Tensor | None,
+                     v_self: torch.Tensor | None) -> torch.Tensor:
     b, hq, d = q.shape
     if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         raise ValueError(f"paged_attention: k_pages and v_pages must be "
@@ -133,15 +146,27 @@ def _paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{tuple(seq_lens.shape)}")
     named = (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
              ("block_tables", block_tables), ("seq_lens", seq_lens))
+    fold = k_self is not None
+    if fold != (v_self is not None):
+        raise ValueError("paged_attention: k_self and v_self come together")
+    values = [k_pages, v_pages]
+    if fold:
+        if k_self.shape != (b, hkv, d) or v_self.shape != (b, hkv, d):
+            raise ValueError(f"paged_attention: k_self and v_self must be "
+                             f"[B, Hkv, D] = {[b, hkv, d]}, got "
+                             f"{tuple(k_self.shape)} and "
+                             f"{tuple(v_self.shape)}")
+        named += (("k_self", k_self), ("v_self", v_self))
+        values += [k_self, v_self]
     if any(t.device != q.device for _, t in named):
         raise ValueError("paged_attention: all inputs must share one device")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise ValueError("paged_attention: q and the pages must share one "
-                         "dtype")
+    if any(t.dtype != q.dtype for t in values):
+        raise ValueError("paged_attention: q, the pages and the in-flight "
+                         "K/V must share one dtype")
     if q.device.type != "cuda":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                   seq_lens)
-    if wants_grad(q, k_pages, v_pages):
+                                   seq_lens, k_self, v_self)
+    if wants_grad(q, *values):
         raise RuntimeError("paged_attention: the kernel records no autograd "
                            "node and an input requires grad; it has no "
                            "differentiable route (decode is not trained)")
@@ -177,13 +202,17 @@ def _paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        block_tables.data_ptr(), seq_lens.data_ptr(),
+        k_self.data_ptr() if fold else None,
+        v_self.data_ptr() if fold else None, out.data_ptr(),
         None if ws is None else ws.data_ptr(), b, n_pool, hq, hkv, d, page,
         pps, per, n_split, 1.0 / math.sqrt(d), DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed (cudaError {err})")
     paged_attention.launches += 1
+    paged_attention.self_folds += fold
     return out
 
 
 paged_attention.launches = 0
+paged_attention.self_folds = 0

@@ -12,13 +12,20 @@
 
 A row with ``seq_len == 0`` softmaxes an all-masked row here (the mean
 of the gathered V) while the kernel, like the Pallas kernel, writes 0;
-the engine never passes 0, and ``SWEEP`` holds lengths of at least 1.
+``SWEEP`` holds lengths of at least 1.
+
+Both take an optional in-flight position, ``k_self`` / ``v_self`` [B,
+Hkv, D]: the serving decode's new token, whose K/V is not in the pool
+yet.  With it the result is the softmax attention over the row's pooled
+positions and that one (score ``(q . k_self) / sqrt(D)``, value
+``v_self``); a row of length 0 then gives ``v_self`` exactly.
 
 ``paged_attention_split_ref`` is the kernel's split-KV decomposition in
 plain torch (tests only): each split of whole pages forms its own fp32
 ``(m, l, acc)`` and the splits are merged by the log-sum-exp
 combination; a split past the length is empty, and a row of length 0
-gives 0, as the kernel.
+gives 0, as the kernel.  The in-flight position is one more partial,
+``(s_self, 1, v_self)``, merged after the splits.
 """
 from __future__ import annotations
 
@@ -88,11 +95,25 @@ def gather_pages(pages: torch.Tensor,
     return gathered.reshape(b, n * p, h, d)
 
 
+def _self_partial(q: torch.Tensor, k_self: torch.Tensor,
+                  v_self: torch.Tensor, scale: float
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The in-flight position's fp32 score [B, Hq] and value [B, Hq, D],
+    its KV heads repeated over their query-head group."""
+    rep = q.shape[1] // k_self.shape[1]
+    kr = k_self.repeat_interleave(rep, dim=1).float()
+    s_self = torch.einsum("bhd,bhd->bh", q.float(), kr) * scale
+    return s_self, v_self.repeat_interleave(rep, dim=1).float()
+
+
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_tables: torch.Tensor,
-                        seq_lens: torch.Tensor) -> torch.Tensor:
+                        seq_lens: torch.Tensor,
+                        k_self: torch.Tensor | None = None,
+                        v_self: torch.Tensor | None = None) -> torch.Tensor:
     """q [B, Hq, D]; k/v_pages [n_pool, page, Hkv, D]; block_tables
-    [B, pages_per_seq]; seq_lens [B] -> [B, Hq, D] in q's dtype."""
+    [B, pages_per_seq]; seq_lens [B]; optionally the in-flight position's
+    k_self / v_self [B, Hkv, D] -> [B, Hq, D] in q's dtype."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     k = gather_pages(k_pages, block_tables)             # [B, S, Hkv, D]
     v = gather_pages(v_pages, block_tables)
@@ -102,43 +123,60 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
     pos = torch.arange(k.shape[1], device=q.device)
     mask = pos[None, None, :] < seq_lens.to(q.device)[:, None, None]
-    p = torch.softmax(torch.where(mask, s, _NEG_INF), dim=-1)
-    return torch.einsum("bhk,bkhd->bhd", p, v.float()).to(q.dtype)
+    s = torch.where(mask, s, _NEG_INF)
+    if k_self is None:
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhk,bkhd->bhd", p, v.float()).to(q.dtype)
+    s_self, v_s = _self_partial(q, k_self, v_self, scale)
+    p = torch.softmax(torch.cat([s, s_self[..., None]], dim=-1), dim=-1)
+    out = torch.einsum("bhk,bkhd->bhd", p[..., :-1], v.float())
+    return (out + p[..., -1:] * v_s).to(q.dtype)
 
 
 def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
                               v_pages: torch.Tensor,
                               block_tables: torch.Tensor,
                               seq_lens: torch.Tensor,
-                              n_split: int) -> torch.Tensor:
+                              n_split: int,
+                              k_self: torch.Tensor | None = None,
+                              v_self: torch.Tensor | None = None
+                              ) -> torch.Tensor:
     """``paged_attention_ref`` as the kernel decomposes it: split z takes
     pages ``[z * per, (z + 1) * per)`` of each table, ``per =
     ceil(pages_per_seq / n_split)``; its partial is ``m`` (the max of its
     visible scores, -1e30 if none), ``l = sum p`` and ``acc = sum p v``
-    with ``p = exp(s - m)`` on the visible positions; the merge weighs
-    split z by ``exp(m_z - max m)`` and divides by ``max(l, 1e-30)``.  A
-    row of length 0 gives 0.  [B, Hq, D] in q's dtype."""
+    with ``p = exp(s - m)`` on the visible positions; the in-flight
+    position, when given, is the partial ``(s_self, 1, v_self)`` after
+    the splits; the merge weighs partial z by ``exp(m_z - max m)`` and
+    divides by ``max(l, 1e-30)``.  A row of length 0 gives 0, or
+    ``v_self``.  [B, Hq, D] in q's dtype."""
     b, hq, d = q.shape
     page, pps = k_pages.shape[1], block_tables.shape[1]
-    if pps == 0:
-        return torch.zeros_like(q)
-    per = -(-pps // n_split)
     scale = 1.0 / math.sqrt(d)
-    rep = hq // k_pages.shape[2]
-    k = gather_pages(k_pages, block_tables).repeat_interleave(rep, dim=2)
-    v = gather_pages(v_pages, block_tables).repeat_interleave(rep, dim=2)
-    s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
-    pos = torch.arange(k.shape[1], device=q.device)
-    visible = pos[None, :] < seq_lens.to(q.device)[:, None]     # [B, S]
     ms, ls, accs = [], [], []
-    for z in range(n_split):
-        mask = (visible & (pos // (per * page) == z))[:, None, :]
-        sz = torch.where(mask, s, _NEG_INF)
-        m = sz.max(dim=-1).values                               # [B, Hq]
-        p = torch.where(mask, torch.exp(sz - m[..., None]), 0.0)
-        ms.append(m)
-        ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bhk,bkhd->bhd", p, v.float()))
+    if pps > 0:
+        per = -(-pps // n_split)
+        rep = hq // k_pages.shape[2]
+        k = gather_pages(k_pages, block_tables).repeat_interleave(rep, dim=2)
+        v = gather_pages(v_pages, block_tables).repeat_interleave(rep, dim=2)
+        s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * scale
+        pos = torch.arange(k.shape[1], device=q.device)
+        visible = pos[None, :] < seq_lens.to(q.device)[:, None]  # [B, S]
+        for z in range(n_split):
+            mask = (visible & (pos // (per * page) == z))[:, None, :]
+            sz = torch.where(mask, s, _NEG_INF)
+            m = sz.max(dim=-1).values                            # [B, Hq]
+            p = torch.where(mask, torch.exp(sz - m[..., None]), 0.0)
+            ms.append(m)
+            ls.append(p.sum(dim=-1))
+            accs.append(torch.einsum("bhk,bkhd->bhd", p, v.float()))
+    if k_self is not None:
+        s_self, v_s = _self_partial(q, k_self, v_self, scale)
+        ms.append(s_self)
+        ls.append(torch.ones_like(s_self))
+        accs.append(v_s)
+    if not ms:
+        return torch.zeros_like(q)
     m = torch.stack(ms)
     w = torch.exp(m - m.max(dim=0).values)
     lsum = (torch.stack(ls) * w).sum(dim=0)

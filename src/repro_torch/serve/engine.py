@@ -16,9 +16,11 @@ eager ops and the port's model layer (``models/``).  Request lifecycle:
     ``paged_attention`` (on the card the hand-written split-KV kernel,
     each row's pages cut into splits that stream through a shared-memory
     ring and are merged by log-sum-exp; its plain version on the CPU; the
-    reference calls the plain version on every backend), and
-    ``_merge_self`` folds in the in-flight token's own KV, which is
-    written into the pool after the step.
+    reference calls the plain version on every backend).  The in-flight
+    token's own K/V, written into the pool only after the step, is handed
+    to the same call (``k_self`` / ``v_self``) and folded into its
+    log-sum-exp merge as one more partial; the reference regathers the
+    pool to merge it afterwards (its ``_merge_self``), the same function.
 
 The ECI manager observes the event stream; every ``window_events`` it
 re-partitions page quotas and write policies across tenants (Actuator =
@@ -44,20 +46,20 @@ prefix hashes, lookups, ECI events, page writes, allocation, pins) and
 ``.sample`` (the first token read back); ``serve.decode`` into ``.pages``,
 ``.upload`` (tables, lengths and tokens to the device), ``.forward``
 (enqueueing ``_decode_step``, whose device spans
-``serve.decode.merge_self`` and ``serve.decode.head`` time each layer's
-``_merge_self`` and the fp32 head, on CUDA in one step of
-``DEVICE_EVERY``), ``.writeback`` (the new KV's indices copied,
+``serve.decode.attention`` and ``serve.decode.head`` time each layer's
+``paged_attention`` with the fold and the fp32 head, on CUDA in one step
+of ``DEVICE_EVERY``), ``.writeback`` (the new KV's indices copied,
 which waits for the forward, and put into the pool), ``.sample`` and
 ``.finish``.  Counters: ``serve.pages.unmanaged`` (pages staged as tenant
--2), ``serve.pages.refused`` (page 0 standing in for a refused page) and
-``cache.evict.pressure``.  Each ``Request`` carries its host stamps
-(``time.perf_counter_ns``): submitted, scheduled (its prefill starts),
-first token and done.
+-2), ``serve.pages.refused`` (page 0 standing in for a refused page),
+``cache.evict.pressure`` and ``serve.decode.self_fold`` (one a decode
+layer whose attention took the in-flight token).  Each ``Request``
+carries its host stamps (``time.perf_counter_ns``): submitted, scheduled
+(its prefill starts), first token and done.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 
 import numpy as np
@@ -67,7 +69,6 @@ from repro_torch.cache.block_pool import BlockPool
 from repro_torch.cache.tiered import TieredKVCache
 from repro_torch.core.profile import StageProfile, process_profile
 from repro_torch.kernels.paged_attention.kernel import paged_attention
-from repro_torch.kernels.paged_attention.ref import gather_pages
 from repro_torch.models.attention import build_heads
 from repro_torch.models.config import AttnKind, Family, ModelConfig
 from repro_torch.models.layers import Param, apply_rope, rms_norm
@@ -336,12 +337,12 @@ def _decode_step(params: Param, k_pool: torch.Tensor, v_pool: torch.Tensor,
     """Batched one-token decode over the paged pool (the reference's
     ``_decode_step_jit``).  Returns (fp32 logits [B, V_padded], the new
     token's k and v [L, B, Hkv, D], not yet in the pool).  Each layer's
-    ``_merge_self`` and the fp32 head are device spans of ``profile`` (the
-    process profile when None): ``serve.decode.merge_self`` and
-    ``serve.decode.head``."""
+    attention and the fp32 head are device spans of ``profile`` (the
+    process profile when None): ``serve.decode.attention`` and
+    ``serve.decode.head``; ``serve.decode.self_fold`` counts the layers."""
     _check_family(cfg)
-    dspan = (profile if profile is not None
-             else process_profile()).device_span
+    prof = profile if profile is not None else process_profile()
+    dspan = prof.device_span
     dev = toks.device
     hq, hkv = build_heads(cfg)
     b, d = toks.shape[0], cfg.head_dim
@@ -360,14 +361,17 @@ def _decode_step(params: Param, k_pool: torch.Tensor, v_pool: torch.Tensor,
             k = rms_norm(k, a["k_norm"], cfg.rms_eps)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        # q in the pool's dtype (exact for a wider pool, as the fp32 pools
-        # under bf16 models of the reference's tests); back in q's after
-        att = paged_attention(q[:, 0].to(k_pool.dtype), k_pool[i],
-                              v_pool[i], tables, lens).to(q.dtype)
-        # exact online merge of the in-flight token's KV (not yet pooled)
-        with dspan("serve.decode.merge_self", dev):
-            att = _merge_self(q[:, 0], k[:, 0], v[:, 0], att, k_pool[i],
-                              tables, lens, d, hq, hkv)
+        # q and the in-flight K/V in the pool's dtype (exact for a wider
+        # pool, as the fp32 pools under bf16 models of the reference's
+        # tests); back in q's after.  The in-flight position is folded into
+        # the kernel's own log-sum-exp merge: the pool is not written here
+        pd = k_pool.dtype
+        q_, k_, v_ = q[:, 0].to(pd), k[:, 0].to(pd), v[:, 0].to(pd)
+        with dspan("serve.decode.attention", dev):
+            att = paged_attention(q_, k_pool[i], v_pool[i], tables, lens,
+                                  k_self=k_, v_self=v_)
+        prof.count("serve.decode.self_fold")
+        att = att.to(q.dtype)
         h = h + att.reshape(b, 1, hq * d) @ a["wo"]
         h = h + _ffn(p, rms_norm(h, p["ln2"], cfg.rms_eps), cfg)
         ks.append(k[:, 0])
@@ -377,27 +381,3 @@ def _decode_step(params: Param, k_pool: torch.Tensor, v_pool: torch.Tensor,
         logits = h[:, 0].float() @ _lm_head(params, cfg).float()
     return logits, torch.stack(ks), torch.stack(vs)
 
-
-def _merge_self(q: torch.Tensor, k_self: torch.Tensor, v_self: torch.Tensor,
-                att_pool: torch.Tensor, k_pg: torch.Tensor,
-                tables: torch.Tensor, lens: torch.Tensor, head_dim: int,
-                hq: int, hkv: int) -> torch.Tensor:
-    """Exact online merge of the current token's KV with pooled attention:
-    the pool's log-sum-exp is recomputed from a second gather of the pages
-    (as the reference does), in fp32 with the KV heads repeated."""
-    rep = hq // hkv
-    kr = k_self.repeat_interleave(rep, dim=1)
-    vr = v_self.repeat_interleave(rep, dim=1)
-    scale = 1.0 / math.sqrt(head_dim)
-    kp = gather_pages(k_pg, tables).repeat_interleave(rep, dim=2)
-    s_pool = torch.einsum("bhd,bkhd->bhk", q.float(), kp.float()) * scale
-    pos = torch.arange(kp.shape[1], device=q.device)
-    mask = pos[None, None, :] < lens[:, None, None]
-    s_pool = torch.where(mask, s_pool, -1e30)
-    lse_pool = torch.logsumexp(s_pool, dim=-1)
-    s_self = torch.einsum("bhd,bhd->bh", q.float(), kr.float()) * scale
-    lse_all = torch.logaddexp(lse_pool, s_self)
-    w_pool = torch.exp(lse_pool - lse_all)[..., None]
-    w_self = torch.exp(s_self - lse_all)[..., None]
-    return (att_pool.float() * w_pool
-            + vr.float() * w_self).to(att_pool.dtype)

@@ -18,7 +18,9 @@ SSD kernels against their plain versions, and the smoke zamba2 model
 through ``prefill`` and ``decode_step``, card against CPU; the paged
 decode attention against its plain version and its split decomposition
 (long rows at B 1 and 4, a row of length 0, the same bits from call to
-call), and the serving engine on the smoke qwen3 config, card against
+call) and with the serving decode's in-flight token folded into its merge
+(qwen3-0.6b's and qwen2-moe-a2.7b's decode shapes, one split and more),
+and the serving engine on the smoke qwen3 config, card against
 CPU.  The one-pass ``live_count_scan`` and the shared-memory
 ``cache_sim_segments_scan`` are also held to their decompositions
 (``live_counts_onepass_ref``, ``cache_sim_segments_tiled_ref``) at their
@@ -114,6 +116,7 @@ from repro_torch.models.model import (decode_step, hybrid_groups,
                                       params_from_jax, prefill)
 from repro_torch.cache import BlockPool, TieredKVCache
 from repro_torch.core import ECICacheManager
+import repro_torch.kernels.paged_attention.kernel as paged_kernel
 from repro_torch.kernels.paged_attention.kernel import (TILE as PAGED_TILE,
                                                         paged_attention,
                                                         split_count)
@@ -1100,6 +1103,120 @@ def test_paged_attention_split_merges_on_card(card, case, dtype):
     assert torch.equal(got, paged_attention(*args))
 
 
+# the serving decode's fold of its in-flight token, at qwen3-0.6b's decode
+# (q [32, 16, 128] over [8192, 16, 8, 128] bf16 pages) and qwen2-moe-a2.7b's
+# (a KV group of 1: [8192, 16, 16, 128]); 136-page tables of 16
+FOLD_HEADS = {"qwen3-0.6b": (16, 8), "qwen2-moe-a2.7b": (16, 16)}
+
+
+def _fold_inputs(card, hq, hkv, seed, scores=None):
+    """q, pages, tables, lengths, k_self and v_self at a serving decode
+    shape: 32 rows of 1,100-2,100 positions but for a row of 0, one of 1,
+    one on a page edge and one of the table's full width.  ``scores``
+    "high": every pooled score at least 180 and the in-flight one 0 with
+    v_self 0, so the in-flight partial weighs exactly 0."""
+    b, d, page, pps, n_pool = 32, 128, 16, 136, 8192
+    g = torch.Generator(device=card).manual_seed(seed)
+    bf = dict(generator=g, device=card, dtype=torch.bfloat16)
+    q = torch.randn(b, hq, d, **bf)
+    kp = torch.randn(n_pool, page, hkv, d, **bf)
+    vp = torch.randn(n_pool, page, hkv, d, **bf)
+    ks = torch.randn(b, hkv, d, **bf)
+    vs = torch.randn(b, hkv, d, **bf)
+    if scores == "high":
+        q.fill_(16.0)
+        kp = 1.0 + torch.rand(n_pool, page, hkv, d, **bf)
+        ks.zero_()
+        vs.zero_()
+    tables = torch.randint(0, n_pool, (b, pps), generator=g, device=card,
+                           dtype=torch.int32)
+    lens = torch.randint(1100, 2100, (b,), generator=g, device=card,
+                         dtype=torch.int32)
+    lens[:4] = torch.tensor([0, 1, 64 * page, pps * page])
+    return q, kp, vp, tables, lens, ks, vs
+
+
+def _forced_splits(monkeypatch, n_split):
+    """Make the wrapper launch ``n_split`` splits (None: its own count)."""
+    if n_split is not None:
+        monkeypatch.setattr(paged_kernel, "split_count",
+                            lambda b, hkv, pps, *a: (n_split,
+                                                     -(-pps // n_split)))
+
+
+@pytest.mark.parametrize("n_split", [None, 1, 17])
+@pytest.mark.parametrize("model", sorted(FOLD_HEADS))
+def test_paged_attention_self_fold_on_card(card, monkeypatch, model,
+                                           n_split):
+    """The kernel with the in-flight token against ``paged_attention_ref``
+    with it, every element within 2^-6 |out| + 1e-4 max |out|, and against
+    the split decomposition at the launch's split count; a row of length
+    0 gives v_self exactly; the same bits from call to call; one launch
+    and one fold counted a call."""
+    hq, hkv = FOLD_HEADS[model]
+    q, kp, vp, tables, lens, ks, vs = _fold_inputs(card, hq, hkv, seed=21)
+    _forced_splits(monkeypatch, n_split)
+    n = n_split or paged_kernel.split_count(
+        32, hkv, 136, 16, PAGED_TILE[torch.bfloat16],
+        torch.cuda.get_device_properties(card).multi_processor_count)[0]
+    before = (paged_attention.launches, paged_attention.self_folds)
+    got = paged_attention(q, kp, vp, tables, lens, k_self=ks, v_self=vs)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention.self_folds) == (
+        before[0] + 1, before[1] + 1)
+    for want in (paged_attention_ref(q, kp, vp, tables, lens, ks, vs),
+                 paged_attention_split_ref(q, kp, vp, tables, lens, n, ks,
+                                           vs)):
+        want = want.float()
+        lim = 2.0 ** -6 * want.abs() + 1e-4 * float(want.abs().max())
+        assert bool(((got.float() - want).abs() <= lim).all())
+    assert torch.equal(got[0], vs[0].repeat_interleave(hq // hkv, dim=0))
+    assert torch.equal(got, paged_attention(q, kp, vp, tables, lens,
+                                            k_self=ks, v_self=vs))
+
+
+@pytest.mark.parametrize("n_split", [None, 1, 17])
+@pytest.mark.parametrize("model", sorted(FOLD_HEADS))
+def test_paged_attention_without_self_keeps_its_bits_on_card(
+        card, monkeypatch, model, n_split):
+    """Without the in-flight arguments the call is the merge of the pooled
+    partials alone: its bits equal those of a fold whose in-flight partial
+    weighs exactly 0 (score 0 against pooled scores of 180 and more,
+    v_self 0), at one split and more, and no fold is counted."""
+    hq, hkv = FOLD_HEADS[model]
+    q, kp, vp, tables, lens, ks, vs = _fold_inputs(card, hq, hkv, seed=22,
+                                                   scores="high")
+    _forced_splits(monkeypatch, n_split)
+    before = paged_attention.self_folds
+    plain = paged_attention(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    assert paged_attention.self_folds == before
+    assert torch.equal(plain, paged_attention(q, kp, vp, tables, lens,
+                                              k_self=ks, v_self=vs))
+    assert not bool(plain[0].any())
+    want = paged_attention_ref(q, kp, vp, tables, lens)[1:].float()
+    lim = 2.0 ** -6 * want.abs() + 1e-4 * float(want.abs().max())
+    assert bool(((plain[1:].float() - want).abs() <= lim).all())
+
+
+def test_paged_attention_self_input_checks_on_card(card):
+    """In-flight K/V the kernel does not take raise before any launch."""
+    q, kp, vp, tables, lens, ks, vs = _fold_inputs(card, 16, 8, seed=23)
+    before = paged_attention.launches
+    bad = [
+        dict(k_self=ks),                                   # v_self missing
+        dict(k_self=ks[:, :4], v_self=vs[:, :4]),          # not [B, Hkv, D]
+        dict(k_self=ks.float(), v_self=vs.float()),        # dtype differs
+        dict(k_self=ks.cpu(), v_self=vs.cpu()),            # two devices
+        dict(k_self=ks.transpose(0, 1).contiguous().transpose(0, 1),
+             v_self=vs),                                   # not contiguous
+    ]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            paged_attention(q, kp, vp, tables, lens, **kw)
+    assert paged_attention.launches == before
+
+
 def _smoke_engine(device, params, capacity2, arch="qwen3_0_6b"):
     import dataclasses
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
@@ -1127,21 +1244,23 @@ def test_qwen3_smoke_engine_on_card_matches_cpu(card, capacity2):
     """The serving engine on the smoke qwen3 config (float32) on the card
     against the port's CPU run on the same parameters: tokens, tiered
     summaries, pool stats and decisions equal, pages within 1e-5; every
-    decode layer launches ``paged_attention`` and every prefill layer
-    ``flash_attention``."""
+    decode layer launches ``paged_attention`` with the in-flight token
+    folded in and every prefill layer ``flash_attention``."""
     import dataclasses
     cfg = dataclasses.replace(get_smoke_config("qwen3_0_6b"),
                               dtype="float32")
     cpu = init_params(cfg, seed=0, device="cpu")
     gpu = params_from_jax(_tree_numpy(cpu), "cuda")
-    counts = (paged_attention.launches, flash_attention.launches)
+    counts = (paged_attention.launches, flash_attention.launches,
+              paged_attention.self_folds)
     g = _smoke_engine(card, gpu, capacity2)
     torch.cuda.synchronize()
     c = _smoke_engine("cpu", cpu, capacity2)
     steps = 4            # 5 new tokens: one from prefill, 4 decode steps
     assert (paged_attention.launches - counts[0],
-            flash_attention.launches - counts[1]) == (
-        steps * cfg.n_layers, 6 * cfg.n_layers)
+            flash_attention.launches - counts[1],
+            paged_attention.self_folds - counts[2]) == (
+        steps * cfg.n_layers, 6 * cfg.n_layers, steps * cfg.n_layers)
     assert sorted((r.rid, r.generated) for r in g[0].completed) == \
         sorted((r.rid, r.generated) for r in c[0].completed)
     sg, sc = g[2].summary(), c[2].summary()

@@ -22,7 +22,9 @@
   (``core/profile.py``): tokens, states and decisions still equal the
   reference's; one ``serve.prefill`` span a request and one
   ``serve.decode`` a step, each covered by its children, with a
-  ``serve.decode.merge_self`` device span a layer; the requests' stamps
+  ``serve.decode.attention`` device span and a ``serve.decode.self_fold``
+  count a layer (the in-flight token folded into ``paged_attention``);
+  the requests' stamps
   in order; the window log's deltas summing to the ``TierStats`` totals;
   ``rebalance_seconds`` the sum of the ``cache.rebalance`` spans.
 * The first token comes from the *padded* last position (the reference's
@@ -542,7 +544,9 @@ def test_engine_spans_partition_their_parents(case):
     steps = eng.decoding_steps
     for c in ("pages", "upload", "forward", "writeback", "sample", "finish"):
         assert len(prof.spans(f"serve.decode.{c}")) == steps
-    assert len(prof.spans("serve.decode.merge_self")) == \
+    assert len(prof.spans("serve.decode.attention")) == \
+        steps * eng.cfg.n_layers
+    assert prof.counters["serve.decode.self_fold"] == \
         steps * eng.cfg.n_layers
     assert len(prof.spans("serve.decode.head")) == steps
     # children partition their parents: the gaps are the spans' own cost
@@ -554,11 +558,11 @@ def test_engine_spans_partition_their_parents(case):
                                       "writeback", "sample",
                                       "finish")]) > 0.95
     assert _covered(prof, "serve.decode.forward", [
-        "serve.decode.merge_self", "serve.decode.head"]) < 1
+        "serve.decode.attention", "serve.decode.head"]) < 1
     assert _covered(prof, "cache.rebalance", [
         f"cache.rebalance.{c}" for c in ("flush", "analyze",
                                          "enforce")]) > 0.95
-    m = prof.spans("serve.decode.merge_self")
+    m = prof.spans("serve.decode.attention")
     np.testing.assert_allclose(m.device_ms, m.ms)   # the CPU's device time
 
 
