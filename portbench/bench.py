@@ -9,10 +9,14 @@ in a file of its own under the checkout's ``portbench/``:
 * ``metrics/<metric>.py``, with ``UNIT``, ``BETTER``, ``SOURCE``,
   ``LAYER`` (per-layer metrics), ``MOVES`` (per-layer metrics) and
   ``read(run) -> float | None``,
-* ``limits/<workload>.json``, the correctness limits of a cell.
+* ``limits/<workload>.json``, the correctness limits of a cell,
+* ``families/<family>.py`` and ``reference/<family>.py``, for the
+  ``family`` a configuration file names: what depends on the model's
+  architecture (``portbench/families/__init__.py``) and its plain
+  reference.
 
-So a later change adds a configuration, a mix, a cell or a metric by
-adding files and entries, and edits no file that is there.
+So a later change adds a configuration, a model family, a mix, a cell or
+a metric by adding files and entries, and edits no file that is there.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import importlib.util
 import json
 import pathlib
 
-__all__ = ["Cell", "load", "metric_module", "metrics_for"]
+__all__ = ["Cell", "file_module", "load", "metric_module",
+           "metrics_for"]
 
 
 class Cell:
@@ -37,6 +42,11 @@ class Cell:
         cfg_entry = {c["name"]: c for c in spec["configs"]}[
             self.entry["config"]]
         self.config = json.loads((root / cfg_entry["file"]).read_text())
+        if "family" not in self.config:
+            raise ValueError(
+                f"{cfg_entry['file']} has no \"family\" key: it names "
+                "portbench/families/<family>.py, which builds, sizes and "
+                "weighs the model, and portbench/reference/<family>.py")
         self.traffic = json.loads((root / "portbench" / "traffic"
                                    / f"{self.entry['traffic']}.json")
                                   .read_text())
@@ -47,6 +57,15 @@ class Cell:
     def driver(self):
         return importlib.import_module(
             f"portbench.drivers.{self.traffic['driver']}")
+
+    def run(self, **kw):
+        """One run of the cell by its driver: its configuration, mix,
+        limits, family and reference, and ``kw``."""
+        family = self.config["family"]
+        return self.driver().run(
+            self.config, self.traffic, limits=self.limits,
+            family=file_module(self.root, "families", family),
+            reference=file_module(self.root, "reference", family), **kw)
 
 
 def load(root: pathlib.Path) -> dict:
@@ -68,12 +87,17 @@ def metrics_for(spec: dict, workload: str, trace: bool) -> list[dict]:
             and m["moves"] in e2e_names]
 
 
-def metric_module(root: pathlib.Path, name: str):
-    """``portbench/metrics/<name>.py`` of the checkout, loaded from its
+def file_module(root: pathlib.Path, kind: str, name: str):
+    """``portbench/<kind>/<name>.py`` of the checkout, loaded from its
     file."""
-    path = root / "portbench" / "metrics" / f"{name}.py"
+    path = root / "portbench" / kind / f"{name}.py"
     mod_spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
+        f"portbench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
     return mod
+
+
+def metric_module(root: pathlib.Path, name: str):
+    """``portbench/metrics/<name>.py`` of the checkout."""
+    return file_module(root, "metrics", name)

@@ -32,10 +32,9 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     cell = bench.Cell(ROOT, bench.load(ROOT), args.workload)
     for seed in args.seeds:
-        run = cell.driver().run(cell.config, cell.traffic, seed=seed,
-                                seconds=args.seconds, trace=False,
-                                device="cuda", t_start=time.perf_counter(),
-                                limits=cell.limits, control=True)
+        run = cell.run(seed=seed, seconds=args.seconds, trace=False,
+                       device="cuda", t_start=time.perf_counter(),
+                       control=True)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "program": run.notes["readings"],
                           "control": run.notes.get("control"),

@@ -20,7 +20,10 @@ untraced as in any run.  After the window, the
 pool and the engine are freed and a sample of the requests that finished
 (drawn from the seed, the longest among them) is scored by the fp32
 reference: the widest gap by which a served token's logit lies below the
-reference's best at its position.
+reference's best at its position.  What depends on the model's
+architecture (its port configuration, weights, pool layout, kernels'
+bounds and FLOPs) comes from the configuration's family module, and the
+scoring from the family's reference (``portbench/families/``).
 """
 from __future__ import annotations
 
@@ -35,43 +38,17 @@ import torch
 
 from portbench import trace as tr
 from portbench import traffic as tf
-from portbench import weights, work
-from portbench.reference.model import served_logits
 from repro_torch.cache import BlockPool, TieredKVCache
 from repro_torch.core import ECICacheManager
-from repro_torch.models.config import AttnKind, Family, ModelConfig
+from repro_torch.models.config import ModelConfig
 from repro_torch.serve.engine import MultiTenantEngine, Request
 
-__all__ = ["Record", "ServeRun", "model_config", "run"]
+__all__ = ["Record", "ServeRun", "run"]
 
 # set-up steps after which a loop that answers no client is a fault
 SETUP_STEP_LIMIT = 20000
 # seconds of the traced tail that follows the window in a traced run
 TRACE_SECONDS = 10.0
-
-
-def model_config(cfg: dict) -> ModelConfig:
-    """The port's ``ModelConfig`` for a configuration file."""
-    moe = bool(cfg.get("num_experts"))
-    d, hq = cfg["hidden_size"], cfg["num_attention_heads"]
-    kw = dict(name=cfg["name"], family=Family.MOE if moe else Family.DENSE,
-              n_layers=cfg["num_hidden_layers"], d_model=d, n_heads=hq,
-              n_kv_heads=cfg["num_key_value_heads"],
-              head_dim=cfg.get("head_dim") or d // hq,
-              d_ff=cfg["intermediate_size"], vocab_size=cfg["vocab_size"],
-              attn=AttnKind.GQA, qk_norm=cfg["port"]["qk_norm"],
-              rope_theta=float(cfg["rope_theta"]),
-              rms_eps=cfg["rms_norm_eps"],
-              tie_embeddings=cfg["tie_word_embeddings"],
-              dtype=cfg["torch_dtype"])
-    if moe:
-        f, sf = cfg["moe_intermediate_size"], \
-            cfg["shared_expert_intermediate_size"]
-        kw.update(n_experts=cfg["num_experts"], n_shared_experts=sf // f,
-                  top_k=cfg["num_experts_per_tok"], expert_d_ff=f,
-                  shared_d_ff=sf,
-                  capacity_factor=cfg["port"]["capacity_factor"])
-    return ModelConfig(**kw)
 
 
 @dataclasses.dataclass
@@ -128,20 +105,20 @@ def _take(pins: list, at: int, pid: int) -> tuple:
 
 
 class _TimedEngine(MultiTenantEngine):
-    """The port's engine, its calls timed from outside."""
+    """The port's engine, its calls timed from outside; in a traced run,
+    the family's least time of each kernel a call runs, summed by kernel
+    in ``bound_s``."""
 
-    def __init__(self, *a, spans: _Spans, **k):
+    def __init__(self, *a, spans: _Spans, family, file: dict, **k):
         super().__init__(*a, **k)
-        self.span = spans
+        self.span, self.family, self.file = spans, family, file
         self.records: dict[int, Record] = {}
         self.prefills: list = []     # (start, end, prompt tokens)
         self.decodes: list = []      # (start, end, lengths before)
-        self.bound_s = {"flash_attention": 0.0, "paged_attention": 0.0}
+        self.bound_s: dict[str, float] = {}
         self.fallbacks = 0
         self._seen_done = 0
         self._pins: list = []
-        cfg = self.cfg
-        self._heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
         alloc, pin = self.pool.allocate, self.pool.pin
 
         def allocate(tenant, *a, **k):        # an unmanaged page refused:
@@ -153,6 +130,10 @@ class _TimedEngine(MultiTenantEngine):
             self._pins.append((pid, self.pool.meta.get(pid)))   # engine
             pin(pid)                                            # takes it
         self.pool.allocate, self.pool.pin = allocate, pinned
+
+    def _add_bounds(self, bounds: dict) -> None:
+        for kernel, s in bounds.items():
+            self.bound_s[kernel] = self.bound_s.get(kernel, 0.0) + s
 
     def _prefill_one(self, req: Request) -> None:
         self._pins = []
@@ -170,18 +151,15 @@ class _TimedEngine(MultiTenantEngine):
         self.prefills.append((t, e, s))
         if self.span.on:
             padded = -(-s // self.page) * self.page
-            self.bound_s["flash_attention"] += self.cfg.n_layers * \
-                work.bound_s(*work.flash_attention_work(padded, *self._heads))
+            self._add_bounds(self.family.prefill_bound_s(self.file, padded))
 
     def _decode_batch(self) -> None:
         reqs = [r for r in self.active if not r.done]
         lens = [r.length for r in reqs]
         if self.span.on and reqs:
-            seen = work.paged_positions([np.asarray(r.pages) for r in reqs],
-                                        np.asarray(lens), self.page)
-            self.bound_s["paged_attention"] += self.cfg.n_layers * \
-                work.bound_s(*work.paged_attention_work(
-                    seen, len(reqs), self.max_pages, *self._heads))
+            self._add_bounds(self.family.decode_bound_s(
+                self.file, [np.asarray(r.pages) for r in reqs],
+                np.asarray(lens), self.page, self.max_pages))
         self._pins = []
         t = time.perf_counter()
         with self.span("decode"):
@@ -207,11 +185,11 @@ class _TimedEngine(MultiTenantEngine):
         return out
 
 
-def _build(cfg: dict, mcfg: ModelConfig, params: dict,
+def _build(cfg: dict, family, mcfg: ModelConfig, params: dict,
            dev: torch.device) -> _TimedEngine:
     dep = cfg["deployment"]
-    pool = BlockPool(dep["pool_pages"], dep["page_tokens"], mcfg.n_layers,
-                     mcfg.n_kv_heads, mcfg.head_dim,
+    pool = BlockPool(dep["pool_pages"], dep["page_tokens"],
+                     *family.pool_layout(cfg),
                      dtype=getattr(torch, mcfg.dtype), device=dev)
     mgr = ECICacheManager(dep["manager_capacity"], list(dep["tenants"]),
                           c_min=dep["c_min"],
@@ -221,7 +199,8 @@ def _build(cfg: dict, mcfg: ModelConfig, params: dict,
                           spans=spans)
     return _TimedEngine(mcfg, params, tiered, page_size=dep["page_tokens"],
                         max_pages_per_seq=dep["max_pages_per_seq"],
-                        spans=spans)
+                        spans=spans, family=family, file=cfg,
+                        **family.engine_kwargs(cfg))
 
 
 @dataclasses.dataclass
@@ -245,6 +224,7 @@ class ServeRun:
     compared: dict
     device: dict
     notes: dict
+    family: object = None        # the configuration's family module
 
     # ------------------------------------------------ what the readers use
     def in_window(self, t: float) -> bool:
@@ -265,21 +245,22 @@ def _widest_and_mean(gaps: list[torch.Tensor]) -> dict:
     return {"logit_gap": float(g.max()), "logit_gap_mean": float(g.mean())}
 
 
-def _check(params, cfg, sample, page, limits, fallbacks, lost,
+def _check(params, cfg, reference, sample, page, limits, fallbacks, lost,
            control: bool) -> tuple:
     """The numbers compared (those named in the cell's limits, each
     beside its limit), the MoE choices the reference dropped, the
     program's readings, and with ``control`` the fp8 reference's readings
     on the same sample (and, beside them, the bf16-rounded reference's)."""
     served = [(r.req.prompt, r.req.generated) for r in sample]
-    logits, drops = served_logits(params, cfg, served, page)
+    logits, drops = reference.served_logits(params, cfg, served, page)
     gaps = [_gaps(lg, torch.as_tensor(r.req.generated, device=lg.device))
             for lg, r in zip(logits, sample)]
     readings = _widest_and_mean(gaps)
     if control:      # the fp8 reference in the program's place, and bf16
         control = {}
         for prec in ("fp8", "bf16"):
-            low, _ = served_logits(params, cfg, served, page, precision=prec)
+            low, _ = reference.served_logits(params, cfg, served, page,
+                                             precision=prec)
             control[prec] = _widest_and_mean(
                 [_gaps(lg, lo.argmax(-1)) for lg, lo in zip(logits, low)])
     print("portbench: checked (rid, tenant, prompt, served, lost pages, "
@@ -294,17 +275,18 @@ def _check(params, cfg, sample, page, limits, fallbacks, lost,
 
 
 def run(cfg: dict, mix: dict, *, seed: int, seconds: float, trace: bool,
-        device: str, t_start: float, limits: dict, fault=None,
-        control: bool = False) -> ServeRun:
-    """One run of a serving cell.  ``fault``, for the tests only, is
-    called with the engine before the traffic starts and may break it;
-    with ``control`` the notes also hold ``control``: the widest and the
-    mean gap of the tokens the fp8 reference puts first on the same
-    sample."""
+        device: str, t_start: float, limits: dict, family, reference,
+        fault=None, control: bool = False) -> ServeRun:
+    """One run of a serving cell of the configuration ``cfg``, built by
+    the module ``family`` and scored by the module ``reference``.
+    ``fault``, for the tests only, is called with the engine before the
+    traffic starts and may break it; with ``control`` the notes also hold
+    ``control``: the widest and the mean gap of the tokens the fp8
+    reference puts first on the same sample."""
     dev = torch.device(device)
-    mcfg = model_config(cfg)
-    params = weights.make_params(cfg, seed, dev)
-    eng = _build(cfg, mcfg, params, dev)
+    mcfg = family.model_config(cfg)
+    params = family.make_params(cfg, seed, dev)
+    eng = _build(cfg, family, mcfg, params, dev)
     if fault is not None:
         fault(eng)
     traffic = tf.Traffic(mix, seed, cfg["vocab_size"])
@@ -424,7 +406,8 @@ def run(cfg: dict, mix: dict, *, seed: int, seconds: float, trace: bool,
     t_chk = time.perf_counter()
     if sample:
         compared, drops, notes["readings"], ctl = _check(
-            params, cfg, sample, page, limits, fallbacks, lost, control)
+            params, cfg, reference, sample, page, limits, fallbacks, lost,
+            control)
         if control:
             notes["control"] = ctl
     else:
@@ -448,7 +431,7 @@ def run(cfg: dict, mix: dict, *, seed: int, seconds: float, trace: bool,
                     rebalance_s=rebalance_s, rebalances=rebalances,
                     bound_s=bound, trace=summary, attempted=attempted,
                     failed=failed, compared=compared, device=device_info,
-                    notes=notes)
+                    notes=notes, family=family)
 
 
 def percentile(values: list[float], q: float) -> float | None:
@@ -477,8 +460,8 @@ def ttfts_ms(run: ServeRun) -> list[float]:
 
 def window_flops(run: ServeRun) -> float:
     """Model FLOPs of the prompts prefilled and the tokens decoded in the
-    window (``work.model_flops``)."""
+    window (the family's ``model_flops``)."""
     pre = [s for a, e, s in run.prefills if run.in_window(e)]
     ctx = [c for a, e, lens in run.decodes if run.in_window(e) for c in lens]
-    return work.model_flops(run.cfg, pre, ctx)
+    return run.family.model_flops(run.cfg, pre, ctx)
 

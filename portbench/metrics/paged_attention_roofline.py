@@ -12,5 +12,5 @@ def read(run):
         return None
     t = sum(s for n, s in run.trace["ops"].items()
             if any(k in n for k in KERNELS))
-    b = run.bound_s["paged_attention"]
+    b = run.bound_s.get("paged_attention", 0.0)
     return 100 * b / t if t and b else None

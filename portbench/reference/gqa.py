@@ -1,4 +1,5 @@
-"""The plain reference: the served models' forward in fp32, in PyTorch.
+"""The plain reference of the ``gqa`` family: the served models' forward
+in fp32, in PyTorch (dense and MoE decoders, GQA with RoPE in every layer).
 
 It imports nothing of the program under test (``repro_torch``), of JAX
 or of the JAX package.  It takes the configuration file's published keys

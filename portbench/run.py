@@ -40,10 +40,8 @@ def run_cell(root: pathlib.Path, workload: str, seed: int, seconds: float,
     from portbench import bench
     spec = bench.load(root)
     cell = bench.Cell(root, spec, workload)
-    run = cell.driver().run(cell.config, cell.traffic, seed=seed,
-                            seconds=seconds, trace=trace, device=device,
-                            t_start=t_start, limits=cell.limits,
-                            fault=fault)
+    run = cell.run(seed=seed, seconds=seconds, trace=trace, device=device,
+                   t_start=t_start, fault=fault)
     metrics = {}
     for m in bench.metrics_for(spec, workload, trace):
         value = bench.metric_module(root, m["name"]).read(run)

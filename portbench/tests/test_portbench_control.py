@@ -18,9 +18,7 @@ def test_fp8_control_fails_where_the_program_passes(workload, tmp_path):
     root = tiny.make_tree(tmp_path, limit=1e-3,
                           mix=dict(tiny.MIX, check_requests=1000))
     cell = bench.Cell(root, bench.load(root), workload)
-    run = cell.driver().run(cell.config, cell.traffic, seed=17, seconds=1.5,
-                            trace=False, device="cpu",
-                            t_start=time.perf_counter(), limits=cell.limits,
-                            control=True)
+    run = cell.run(seed=17, seconds=1.5, trace=False, device="cpu",
+                   t_start=time.perf_counter(), control=True)
     program, limit = run.compared["logit_gap"]
     assert program <= limit < run.notes["control"]["fp8"]["logit_gap"], run.notes

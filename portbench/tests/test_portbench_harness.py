@@ -68,6 +68,78 @@ def test_new_config_mix_and_metric_found_by_name(tmp_path):
     assert {p: p.read_bytes() for p in PB.rglob("*.py")} == before
 
 
+PLUG_FAMILY = """from portbench.families import gqa
+from portbench.families.gqa import (decode_bound_s, engine_kwargs,
+                                    make_params, model_config, model_flops,
+                                    pool_layout)
+
+
+def prefill_bound_s(cfg, padded):
+    return {**gqa.prefill_bound_s(cfg, padded), "plug_kernel": 1e-3}
+"""
+
+PLUG_REFERENCE = """import pathlib
+
+from portbench.reference import gqa
+
+
+def served_logits(*a, **k):
+    pathlib.Path(__file__).with_suffix(".called").touch()
+    return gqa.served_logits(*a, **k)
+"""
+
+
+def _files(root: pathlib.Path) -> dict:
+    return {p: p.read_bytes() for p in root.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts
+            and "_cache" not in p.parts}
+
+
+def test_new_family_and_reference_found_by_name(tmp_path, monkeypatch):
+    """A model family and its reference added as files that exist only in
+    the tree, with a kernel bound the harness has never heard of reaching
+    a metric, and no file of the harness edited."""
+    monkeypatch.setattr(serve_closed_loop, "TRACE_SECONDS", 1.0)
+    before = _files(PB)
+    root = tiny.make_tree(
+        tmp_path, configs=(dict(tiny.DENSE, name="plug", family="plug"),))
+    pb = root / "portbench"
+    (pb / "families" / "plug.py").write_text(PLUG_FAMILY)
+    (pb / "reference" / "plug.py").write_text(PLUG_REFERENCE)
+    (pb / "metrics" / "plug_bound_ms.py").write_text(
+        'UNIT, BETTER, SOURCE = "ms", "lower", "program_counter"\n'
+        'LAYER, MOVES = "plug kernel", "tokens_per_s"\n'
+        "def read(run):\n"
+        '    b = run.bound_s.get("plug_kernel")\n'
+        "    return 1e3 * b if b else None\n")
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["per_layer"].append({"name": "plug_bound_ms", "unit": "ms",
+                              "better": "lower",
+                              "source": "program_counter",
+                              "layer": "plug kernel",
+                              "moves": "tokens_per_s",
+                              "workloads": ["plug.tiny"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    out = run_cell(root, "plug.tiny", 2**36 + 5, 1.0, True, "cpu",
+                   time.perf_counter())
+    assert out["correct"] is True, out["compared"]
+    # one millisecond a prefill of the traced tail
+    n = out["metrics"]["plug_bound_ms"]["value"]
+    assert n >= 1 and n == pytest.approx(round(n))
+    assert (pb / "reference" / "plug.called").exists()
+    assert _files(PB) == before
+
+
+def test_configuration_without_a_family_is_refused(tmp_path):
+    cfg = {k: v for k, v in tiny.DENSE.items() if k != "family"}
+    root = tiny.make_tree(tmp_path, configs=(cfg,))
+    with pytest.raises(ValueError, match='"family"'):
+        bench.Cell(root, bench.load(root), "tiny-dense.tiny")
+    with pytest.raises(ValueError, match='"family"'):
+        run_cell(root, "tiny-dense.tiny", 1, 1.0, False, "cpu",
+                 time.perf_counter())
+
+
 @pytest.mark.parametrize("kind", ["end_to_end", "per_layer"])
 def test_metric_files_agree_with_benchmark_json(kind):
     for m in SPEC[kind]:
@@ -113,13 +185,15 @@ def test_benchmark_json_keeps_the_contract():
 
 
 def _imports(path: pathlib.Path) -> set[str]:
+    """Top-level names of the modules ``path`` imports (a relative import
+    as ``.``)."""
     tree = ast.parse(path.read_text())
     out = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             out |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            out.add(node.module.split(".")[0])
+        elif isinstance(node, ast.ImportFrom):
+            out.add(node.module.split(".")[0] if node.level == 0 else ".")
     return out
 
 
@@ -129,8 +203,15 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_port():
-    for path in (PB / "reference").rglob("*.py"):
-        assert "repro_torch" not in _imports(path), path
+    """Every file under ``portbench/reference/``: not the port, and not
+    the rest of the harness or a relative import, through which the port
+    (the families, the drivers) could be reached."""
+    paths = [p for p in (PB / "reference").rglob("*") if p.is_file()
+             and "__pycache__" not in p.parts]
+    assert {p.name for p in paths} >= {"__init__.py", "gqa.py"}
+    for path in paths:
+        assert path.suffix == ".py", path
+        assert not _imports(path) & {"repro_torch", "portbench", "."}, path
 
 
 def test_forbidden_modules_compared_by_whole_top_level_name(monkeypatch):

@@ -9,9 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import weights
-from portbench.drivers.serve_closed_loop import model_config
-from portbench.reference.model import served_logits
+from portbench.families.gqa import make_params, model_config
+from portbench.reference.gqa import served_logits
 from portbench.run import run_cell
 from portbench.tests import tiny
 from repro_torch.configs import get_smoke_config
@@ -29,6 +28,7 @@ def _as_file(arch: str) -> dict:
            "intermediate_size": c.d_ff, "vocab_size": c.vocab_size,
            "rms_norm_eps": c.rms_eps, "rope_theta": c.rope_theta,
            "tie_word_embeddings": c.tie_embeddings, "torch_dtype": "float32",
+           "family": "gqa",
            "port": {"qk_norm": c.qk_norm,
                     "capacity_factor": c.capacity_factor},
            "assumed": {"embedding_std": 1.0 if c.n_experts else 0.02},
@@ -55,7 +55,7 @@ def test_config_file_maps_to_the_smoke_config(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_logits_match_the_port(arch):
     cfg = _as_file(arch)
-    params = weights.make_params(cfg, 11, "cpu")
+    params = make_params(cfg, 11, "cpu")
     rng = np.random.default_rng(0)
     page = 4
     prompts = [rng.integers(0, cfg["vocab_size"], n).astype(np.int32)

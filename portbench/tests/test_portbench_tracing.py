@@ -1,8 +1,8 @@
 """The readers of the program's own spans (``prefill_pages_ms``,
-``decode_launch_ms``, ``merge_self_ms``): values in a traced run of the
-tiny tree, None for a window with no span and for a ring that has
-dropped spans of the window, and the program's ``serve.decode`` against
-the harness's own span around the same calls."""
+``decode_launch_ms``): values in a traced run of the tiny tree, None
+for a window with no span and for a ring that has dropped spans of the
+window, and the program's ``serve.decode`` against the harness's own span
+around the same calls."""
 import time
 import types
 
@@ -16,7 +16,7 @@ from portbench.tests import tiny
 from repro_torch.core.profile import (SPAN_CAPACITY, StageProfile,
                                       process_profile)
 
-READERS = ("prefill_pages_ms", "decode_launch_ms", "merge_self_ms")
+READERS = ("prefill_pages_ms", "decode_launch_ms")
 
 
 def _read(name, run):
@@ -31,9 +31,6 @@ def test_readers_report_in_a_traced_run(tmp_path, monkeypatch):
     for name in READERS:
         assert out["metrics"][name]["value"] > 0, name
         assert out["metrics"][name]["unit"] == "ms"
-    # a step's merges are part of its enqueue on the CPU, which runs them
-    assert out["metrics"]["merge_self_ms"]["value"] < \
-        out["metrics"]["decode_step_ms"]["value"]
 
 
 def test_program_decode_span_matches_the_harness_span(tmp_path):
@@ -75,7 +72,7 @@ def _steps(prof, n):
         with prof.span("serve.decode"):
             with prof.span("serve.decode.forward"):
                 for _ in range(2):
-                    with prof.device_span("serve.decode.merge_self"):
+                    with prof.device_span("serve.decode.attention"):
                         time.sleep(1e-4)
                 with prof.device_span("serve.decode.head"):
                     pass
@@ -101,5 +98,3 @@ def test_readers_silent_for_a_wrapped_ring(monkeypatch):
     _steps(big, 3)
     run = _window(t0, time.perf_counter())
     assert all(_read(name, run) > 0 for name in READERS)
-    # two merges a step of at least 0.1 ms each
-    assert _read("merge_self_ms", run) >= 0.2

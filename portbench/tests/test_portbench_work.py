@@ -1,12 +1,13 @@
 """The frozen work formulas give the counts PERF.md records for the
-kernels (the kernel table's bounds), and the model's FLOPs count the
-active parameters."""
+kernels (the kernel table's bounds), and the ``gqa`` family's model FLOPs
+count the active parameters."""
 import json
 
 import numpy as np
 import pytest
 
 from portbench import work
+from portbench.families import gqa
 from portbench.tests.tiny import REPO
 
 
@@ -61,9 +62,9 @@ def test_model_flops_count_active_parameters():
     per_tok = 2 * 24 * (4 * 2048 * 2048 + 3 * 2048 * 1408 * 4
                         + 3 * 2048 * 5632 + 2048 * 60)
     head = 2 * 2048 * 151936
-    assert work.model_flops(moe, [], [0]) == pytest.approx(
+    assert gqa.model_flops(moe, [], [0]) == pytest.approx(
         per_tok + head + 24 * 4 * 128 * 16)
-    one = work.model_flops(dense, [1], [])
+    one = gqa.model_flops(dense, [1], [])
     assert one == pytest.approx(
         2 * 28 * (2 * 1024 * 2048 + 2 * 1024 * 1024 + 3 * 1024 * 3072)
         + 28 * 4 * 128 * 16 + 2 * 1024 * 151936)

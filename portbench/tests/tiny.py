@@ -1,6 +1,7 @@
-"""A benchmark tree at a size a CPU test can hold: the committed metric
-files beside a tiny configuration, mix and limits written to a temporary
-directory, so the harness finds them by name as it finds the real ones."""
+"""A benchmark tree at a size a CPU test can hold: the committed metric,
+family and reference files beside a tiny configuration, mix and limits
+written to a temporary directory, so the harness finds them by name as it
+finds the real ones."""
 from __future__ import annotations
 
 import json
@@ -19,7 +20,8 @@ DENSE = {"name": "tiny-dense", "model_type": "qwen3",
          "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 16,
          "intermediate_size": 128, "vocab_size": 500, "rms_norm_eps": 1e-6,
          "rope_theta": 1000000, "tie_word_embeddings": True,
-         "torch_dtype": "float32", "port": {"qk_norm": True},
+         "torch_dtype": "float32", "family": "gqa",
+         "port": {"qk_norm": True},
          "assumed": {"embedding_std": 0.02},
          "deployment": DEPLOYMENT}
 
@@ -30,7 +32,7 @@ MOE = {"name": "tiny-moe", "model_type": "qwen2_moe",
        "num_experts": 8, "num_experts_per_tok": 2, "norm_topk_prob": True,
        "vocab_size": 500, "rms_norm_eps": 1e-6, "rope_theta": 1000000.0,
        "tie_word_embeddings": False, "torch_dtype": "float32",
-       "port": {"qk_norm": False, "capacity_factor": 1.25},
+       "family": "gqa", "port": {"qk_norm": False, "capacity_factor": 1.25},
        "assumed": {"embedding_std": 1.0},
        "deployment": DEPLOYMENT}
 
@@ -57,8 +59,9 @@ def make_tree(tmp: pathlib.Path, limit: float = 1e-3, dtype="float32",
     pb = root / "portbench"
     for sub in ("configs", "traffic", "limits"):
         (pb / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(REPO / "portbench" / "metrics", pb / "metrics",
-                    ignore=shutil.ignore_patterns("__pycache__"))
+    for sub in ("metrics", "families", "reference"):
+        shutil.copytree(REPO / "portbench" / sub, pb / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     spec["configs"], spec["workloads"] = [], []
     for cfg in configs:

@@ -4,7 +4,9 @@ Plain tensors in the port's parameter layout (a nested dict, every
 per-layer tensor stacked on a leading layer axis), one draw from a
 ``torch.Generator`` on the device per leaf, in the type they are served
 in.  The port's ``init_params`` is not called: the same tensors go to
-the program and, widened to fp32 layer by layer, to the reference.
+the program and, widened to fp32 layer by layer, to the reference.  Each
+family's ``make_params`` lays out the tree and draws its leaves, in a
+fixed order, with a ``Draw``.
 
 Each matrix is normal with std 1/sqrt(its contraction axis), and the
 products that write into the residual stream (``wo``, ``w_down``,
@@ -22,7 +24,7 @@ import math
 
 import torch
 
-__all__ = ["make_params", "padded_vocab"]
+__all__ = ["Draw", "padded_vocab"]
 
 NORM_STD = 0.1
 
@@ -32,48 +34,29 @@ def padded_vocab(cfg: dict) -> int:
     return -(-cfg["vocab_size"] // 256) * 256
 
 
-def make_params(cfg: dict, seed: int, device: torch.device | str) -> dict:
-    """The parameter tree of the configuration file ``cfg`` (its
-    published keys), drawn from ``seed`` on ``device``."""
-    dev = torch.device(device)
-    dtype = getattr(torch, cfg["torch_dtype"])
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed % 2**64)
-    L, d = cfg["num_hidden_layers"], cfg["hidden_size"]
-    hq, hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    hd = cfg.get("head_dim") or d // hq
-    vp = padded_vocab(cfg)
+class Draw:
+    """Leaves drawn one after another from one generator on ``device``,
+    seeded with ``seed``."""
 
-    def mat(*shape, std=None, residual=False):
-        t = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    def __init__(self, cfg: dict, seed: int, device: torch.device | str):
+        self.dev = torch.device(device)
+        self.dtype = getattr(torch, cfg["torch_dtype"])
+        self.gen = torch.Generator(device=self.dev)
+        self.gen.manual_seed(seed % 2**64)
+        self.layers = cfg["num_hidden_layers"]
+
+    def mat(self, *shape, std=None, residual=False) -> torch.Tensor:
+        """A matrix (stack) in the served type; ``std`` by default
+        1/sqrt(the contraction axis ``shape[-2]``), and with ``residual``
+        1/sqrt(2 L) smaller."""
+        t = torch.randn(shape, generator=self.gen, device=self.dev,
+                        dtype=self.dtype)
         if std is None:
-            std = 1 / math.sqrt(shape[-2] * (2 * L if residual else 1))
+            std = 1 / math.sqrt(shape[-2]
+                                * (2 * self.layers if residual else 1))
         return t.mul_(std)
 
-    def norm(*shape):
-        return torch.randn(shape, generator=gen, device=dev).mul_(NORM_STD)
-
-    attn = {"wq": mat(L, d, hq * hd), "wk": mat(L, d, hkv * hd),
-            "wv": mat(L, d, hkv * hd),
-            "wo": mat(L, hq * hd, d, residual=True)}
-    if cfg["port"]["qk_norm"]:
-        attn["q_norm"], attn["k_norm"] = norm(L, hd), norm(L, hd)
-    if cfg.get("num_experts"):
-        e, f = cfg["num_experts"], cfg["moe_intermediate_size"]
-        sf = cfg["shared_expert_intermediate_size"]
-        mlp = {"router": mat(L, d, e),
-               "w_gate": mat(L, e, d, f), "w_up": mat(L, e, d, f),
-               "w_down": mat(L, e, f, d, residual=True),
-               "shared_gate": mat(L, d, sf), "shared_up": mat(L, d, sf),
-               "shared_down": mat(L, sf, d, residual=True)}
-    else:
-        ff = cfg["intermediate_size"]
-        mlp = {"w_gate": mat(L, d, ff), "w_up": mat(L, d, ff),
-               "w_down": mat(L, ff, d, residual=True)}
-    params = {"embed": mat(vp, d, std=cfg["assumed"]["embedding_std"]),
-              "final_norm": norm(d),
-              "layers": {"ln1": norm(L, d), "attn": attn, "ln2": norm(L, d),
-                         "mlp": mlp}}
-    if not cfg["tie_word_embeddings"]:
-        params["lm_head"] = mat(d, vp)
-    return params
+    def norm(self, *shape) -> torch.Tensor:
+        """A norm's offsets from 1, in fp32."""
+        return torch.randn(shape, generator=self.gen, device=self.dev) \
+            .mul_(NORM_STD)
